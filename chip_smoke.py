@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It imports nothing of JAX and nothing of
+the JAX package ``repro``; any failure exits non-zero. Phases:
+
+1. the card, torch and CUDA versions, capability (CUDA and sm_90 required);
+2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+3. every kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it (fp32 at 1e-5, bf16 at 2e-2, bytes
+   identical);
+4. time every kernel, its plain version and a library yardstick with CUDA
+   events (median of 60 calls queued behind a spin kernel, so the host's
+   launch cost is hidden), beside the least time the card could take;
+5. serve 512 raw abstracts at the published width (``CONFIG``) in batches
+   of 64 through ``serve_abstracts``, with the launch counters set to 0
+   just before and read just after; then rerun one batch on the CPU with
+   the plain versions and compare logits and tokens;
+6. print the ``kernels`` and ``serve`` JSON lines, the card line from
+   nvidia-smi, and the result line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+N_CORPUS = 2000
+N_REQUESTS = 512
+BATCH = 64
+# Per-card peaks from NVIDIA's data sheets: (name substring, device memory
+# bytes/s, fp32 FLOP/s outside the tensor cores). First match wins.
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H200", 4.8e12, 67e12),
+    ("H100", 3.35e12, 67e12),
+)
+# Adversarial rows from the JAX package's own scan tests, plus non-ASCII,
+# an empty row and rows longer than one 1024-byte tile of the kernel.
+ADVERSARIAL = [
+    "Hello <b>World</b> 42!", "(paren) and <tag> together", "<a(b>c)d adversarial nesting",
+    "(a(b<c)d>e stray ) closer", "unclosed <span swallows", ">> leading closers ((",
+    "nested ((deep (er))) out", "<<< (((", ")))) >>>>", "naïve café 漢字 🙂 (ñé) <Ω>", "",
+    "Giant <b>Row</b> " + "Lorem IPSUM (drop me) " * 200, "<" + "x" * 3000 + ">tail",
+]
+
+
+def fail(msg: str) -> None:
+    sys.exit(f"chip_smoke: FAIL: {msg}")
+
+
+def peaks(name: str) -> tuple[float, float]:
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    fail(f"no peak figures for card {name!r}")
+
+
+def device_ms(fn, n: int = 60) -> float:
+    """Median device time of one call of ``fn``: ``n`` calls queued behind
+    a spin kernel, one CUDA event between consecutive calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda._sleep(100_000_000)  # tens of ms: the host queues all n calls meanwhile
+    for i in range(n):
+        events[i].record()
+        fn()
+    events[n].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(n))
+
+
+def lstm_inputs(B, d_in, H, dtype, gen):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    return (rnd(B, d_in), rnd(B, H), rnd(B, H), rnd(d_in, 4 * H, scale=0.05),
+            rnd(H, 4 * H, scale=0.05), rnd(4 * H, scale=0.1))
+
+
+def check_lstm_cell(gen) -> float:
+    """Kernel vs plain version at the served shapes; returns the fp32 max
+    abs error."""
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_op
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    err = 0.0
+    served = [(BATCH, 128, 256), (BATCH, 256, 256)]
+    # ragged tiles (the JAX suite's shapes) and > 48 KB of shared memory
+    edges = [(5, 24, 48), (4, 16, 32), (3, 2048, 256)]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for B, d_in, H in served + edges:
+            args = lstm_inputs(B, d_in, H, dtype, gen)
+            got = lstm_cell_op(*args)
+            torch.cuda.synchronize()
+            want = lstm_cell_ref(*args)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+                if dtype == torch.float32 and (B, d_in, H) in served:
+                    err = max(err, (g - w).abs().max().item())
+            print(f"lstm_cell {dtype} B={B} d_in={d_in} H={H}: matches plain (tol {tol})")
+    return err
+
+
+def time_lstm_cell(gen, bw: float, flops: float) -> dict:
+    """Times at the two served shapes, weighted by the serving mix: per
+    batch 128 encoder layer-0 steps and 24 decoder steps at d_in=128, 256
+    steps of encoder layers 1-2 at d_in=256."""
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_op
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    mix = {128: 128 + 24, 256: 2 * 128}
+    B, H = BATCH, 256
+    rows = {}
+    for d_in in mix:
+        x, h, c, wx, wh, b = lstm_inputs(B, d_in, H, torch.float32, gen)
+        w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
+        b_ih = b.clone()
+        b_ih[H : 2 * H] += 1.0  # the +1 forget bias folded in
+        b_hh = torch.zeros_like(b)
+        lib = torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+        for g, w in zip(lib, lstm_cell_ref(x, h, c, wx, wh, b)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        n_bytes = 4 * (B * d_in + 2 * B * H + (d_in + H) * 4 * H + 4 * H + 2 * B * H)
+        n_ops = 2 * B * (d_in + H) * 4 * H + 2 * B * 4 * H
+        rows[d_in] = {
+            "ms": device_ms(lambda: lstm_cell_op(x, h, c, wx, wh, b)),
+            "plain_ms": device_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, b)),
+            "library_ms": device_ms(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
+            "bytes_ms": n_bytes / bw * 1e3,
+            "ops_ms": n_ops / flops * 1e3,
+        }
+        print(f"lstm_cell fp32 d_in={d_in}: {json.dumps(rows[d_in])}")
+    total = sum(mix.values())
+
+    def mean(key):
+        return sum(n * rows[d][key] for d, n in mix.items()) / total
+
+    bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
+    return {"ms": mean("ms"), "plain_ms": mean("plain_ms"), "library_ms": mean("library_ms"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def flat_rows(rows):
+    from repro_torch.core.bytesops import flatten
+
+    buf = torch.from_numpy(flatten([r.replace("\x00", " ") for r in rows])).cuda()
+    ends = torch.nonzero(buf == 0).flatten() + 1
+    return buf, torch.cat([ends.new_zeros(1), ends])
+
+
+def check_text_scan(abstracts, titles) -> float:
+    import itertools
+
+    from repro_torch.kernels.text_clean.ops import scan_flat, text_scan_op
+    from repro_torch.kernels.text_clean.ref import text_scan_ref
+
+    rows = abstracts[:256] + titles[:256] + ADVERSARIAL
+    buf, offsets = flat_rows(rows)
+    gen = torch.Generator().manual_seed(SEED)
+    alphabet = torch.tensor(list(b"<>()aZ \x00\xff"), dtype=torch.uint8)
+    noise = alphabet[torch.randint(0, alphabet.numel(), (64 * 1500,), generator=gen)].cuda()
+    noise_offsets = torch.arange(65, dtype=torch.int64, device="cuda") * 1500
+    err = 0
+    for lower, html, parens in itertools.product((False, True), repeat=3):
+        flags = dict(lower=lower, strip_html=html, strip_parens=parens)
+        for b, o in ((buf, offsets), (noise, noise_offsets)):
+            got = text_scan_op(b, o, **flags)
+            torch.cuda.synchronize()
+            diff = (got.int() - text_scan_ref(b, o, **flags).int()).abs().max().item()
+            err = max(err, diff)
+            if diff:
+                fail(f"text_scan differs from its plain version with {flags}")
+        np_buf = buf.cpu().numpy()
+        if scan_flat(np_buf, device="cuda", **flags).tobytes() != \
+                scan_flat(np_buf, device="cpu", **flags).tobytes():
+            fail(f"scan_flat on the card differs from the CPU with {flags}")
+    print(f"text_scan: bytes identical to plain for all 8 flag sets "
+          f"({buf.numel()} + {noise.numel()} bytes)")
+    return float(err)
+
+
+def time_text_scan(abstracts, bw: float) -> dict:
+    """One served batch: 64 raw abstracts, all three flags on."""
+    from repro_torch.kernels.text_clean.ops import text_scan_op
+    from repro_torch.kernels.text_clean.ref import text_scan_ref
+
+    buf, offsets = flat_rows(abstracts[:BATCH])
+    flags = dict(lower=True, strip_html=True, strip_parens=True)
+    n_bytes = 2 * buf.numel() + 8 * offsets.numel()
+    print(f"text_scan timed on one batch: {offsets.numel() - 1} rows, {buf.numel()} bytes")
+    return {"ms": device_ms(lambda: text_scan_op(buf, offsets, **flags)),
+            "plain_ms": device_ms(lambda: text_scan_ref(buf, offsets, **flags)),
+            "library_ms": None, "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
+
+
+def serve(abstracts, titles):
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.core.clean import clean_abstracts, clean_titles
+    from repro_torch.data.tokenizer import START, WordTokenizer
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.text_clean import ops as scan_ops
+    from repro_torch.launch.serve import encode_abstracts, serve_abstracts
+    from repro_torch.models.seq2seq import Seq2Seq
+
+    t0 = time.perf_counter()
+    clean_a, clean_t = clean_abstracts(abstracts, "cuda"), clean_titles(titles, "cuda")
+    clean_s = time.perf_counter() - t0
+    if clean_a != clean_abstracts(abstracts, "cpu") or clean_t != clean_titles(titles, "cpu"):
+        fail("cleaning on the card differs from cleaning on the CPU")
+    tok = WordTokenizer.fit(clean_a + clean_t, vocab_size=CONFIG.vocab_size)
+    model = Seq2Seq(CONFIG, "cuda", seed=SEED)
+    requests = abstracts[:N_REQUESTS]
+    serve_abstracts(model, tok, requests[:BATCH], batch_size=BATCH)  # warm-up
+    torch.cuda.synchronize()
+
+    lstm_ops.LAUNCHES["lstm_cell"] = 0
+    scan_ops.LAUNCHES["text_scan"] = 0
+    t0 = time.perf_counter()
+    out = serve_abstracts(model, tok, requests, batch_size=BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"lstm_cell": lstm_ops.LAUNCHES["lstm_cell"],
+                "text_scan": scan_ops.LAUNCHES["text_scan"]}
+    n_batches = -(-N_REQUESTS // BATCH)
+    want = n_batches * (CONFIG.n_encoder_layers * CONFIG.max_abstract_len + CONFIG.max_title_len)
+    if launches["lstm_cell"] != want:
+        fail(f"serving made {launches['lstm_cell']} lstm_cell launches, expected {want}")
+    if launches["text_scan"] < n_batches:
+        fail(f"serving made {launches['text_scan']} text_scan launches, expected >= {n_batches}")
+    if len(out) != N_REQUESTS or not all(isinstance(t, str) for t in out):
+        fail("serve_abstracts did not return one title per request")
+    known = set(tok.itos) | {"<unk>"}
+    if any(w not in known for t in out for w in t.split()):
+        fail("a served title holds a word outside the vocabulary")
+    print(f"served {len(out)} requests in {seconds:.3f} s (cleaning of {len(abstracts)} "
+          f"abstracts and titles on the card took {clean_s:.3f} s); launches {launches}")
+    for a, t in list(zip(requests, out))[:2]:
+        print(f"  {a[:50]!r}... -> {t[:80]!r}")
+
+    # One batch again on the CPU with the plain versions, same weights.
+    cpu = Seq2Seq(CONFIG, "cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = requests[:BATCH]
+    enc = encode_abstracts(cpu, tok, batch)
+    if not torch.equal(encode_abstracts(model, tok, batch).cpu(), enc):
+        fail("encoder tokens differ between card and CPU")
+    gen_card = model.generate(enc.cuda()).cpu()
+    gen_cpu = cpu.generate(enc)
+    agreement = (gen_card == gen_cpu).float().mean().item()
+    if gen_card.min() < 0 or gen_card.max() >= CONFIG.vocab_size:
+        fail("generated token outside the vocabulary")
+    dec = torch.cat([torch.full((BATCH, 1), START, dtype=torch.int32), gen_cpu[:, :-1]], 1)
+    with torch.no_grad():
+        logits_card = model({"encoder_tokens": enc.cuda(), "decoder_tokens": dec.cuda()}).cpu()
+        logits_cpu = cpu({"encoder_tokens": enc, "decoder_tokens": dec})
+    if not torch.isfinite(logits_card).all():
+        fail("non-finite logits on the card")
+    torch.testing.assert_close(logits_card, logits_cpu, rtol=1e-4, atol=1e-4)
+    logit_err = (logits_card - logits_cpu).abs().max().item()
+    print(f"card vs CPU on one batch: logits max abs err {logit_err:.3e} (tol 1e-4), "
+          f"generated-token agreement {agreement:.4%}")
+    if agreement < 0.99:
+        fail(f"generated-token agreement {agreement:.4%} is under 99%")
+    tokens = N_REQUESTS * CONFIG.max_title_len
+    return launches, {"requests": len(out), "tokens": tokens, "seconds": seconds,
+                      "tokens_per_s": tokens / seconds, "logits_max_abs_err": logit_err,
+                      "token_agreement": agreement}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch import device
+    from repro_torch.data.synthetic import abstracts_and_titles
+    from repro_torch.kernels import _build
+
+    # 1. the card
+    card = device.card()
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"capability {cap}, {torch.cuda.device_count()} device(s)")
+    if not device.is_sm90():
+        fail(f"capability {cap}: the kernels are built for sm_90a")
+    bw, flops = peaks(name)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.library()
+    built = "reused a cached build" if _build.build_seconds is None else \
+        f"nvcc took {_build.build_seconds:.1f} s"
+    print(f"kernels ready in {time.perf_counter() - t0:.1f} s ({built}) "
+          f"-> {_build.LIBRARY.relative_to(ROOT)}")
+
+    # 3. kernels against their plain versions
+    gen = torch.Generator().manual_seed(SEED)
+    abstracts, titles = abstracts_and_titles(N_CORPUS, seed=SEED)
+    lstm_err = check_lstm_cell(gen)
+    scan_err = check_text_scan(abstracts, titles)
+
+    # 4. timings
+    lstm_t = time_lstm_cell(gen, bw, flops)
+    scan_t = time_text_scan(abstracts, bw)
+
+    # 5. the slice at CONFIG width
+    launches, serve_line = serve(abstracts, titles)
+
+    # 6. report
+    kernels = [
+        {"name": "lstm_cell", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+         "replaces": "src/repro/kernels/lstm_cell/lstm_cell.py:23",
+         "launches": launches["lstm_cell"], "max_abs_err": lstm_err, **lstm_t},
+        {"name": "text_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/text_scan.cu",
+         "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
+         "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"serve": {**serve_line, "card": card}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,139 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into an object file, all
+sources at once in parallel, and the objects link into one shared library
+with a plain C interface, ``build/repro_torch/libkernels.so`` at the root
+of the checkout. The library is loaded with ``ctypes``; every pointer and
+the stream are passed as ``c_void_p``.
+
+The build happens at the first launch and is cached by a hash of the
+sources (and flags): a later process reuses the library while the hash
+matches. A failed build raises with nvcc's stderr; nothing falls back.
+Importing this module needs neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIBRARY = BUILD_DIR / "libkernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their argument types; each returns cudaGetLastError().
+SIGNATURES = {
+    "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "lstm_cell_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "text_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's build, if it built
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (neither on PATH nor under /usr/local/cuda/bin)")
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with stderr if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{out}{err}")
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``LIBRARY`` unless the cached build matches."""
+    global build_seconds
+    digest = source_hash()
+    stamp = LIBRARY.with_suffix(".so.sha256")
+    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
+        return LIBRARY
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tool = nvcc()
+    tag = str(os.getpid())  # private names: concurrent builds never share files
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    _run_all([[tool, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(sources(), objs)])
+    tmp = BUILD_DIR / f"libkernels.{tag}.so"
+    _run_all([[tool, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, LIBRARY)
+    stamp.write_text(digest)
+    build_seconds = time.perf_counter() - t0
+    return LIBRARY
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def current_stream(device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle. The library
+    launches on the calling thread's current CUDA device, so ``device`` must
+    be that device."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors are on {device}, but the current CUDA device is "
+                         f"cuda:{torch.cuda.current_device()}; use torch.cuda.device()")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
