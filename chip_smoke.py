@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -18,18 +18,28 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
    the plain versions and compare logits and tokens;
-6. print the ``kernels`` and ``serve`` JSON lines, the card line from
-   nvidia-smi, and the result line.
+6. serve 8 requests with StableLM-3B at its published width (random
+   weights from seed 0 built on the card) through ``serve_requests``, 4
+   slots, 12 new tokens, a 128-long cache, with the flash-attention launch
+   counter set to 0 just before and read just after; then a 2-layer model
+   of the same width at ``init_scale=1`` (so that its layers move the
+   logits) on the card and on the CPU with the same weights: what the
+   layers add to the residual, ``forward`` logits and served tokens
+   compared, and ``decode_step`` on the card held against ``forward``;
+7. print the ``kernels``, ``serve`` and ``serve_lm`` JSON lines, the card
+   line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -37,6 +47,9 @@ SEED = 0
 N_CORPUS = 2000
 N_REQUESTS = 512
 BATCH = 64
+# LM serving: the JAX launcher's defaults (src/repro/launch/serve.py:25-28)
+LM_ARCH = "stablelm_3b"
+LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_SEQ = 8, 4, 12, 128
 # Per-card peaks from NVIDIA's data sheets: (name substring, device memory
 # bytes/s, fp32 FLOP/s outside the tensor cores). First match wins.
 PEAKS = (
@@ -207,6 +220,130 @@ def time_text_scan(abstracts, bw: float) -> dict:
             "library_ms": None, "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
 
 
+# (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len); kv_len None = skv
+FLASH_SERVED = (
+    # block prefill of a 4-16 token prompt into a 128-long cache
+    [(1, sq, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, sq) for sq in (4, 9, 16)]
+    # one-token decode at position pos over pos + 1 cached keys
+    + [(1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, pos, pos + 1) for pos in (0, 4, 15, 31, 77, 126)]
+)
+FLASH_EDGES = [
+    # the JAX suite's FLASH_CASES (tests/test_kernels.py:47-54)
+    (2, 128, 128, 4, 4, 64, True, 0, 0, None),
+    (1, 256, 256, 8, 2, 32, True, 0, 0, None),
+    (2, 128, 128, 4, 1, 64, True, 64, 0, None),  # MQA + sliding window
+    (1, 96, 96, 4, 4, 64, False, 0, 0, None),  # non-causal, ragged
+    (1, 200, 200, 2, 2, 128, True, 0, 0, None),  # padded sequence
+    # narrow windows: early key tiles fully masked for late rows
+    (1, 256, 256, 2, 1, 32, True, 16, 0, None),
+    (2, 100, 100, 4, 2, 8, False, 8, 0, None),
+    (2, 12, 12, 8, 2, 8, True, 0, 0, None),  # the SMOKE configs' head_dim
+    # kv_len > 1024: decode and a block prefill deep into a long cache
+    (1, 1, 2048, 32, 32, 80, True, 0, 1500, 1501),
+    (1, 64, 2048, 8, 2, 128, True, 0, 1200, 1264),
+    (1, 3, 600, 4, 2, 64, True, 100, 450, 453),  # a windowed block deep in a cache
+]
+FLASH_DECODE = (1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, 15, 16)
+FLASH_PREFILL = (1, 10, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, 10)
+
+
+def flash_inputs(case, dtype, gen, strided=False):
+    """q, k, v on the card; with ``strided`` k and v are views of a
+    (b, nkv, skv, hd) buffer, so their strides are not the contiguous ones."""
+    b, sq, skv, nq, nkv, hd = case[:6]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    q = rnd(b, sq, nq, hd)
+    if strided:
+        return q, rnd(b, nkv, skv, hd).transpose(1, 2), rnd(b, nkv, skv, hd).transpose(1, 2)
+    return q, rnd(b, skv, nkv, hd), rnd(b, skv, nkv, hd)
+
+
+def flash_kwargs(case) -> dict:
+    causal, window, q_offset, kv_len = case[6:]
+    return dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+
+
+def check_flash_attention(gen) -> float:
+    """Kernel vs plain version at every listed shape; returns the fp32 max
+    abs error at the serving shapes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    err = 0.0
+    cases = [(c, False) for c in FLASH_SERVED + FLASH_EDGES] + [(FLASH_SERVED[-1], True),
+                                                                 (FLASH_EDGES[1], True)]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for case, strided in cases:
+            q, k, v = flash_inputs(case, dtype, gen, strided)
+            got = flash_attention_op(q, k, v, **flash_kwargs(case))
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, **flash_kwargs(case))
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            if dtype == torch.float32 and case in FLASH_SERVED:
+                err = max(err, (got - want).abs().max().item())
+        print(f"flash_attention {dtype}: matches plain at {len(cases)} shapes (tol {tol})")
+    return err
+
+
+def flash_work(case) -> tuple[int, int]:
+    """(bytes, operations) the call needs in fp32: q read, the keys and
+    values the masks leave visible to some row read once, out written;
+    4 * hd operations per visible (query, key) pair (q.k and p.v)."""
+    b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len = case
+    n_keys = min(skv, kv_len or skv)
+    q_pos = torch.arange(sq)[:, None] + q_offset
+    k_pos = torch.arange(n_keys)[None, :]
+    mask = torch.ones(sq, n_keys, dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    read_keys = int(mask.any(0).sum())
+    n_bytes = 4 * (2 * b * sq * nq * hd + 2 * b * read_keys * nkv * hd)
+    return n_bytes, 4 * hd * b * nq * int(mask.sum())
+
+
+def time_flash_attention(gen, bw: float, flops: float) -> dict:
+    """Times at a decode and a prefill shape of the serving path, fp32;
+    the library yardstick is ``scaled_dot_product_attention`` over the whole
+    cache with an explicit boolean mask (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rows = {}
+    for label, case in (("decode", FLASH_DECODE), ("prefill", FLASH_PREFILL)):
+        q, k, v = flash_inputs(case, torch.float32, gen)
+        kw = flash_kwargs(case)
+        sq, skv, q_offset, kv_len = case[1], case[2], case[8], case[9]
+        q_pos = torch.arange(sq, device="cuda")[:, None] + q_offset
+        k_pos = torch.arange(skv, device="cuda")[None, :]
+        mask = (k_pos <= q_pos) & (k_pos < kv_len)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        torch.testing.assert_close(library().transpose(1, 2), flash_attention_ref(q, k, v, **kw),
+                                   rtol=1e-4, atol=1e-4)
+        n_bytes, n_ops = flash_work(case)
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / flops * 1e3
+        rows[label] = {
+            "ms": device_ms(lambda: flash_attention_op(q, k, v, **kw)),
+            "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, **kw)),
+            "library_ms": device_ms(library),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": list(case),
+        }
+        print(f"flash_attention fp32 {label}: {json.dumps(rows[label])}")
+    return rows
+
+
 def serve(abstracts, titles):
     from repro_torch.configs.p3sapp_summarizer import CONFIG
     from repro_torch.core.clean import clean_abstracts, clean_titles
@@ -281,6 +418,127 @@ def serve(abstracts, titles):
                       "token_agreement": agreement}
 
 
+def token_agreement(a: dict[int, list[int]], b: dict[int, list[int]]) -> float:
+    """Share of positions, over the longer of each pair, where two runs
+    generated the same token."""
+    same = sum(sum(x == y for x, y in zip(a[u], b[u])) for u in a)
+    return same / sum(max(len(a[u]), len(b[u])) for u in a)
+
+
+def serve_lm(cfg):
+    """Serve ``LM_REQUESTS`` requests at ``cfg``'s width with random weights
+    from ``SEED`` built on the card; returns the flash launches and the
+    ``serve_lm`` line."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.serve import lm_requests
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.serve_loop import serve_requests
+
+    t0 = time.perf_counter()
+    model = LM(cfg, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    if n_params != cfg.param_count():
+        fail(f"{cfg.name} has {n_params} parameters, expected {cfg.param_count()}")
+    print(f"{cfg.name}: {n_params} parameters built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    requests = lm_requests(cfg, LM_REQUESTS, max_new=LM_MAX_NEW, seed=SEED)
+    kw = dict(slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    serve_requests(model, requests[:1], **kw)  # warm-up
+    torch.cuda.synchronize()
+
+    flash_ops.LAUNCHES["flash_attention"] = 0
+    t0 = time.perf_counter()
+    out = serve_requests(model, requests, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_ops.LAUNCHES["flash_attention"]
+    n_tokens = sum(len(t) for t in out.values())
+    if sorted(out) != [r.uid for r in requests]:
+        fail("serve_requests did not answer every request")
+    if any(not 1 <= len(t) <= LM_MAX_NEW for t in out.values()):
+        fail("a request got no token or more than max_new")
+    if any(not 0 <= x < cfg.vocab_size for t in out.values() for x in t):
+        fail("a served token lies outside the vocabulary")
+    if launches != cfg.n_layers * n_tokens:
+        fail(f"serving made {launches} flash_attention launches, expected "
+             f"{cfg.n_layers} x {n_tokens} = {cfg.n_layers * n_tokens}")
+    print(f"served {len(out)} LM requests / {n_tokens} tokens in {seconds:.3f} s "
+          f"({len(out) / seconds:.2f} requests/s, {n_tokens / seconds:.1f} tokens/s); "
+          f"flash_attention launches {launches} = {cfg.n_layers} x {n_tokens}")
+    for uid in sorted(out)[:2]:
+        print(f"  req {uid}: {requests[uid].prompt.tolist()} -> {out[uid]}")
+    line = {"arch": cfg.name, "params": n_params, "requests": len(out), "tokens": n_tokens,
+            "slots": LM_SLOTS, "max_new": LM_MAX_NEW, "max_seq": LM_MAX_SEQ,
+            "seconds": seconds, "requests_per_s": len(out) / seconds,
+            "tokens_per_s": n_tokens / seconds}
+    return launches, line
+
+
+def lm_card_vs_cpu(cfg) -> dict:
+    """A 2-layer model of ``cfg``'s width at ``init_scale=1`` on the card
+    and on the CPU with the same weights. At the reference scale (0.02) the
+    layers add ~1e-4 to a residual of ~50 and move the logits by ~1e-7, so
+    no comparison of logits could see them; at 1 they add O(1). Checked:
+    what the layers add to the residual (``hidden`` less the embedding),
+    card vs CPU within 1e-4, after checking that it is far larger than
+    that; ``forward`` logits of two prompts card vs CPU within 1e-4; on the
+    card, a block prefill and single ``decode_step`` calls against
+    ``forward`` within 1e-4 (a wrong cache position or kv_len fails); and
+    tokens of 4 served requests agreeing at >= 99% of positions."""
+    from repro_torch.launch.serve import lm_requests
+    from repro_torch.models.blocks import embed_tokens
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.serve_loop import serve_requests
+
+    small = dataclasses.replace(cfg, n_layers=2, init_scale=1.0)
+    card = LM(small, "cuda", seed=SEED)
+    cpu = LM(small, "meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED).integers(4, cfg.vocab_size, size=(2, 16)).astype(np.int32))
+
+    def layers_add(model, t):
+        with torch.no_grad():
+            return (model.hidden(t) - embed_tokens(model.embed, t, small)).cpu()
+
+    delta_card, delta_cpu = layers_add(card, tokens.cuda()), layers_add(cpu, tokens)
+    delta_size = delta_cpu.abs().mean().item()
+    if delta_size < 100 * 1e-4:
+        fail(f"the layers add only {delta_size:.3e} to the residual: 1e-4 cannot see them")
+    torch.testing.assert_close(delta_card, delta_cpu, rtol=1e-4, atol=1e-4)
+    delta_err = (delta_card - delta_cpu).abs().max().item()
+    logits_card = card({"tokens": tokens.cuda()}).cpu()
+    if not torch.isfinite(logits_card).all():
+        fail("non-finite LM logits on the card")
+    logits_cpu = cpu({"tokens": tokens})
+    torch.testing.assert_close(logits_card, logits_cpu, rtol=1e-4, atol=1e-4)
+    logit_err = (logits_card - logits_cpu).abs().max().item()
+
+    state = card.init_decode_state(2, LM_MAX_SEQ)
+    decode_err = 0.0
+    for start, end in [(0, 5)] + [(i, i + 1) for i in range(5, 16)]:
+        step, state = card.decode_step(tokens[:, start:end].cuda(), state, start)
+        want = logits_card[:, end - 1 : end]
+        torch.testing.assert_close(step.cpu(), want, rtol=1e-4, atol=1e-4)
+        decode_err = max(decode_err, (step.cpu() - want).abs().max().item())
+
+    requests = lm_requests(small, 4, max_new=LM_MAX_NEW, seed=SEED + 1)
+    kw = dict(slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    agreement = token_agreement(serve_requests(card, requests, **kw),
+                                serve_requests(cpu, requests, **kw))
+    print(f"{small.name} with 2 layers at init_scale 1, card vs CPU: what the layers add "
+          f"(mean abs {delta_size:.3e}) max abs err {delta_err:.3e}, forward logits max abs "
+          f"err {logit_err:.3e} (tol 1e-4); card decode_step vs forward max abs err "
+          f"{decode_err:.3e} (tol 1e-4); served-token agreement {agreement:.4%}")
+    if agreement < 0.99:
+        fail(f"served-token agreement {agreement:.4%} is under 99%")
+    return {"layers_add_mean_abs": delta_size, "layers_add_max_abs_err": delta_err,
+            "logits_max_abs_err": logit_err,
+            "decode_vs_forward_max_abs_err": decode_err, "token_agreement": agreement}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -317,15 +575,28 @@ def main() -> int:
     abstracts, titles = abstracts_and_titles(N_CORPUS, seed=SEED)
     lstm_err = check_lstm_cell(gen)
     scan_err = check_text_scan(abstracts, titles)
+    flash_err = check_flash_attention(gen)
 
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
     scan_t = time_text_scan(abstracts, bw)
+    flash_rows = time_flash_attention(gen, bw, flops)
 
-    # 5. the slice at CONFIG width
+    # 5. the summarizer at CONFIG width
     launches, serve_line = serve(abstracts, titles)
 
-    # 6. report
+    # 6. StableLM-3B at CONFIG width, then card vs CPU at 2 layers
+    from repro_torch.configs import get
+
+    lm_cfg = get(LM_ARCH)
+    flash_launches, serve_lm_line = serve_lm(lm_cfg)
+    # headline: the decode row, which is most of the serving run's launches
+    flash_t = {**{k: flash_rows["decode"][k] for k in
+                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **flash_rows}
+    torch.cuda.empty_cache()
+    serve_lm_line.update(lm_card_vs_cpu(lm_cfg))
+
+    # 7. report
     kernels = [
         {"name": "lstm_cell", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
@@ -335,9 +606,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
          "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+         "launches": flash_launches, "max_abs_err": flash_err, **flash_t},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
+    print(json.dumps({"serve_lm": {**serve_lm_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -35,11 +35,17 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types; each returns cudaGetLastError().
 SIGNATURES = {
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lstm_cell_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "text_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, out; b, sq, skv, nq, nkv, hd; (batch, seq, head) strides of
+    # q, k and v in elements; causal, window, q_offset, kv_len; scale; stream
+    "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
+    "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
 }
 
 _lock = threading.Lock()

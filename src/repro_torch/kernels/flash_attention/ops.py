@@ -1,0 +1,104 @@
+"""Public wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+Counterpart of ``repro/kernels/flash_attention/ops.py:19
+flash_attention_op`` with two more runtime arguments, ``q_offset`` and
+``kv_len``, so that one call serves a full sequence, a block prefill into
+a KV cache and a one-token decode step. Tensors stay in the model layout
+``(b, s, heads, hd)``; the kernel reads them through their strides, so a
+KV cache is read in place. CPU tensors go to the plain version in
+``ref.py``; CUDA tensors go to the kernel or raise.
+``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+from .ref import flash_attention_ref
+
+LAUNCHES = {"flash_attention": 0}
+
+_ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+MAX_HEAD_DIM = 128  # four 32-lane slots of the accumulator in the kernel
+_ROWS = 16  # query rows per block (csrc/flash_attention.cu kRows)
+
+
+def _check(q, k, v, q_offset, kv_len) -> None:
+    tensors = {"q": q, "k": k, "v": v}
+    for name, t in tensors.items():
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (b, s, heads, hd), got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {q.dtype} like q")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    b, _, nq, hd = q.shape
+    _, skv, nkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k has shape {tuple(k.shape)}, expected ({b}, skv, nkv, {hd})")
+    if v.shape != k.shape:
+        raise ValueError(f"v has shape {tuple(v.shape)}, expected {tuple(k.shape)} like k")
+    if nkv == 0 or nq % nkv:
+        raise ValueError(f"{nq} query heads do not split into groups of {nkv} kv heads")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds {MAX_HEAD_DIM}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    if kv_len is not None and (not isinstance(kv_len, int) or kv_len < 0):
+        raise ValueError(f"kv_len must be None or an int >= 0, got {kv_len!r}")
+
+
+def _check_every_row_sees_a_key(sq, skv, causal, window, q_offset, kv_len) -> None:
+    """Refuse a call that leaves a query row with no visible key: the Pallas
+    kernel gives such a row the mean of v (every score at -1e30), which the
+    CUDA kernel does not reproduce. A row's count of visible keys, hi - lo,
+    is concave in its position, so the first and the last row bound it."""
+    n_keys = skv if kv_len is None else min(kv_len, skv)
+    for pos in (q_offset, q_offset + sq - 1):
+        hi = min(n_keys, pos + 1) if causal else n_keys
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        if lo >= hi:
+            raise ValueError(f"the query row at position {pos} sees no key (kv_len {n_keys}, "
+                             f"causal {causal}, window {window})")
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
+                       q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """Attention of q ``(b, sq, nq, hd)`` over k/v ``(b, skv, nkv, hd)``
+    -> a fresh ``(b, sq, nq, hd)`` in q's dtype. Query row ``i`` sits at
+    position ``q_offset + i``; only keys before ``kv_len`` (all when None)
+    are seen, with the causal and sliding-window masks on top. Every query
+    row must see at least one key; ``attend`` never makes a row that does
+    not."""
+    _check(q, k, v, q_offset, kv_len)
+    if q.shape[1]:
+        _check_every_row_sees_a_key(q.shape[1], k.shape[1], causal, window, q_offset, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_op: unsupported device {q.device}")
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"flash_attention_op: kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_op: {name}'s head_dim must be contiguous")
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    if -(-sq // _ROWS) > 65535:
+        raise ValueError(f"flash_attention_op: {sq} query rows exceed the grid")
+    out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_build.library(), _ENTRY[q.dtype])
+    stream = _build.current_stream(q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, sq, skv, nq, nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             int(causal), window, q_offset, skv if kv_len is None else min(kv_len, skv),
+             1.0 / math.sqrt(hd), stream)
+    _build.check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,26 +1,36 @@
-"""Serve the title generator: abstracts in, generated titles out.
+"""Serving launcher: the title generator, or an LM through continuous batching.
 
-The sequence of ``examples/train_summarizer.py:108-114`` (paper Algorithm
-3) as a serving call: clean -> tokenize -> greedy generate -> decode, one
-batch at a time, on the card unless ``--device`` names another.
+``--arch p3sapp_summarizer`` (the default) serves the title generator: the
+sequence of ``examples/train_summarizer.py:108-114`` (paper Algorithm 3)
+as a serving call, clean -> tokenize -> greedy generate -> decode, one
+batch at a time. ``--arch stablelm_3b`` (or another LM of
+``repro_torch.configs.ARCH_IDS``) does what ``repro/launch/serve.py:21-55``
+does: random weights from the seed, prompts of 4-15 random tokens, and
+``serve_requests`` through ``--slots`` decode slots. Both run on the card
+unless ``--device`` names another.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b --smoke --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from ..configs import ARCH_IDS, get, get_smoke
 from ..configs.p3sapp_summarizer import CONFIG, SMOKE
 from ..core.clean import clean_abstracts, clean_titles
 from ..data.synthetic import abstracts_and_titles
 from ..data.tokenizer import WordTokenizer
+from ..models.lm import LM
 from ..models.seq2seq import Seq2Seq
+from ..runtime.serve_loop import Request, serve_requests
 
 
 def encode_abstracts(model: Seq2Seq, tok: WordTokenizer, abstracts: Sequence[str]) -> torch.Tensor:
@@ -42,67 +52,122 @@ def serve_abstracts(model: Seq2Seq, tok: WordTokenizer, abstracts: Sequence[str]
     return titles
 
 
+def lm_requests(cfg, n: int, *, max_new: int, seed: int = 0) -> list[Request]:
+    """The prompts of ``repro/launch/serve.py:37-45``: lengths 4-15, tokens
+    4..vocab-1, from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [
+        Request(uid=i, max_new=max_new,
+                prompt=rng.integers(4, cfg.vocab_size,
+                                    size=int(rng.integers(4, 16))).astype(np.int32))
+        for i in range(n)
+    ]
+
+
 def main(argv: Sequence[str] | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
-    ap.add_argument("--requests", type=int, default=64)
-    ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--arch", choices=["p3sapp_summarizer", *ARCH_IDS],
+                    default="p3sapp_summarizer")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="64 for the summarizer, 8 for an LM")
+    ap.add_argument("--batch-size", type=int, default=64, help="summarizer batch")
+    ap.add_argument("--slots", type=int, default=4, help="LM decode slots")
+    ap.add_argument("--max-new", type=int, default=12, help="LM tokens per request")
+    ap.add_argument("--max-seq", type=int, default=128, help="LM KV cache length")
     ap.add_argument("--smoke", action="store_true", help="tiny model config")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more batch with torch.profiler and print device "
-                         "time by kernel and the device's busy share")
+                    help="trace one more batch (summarizer) or one request's prefill and "
+                         "decode (LM) with torch.profiler and print device time by kernel "
+                         "and the device's busy share")
     args = ap.parse_args(argv)
-
-    cfg = SMOKE if args.smoke else CONFIG
     device = torch.device(args.device)
-    abstracts, titles = abstracts_and_titles(args.requests, seed=args.seed)
-    tok = WordTokenizer.fit(clean_abstracts(abstracts, device) + clean_titles(titles, device),
-                            vocab_size=cfg.vocab_size)
-    model = Seq2Seq(cfg, device, seed=args.seed)
-    serve_abstracts(model, tok, abstracts[: args.batch_size])  # warm-up: build, library init
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    if args.arch == "p3sapp_summarizer":
+        serve_summarizer(args, device, sync)
+    else:
+        serve_lm(args, device, sync)
+
+
+def serve_summarizer(args, device: torch.device, sync: Callable[[], None]) -> None:
+    cfg = SMOKE if args.smoke else CONFIG
+    n = args.requests or 64
+    abstracts, titles = abstracts_and_titles(n, seed=args.seed)
+    tok = WordTokenizer.fit(clean_abstracts(abstracts, device) + clean_titles(titles, device),
+                            vocab_size=cfg.vocab_size)
+    model = Seq2Seq(cfg, device, seed=args.seed)
+    serve_abstracts(model, tok, abstracts[: args.batch_size])  # warm-up: build, library init
     sync()
     t0 = time.perf_counter()
     out = serve_abstracts(model, tok, abstracts, batch_size=args.batch_size)
     sync()
     dt = time.perf_counter() - t0
     n_words = sum(len(t.split()) for t in out)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"served {len(out)} requests / {n_words} title words in {dt:.3f}s "
           f"({n_words / dt:.1f} words/s, {len(out) * cfg.max_title_len / dt:.1f} "
-          f"decode tokens/s) on {where}")
+          f"decode tokens/s) on {_where(device)}")
     for a, t in list(zip(abstracts, out))[:3]:
         print(f"  {a[:60]!r}... -> {t!r}")
     if args.profile:
-        profile_batch(model, tok, abstracts[: args.batch_size], sync)
+        batch = abstracts[: args.batch_size]
+        profile(lambda: serve_abstracts(model, tok, batch, batch_size=len(batch)), device,
+                sync, f"batch of {len(batch)}")
 
 
-def profile_batch(model: Seq2Seq, tok: WordTokenizer, batch: Sequence[str], sync) -> None:
-    """Trace one served batch; print device time by kernel and the share of
-    the batch's wall time in which the device ran a kernel."""
+def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    model = LM(cfg, device, seed=args.seed)
+    reqs = lm_requests(cfg, args.requests or 8, max_new=args.max_new, seed=args.seed)
+    kw = dict(slots=args.slots, max_seq=args.max_seq)
+    serve_requests(model, reqs[:1], **kw)  # warm-up: build, library init
+    sync()
+    t0 = time.perf_counter()
+    results = serve_requests(model, reqs, **kw)
+    sync()
+    dt = time.perf_counter() - t0
+    n_tokens = sum(len(v) for v in results.values())
+    print(f"served {len(results)} requests / {n_tokens} tokens in {dt:.3f}s "
+          f"({len(results) / dt:.2f} requests/s, {n_tokens / dt:.1f} tok/s through "
+          f"{args.slots} slots) with {cfg.name} on {_where(device)}")
+    for uid in sorted(results)[:4]:
+        print(f"  req {uid}: {results[uid]}")
+    if args.profile:
+        req = reqs[0]
+        profile(lambda: serve_requests(model, [req], slots=1, max_seq=args.max_seq), device,
+                sync, f"request of {len(req.prompt)} prompt tokens, {req.max_new} new")
+
+
+def _where(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], None],
+            label: str) -> None:
+    """Trace one call of ``fn``; print device time by kernel and the share
+    of its wall time in which the device ran a kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     activities = [ProfilerActivity.CPU]
-    if model.device.type == "cuda":
+    if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        serve_abstracts(model, tok, batch, batch_size=len(batch))
+        fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     stats = prof.key_averages()
     print(stats.table(sort_by="self_device_time_total", row_limit=15))
     # kernels only: an operator's own device time repeats its kernels'
     busy_us = sum(e.self_device_time_total for e in stats if e.device_type == DeviceType.CUDA)
-    print(f"profiled batch of {len(batch)}: wall {wall_us / 1e3:.3f} ms, device busy "
+    print(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}")
 
 

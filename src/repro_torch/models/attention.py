@@ -1,0 +1,123 @@
+"""Multi-head attention: GQA, RoPE, sliding window, KV cache.
+
+Counterpart of ``repro/models/attention.py``. Every attention product is
+``flash_attention_op``: the hand-written CUDA kernel on the card, its plain
+version on the CPU. It stands where the JAX package calls ``sdpa`` or
+``chunked_sdpa``, in all three uses of ``attend``: the full sequence
+without a cache, block prefill into the cache at ``cache_pos = 0``, and a
+one-token decode step at ``cache_pos = pos``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..kernels.flash_attention.ops import flash_attention_op
+from .blocks import apply_rope, truncated_normal
+
+
+class KVCache(NamedTuple):
+    """Counterpart of ``repro/models/attention.py:22 KVCache``."""
+
+    k: torch.Tensor  # (batch, max_seq, n_kv_heads, head_dim)
+    v: torch.Tensor
+
+
+def init_attention(cfg, generator: torch.Generator, dtype=torch.float32,
+                   device=None) -> dict[str, torch.Tensor]:
+    """Counterpart of ``repro/models/attention.py:27 init_attention``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    s = cfg.init_scale / math.sqrt(d)
+
+    def w(shape, scale):
+        return truncated_normal(shape, scale, generator, dtype, device)
+
+    p = {
+        "wq": w((d, nq, hd), s),
+        "wk": w((d, nkv, hd), s),
+        "wv": w((d, nkv, hd), s),
+        "wo": w((nq, hd, d), cfg.init_scale / math.sqrt(nq * hd)),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, x: torch.Tensor, cfg):
+    """Counterpart of ``repro/models/attention.py:59 _project_qkv``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def _rope(q, k, positions, cfg):
+    """Counterpart of ``repro/models/attention.py:70 _rope`` for ``rope``
+    and ``none``."""
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE waits for the vision frontend "
+                                  "(ROADMAP.md Queue 1: the rest of the LM family)")
+    return q, k
+
+
+def attend(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+           cache: KVCache | None = None, cache_pos: int = 0
+           ) -> tuple[torch.Tensor, KVCache | None]:
+    """The attention sub-layer. Counterpart of
+    ``repro/models/attention.py:227 attend``.
+
+    With ``cache`` set, ``x`` is the new block of tokens at positions
+    ``cache_pos ...``: its keys and values are written into the cache IN
+    PLACE (the returned cache holds the same tensors), and the block
+    attends over the first ``cache_pos + len`` keys of the cache, read
+    where they lie."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _rope(q, k, positions, cfg)
+    if cache is None:
+        out = flash_attention_op(q, k, v, causal=cfg.causal, window=cfg.window)
+        new_cache = None
+    elif cfg.window > 0 and cache.k.shape[1] <= cfg.window:
+        out, new_cache = _ring_attend(q, k, v, cache, cache_pos, cfg)
+    else:
+        end = cache_pos + x.shape[1]
+        if end > cache.k.shape[1]:
+            raise ValueError(f"{x.shape[1]} tokens at position {cache_pos} overflow a "
+                             f"cache of {cache.k.shape[1]}")
+        cache.k[:, cache_pos:end] = k.to(cache.k.dtype)
+        cache.v[:, cache_pos:end] = v.to(cache.v.dtype)
+        out = flash_attention_op(q, cache.k, cache.v, causal=cfg.causal, window=cfg.window,
+                                 q_offset=cache_pos, kv_len=end)
+        new_cache = cache
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, new_cache
+
+
+def _ring_attend(q, k, v, cache, cache_pos, cfg):
+    """The sliding-window ring-buffer cache of
+    ``repro/models/attention.py:260 _ring_attend`` (windowed configs)."""
+    raise NotImplementedError(
+        "the sliding-window ring KV cache comes with the windowed configs "
+        "(ROADMAP.md Queue 1: the rest of the LM family)")
+
+
+def init_kv_cache(batch: int, max_seq: int, cfg, dtype=torch.float32,
+                  device=None) -> KVCache:
+    """Zeroed cache ``(batch, seq, n_kv_heads, head_dim)``. Counterpart of
+    ``repro/models/attention.py:292 init_kv_cache``."""
+    ring = cfg.window > 0 and cfg.ring_kv
+    seq = min(max_seq, cfg.window) if ring else max_seq
+    shape = (batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
