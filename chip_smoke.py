@@ -18,16 +18,19 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
    the plain versions and compare logits and tokens;
-6. serve 8 requests with StableLM-3B at its published width (random
-   weights from seed 0 built on the card) through ``serve_requests``, 4
-   slots, 12 new tokens, a 128-long cache, with the flash-attention launch
-   counter set to 0 just before and read just after; then a 2-layer model
-   of the same width at ``init_scale=1`` (so that its layers move the
-   logits) on the card and on the CPU with the same weights: what the
-   layers add to the residual, ``forward`` logits and served tokens
-   compared, and ``decode_step`` on the card held against ``forward``;
-7. print the ``kernels``, ``serve`` and ``serve_lm`` JSON lines, the card
-   line from nvidia-smi, and the result line.
+6. for each LM of ``LM_ARCHS`` (StableLM-3B, RecurrentGemma-9B, xLSTM-1.3B)
+   at its published width and depth (random weights from seed 0 built on
+   the card): serve 8 requests through ``serve_requests``, 4 slots, 12 new
+   tokens, a 128-long cache, with the LM kernels' launch counters set to 0
+   just before and read just after (each layer launches its kind's kernel
+   once per generated token); then a model of the same width cut to
+   ``CARD_VS_CPU_LAYERS`` layers (enough for one layer of every kind) at
+   ``init_scale=1`` (so that its layers move the logits) on the card and
+   on the CPU with the same weights: what the layers add to the residual,
+   ``forward`` logits and served tokens compared, and ``decode_step`` on
+   the card held against ``forward``;
+7. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the card line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -48,8 +51,12 @@ N_CORPUS = 2000
 N_REQUESTS = 512
 BATCH = 64
 # LM serving: the JAX launcher's defaults (src/repro/launch/serve.py:25-28)
-LM_ARCH = "stablelm_3b"
+LM_ARCHS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b")
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_SEQ = 8, 4, 12, 128
+# layers of the card-vs-CPU model: one layer of every kind of the pattern
+CARD_VS_CPU_LAYERS = {"stablelm_3b": 2, "recurrentgemma_9b": 3, "xlstm_1_3b": 8}
+# the kernel each kind of LM layer launches once per model pass
+KERNEL_OF_KIND = {"attn": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm_chunk"}
 # Per-card peaks from NVIDIA's data sheets: (name substring, device memory
 # bytes/s, fp32 FLOP/s outside the tensor cores). First match wins.
 PEAKS = (
@@ -226,6 +233,13 @@ FLASH_SERVED = (
     [(1, sq, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, sq) for sq in (4, 9, 16)]
     # one-token decode at position pos over pos + 1 cached keys
     + [(1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, pos, pos + 1) for pos in (0, 4, 15, 31, 77, 126)]
+    # RecurrentGemma-9B's local attention: 16 query heads of 256 over one kv
+    # head, window 2048, into its ring of min(128, 2048) slots, which holds
+    # position i in slot i until it wraps
+    + [(1, sq, LM_MAX_SEQ, 16, 1, 256, True, 2048, 0, sq) for sq in (4, 9, 15)]
+    + [(1, 1, LM_MAX_SEQ, 16, 1, 256, True, 2048, pos, pos + 1) for pos in (0, 4, 15, 26, 126)]
+    # a wrapped ring: every slot holds one of the last 128 positions, all visible
+    + [(1, 1, LM_MAX_SEQ, 16, 1, 256, False, 0, 0, LM_MAX_SEQ)]
 )
 FLASH_EDGES = [
     # the JAX suite's FLASH_CASES (tests/test_kernels.py:47-54)
@@ -243,8 +257,13 @@ FLASH_EDGES = [
     (1, 64, 2048, 8, 2, 128, True, 0, 1200, 1264),
     (1, 3, 600, 4, 2, 64, True, 100, 450, 453),  # a windowed block deep in a cache
 ]
-FLASH_DECODE = (1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, 15, 16)
-FLASH_PREFILL = (1, 10, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, 10)
+# timed shapes: StableLM-3B's heads (hd 80), then RecurrentGemma-9B's (MQA, hd 256)
+FLASH_TIMED = {
+    "decode": (1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, 15, 16),
+    "prefill": (1, 10, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, 10),
+    "decode_hd256": (1, 1, LM_MAX_SEQ, 16, 1, 256, True, 2048, 15, 16),
+    "prefill_hd256": (1, 10, LM_MAX_SEQ, 16, 1, 256, True, 2048, 0, 10),
+}
 
 
 def flash_inputs(case, dtype, gen, strided=False):
@@ -307,23 +326,27 @@ def flash_work(case) -> tuple[int, int]:
 
 
 def time_flash_attention(gen, bw: float, flops: float) -> dict:
-    """Times at a decode and a prefill shape of the serving path, fp32;
-    the library yardstick is ``scaled_dot_product_attention`` over the whole
-    cache with an explicit boolean mask (the port never calls it)."""
+    """Times at decode and prefill shapes of the serving paths, fp32; the
+    library yardstick is ``scaled_dot_product_attention`` over the whole
+    cache with an explicit boolean mask and the kv heads expanded to the
+    query heads (the port never calls it)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     rows = {}
-    for label, case in (("decode", FLASH_DECODE), ("prefill", FLASH_PREFILL)):
+    for label, case in FLASH_TIMED.items():
         q, k, v = flash_inputs(case, torch.float32, gen)
         kw = flash_kwargs(case)
-        sq, skv, q_offset, kv_len = case[1], case[2], case[8], case[9]
+        sq, skv, nq, window, q_offset, kv_len = (case[i] for i in (1, 2, 3, 7, 8, 9))
         q_pos = torch.arange(sq, device="cuda")[:, None] + q_offset
         k_pos = torch.arange(skv, device="cuda")[None, :]
         mask = (k_pos <= q_pos) & (k_pos < kv_len)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            mask &= k_pos > q_pos - window
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).expand(-1, nq, -1, -1) for t in (k, v))
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -341,6 +364,167 @@ def time_flash_attention(gen, bw: float, flops: float) -> dict:
             "shape": list(case),
         }
         print(f"flash_attention fp32 {label}: {json.dumps(rows[label])}")
+    return rows
+
+
+def rg_inputs(b, s, d, gen):
+    """Decays a in (0, 0.98), inputs b of 0.1 and a state h0, on the card."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    return 0.98 * torch.sigmoid(rnd(b, s, d)), 0.1 * rnd(b, s, d), rnd(b, d)
+
+
+# (b, s, d): RecurrentGemma-9B's d_rnn at batch 1, a decode step and prompts
+RG_SERVED = [(1, s, 4096) for s in (1, 4, 9, 15)]
+RG_EDGES = [(3, 7, 33), (2, 1000, 300), (4, 1, 4096)]  # ragged d, a long sequence, batch
+
+
+def check_rg_lru(gen) -> float:
+    """Kernel vs plain version, with and without h0, at fp32 1e-5; returns
+    the max abs error at the serving shapes."""
+    from repro_torch.kernels.rg_lru.ops import rg_lru_op
+    from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+
+    err = 0.0
+    for case in RG_SERVED + RG_EDGES:
+        a, b, h0 = rg_inputs(*case, gen)
+        for init in (None, h0):
+            got = rg_lru_op(a, b, init)
+            torch.cuda.synchronize()
+            want = rg_lru_ref(a, b, init)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+                if case in RG_SERVED:
+                    err = max(err, (g - w).abs().max().item())
+    print(f"rg_lru fp32: matches plain at {len(RG_SERVED + RG_EDGES)} shapes with and "
+          f"without h0 (tol 1e-5)")
+    return err
+
+
+def time_rg_lru(gen, bw: float, flops: float) -> dict:
+    """Times of a decode step and a 10-token prefill at RecurrentGemma-9B's
+    d_rnn, from a state. The library yardstick, for the decode step only,
+    is ``torch.addcmul(b, a, h0)``: one PyTorch call that computes the same
+    step; a prefill has none."""
+    from repro_torch.kernels.rg_lru.ops import rg_lru_op
+    from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+
+    rows = {}
+    for label, (b_, s, d) in (("decode", (1, 1, 4096)), ("prefill", (1, 10, 4096))):
+        a, b, h0 = rg_inputs(b_, s, d, gen)
+        library = None
+        if s == 1:
+            a0, b0 = a[:, 0], b[:, 0]
+            torch.testing.assert_close(torch.addcmul(b0, a0, h0), rg_lru_ref(a, b, h0)[1],
+                                       rtol=1e-5, atol=1e-5)
+            library = device_ms(lambda: torch.addcmul(b0, a0, h0))
+        # a and b read, h0 read, every h written and the last one again
+        bytes_ms = 4 * (3 * b_ * s * d + 2 * b_ * d) / bw * 1e3
+        ops_ms = 2 * b_ * s * d / flops * 1e3
+        rows[label] = {
+            "ms": device_ms(lambda: rg_lru_op(a, b, h0)),
+            "plain_ms": device_ms(lambda: rg_lru_ref(a, b, h0)),
+            "library_ms": library,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": [b_, s, d],
+        }
+        print(f"rg_lru fp32 {label}: {json.dumps(rows[label])}")
+    return rows
+
+
+def mlstm_inputs(b, s, H, dh, gen):
+    """q, k, v of 0.5, input gates of 1, forget gates around 2 (the JAX
+    suite's draws), on the card."""
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).cuda()
+
+    return (rnd(b, s, H, dh, scale=0.5), rnd(b, s, H, dh, scale=0.5), rnd(b, s, H, dh, scale=0.5),
+            rnd(b, s, H), rnd(b, s, H, shift=2.0))
+
+
+def mlstm_state(b, H, dh, gen):
+    """A state carried in: the plain version's after a 20-step prefix."""
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+
+    zero = (torch.zeros(b, H, dh, dh, device="cuda"), torch.zeros(b, H, dh, device="cuda"),
+            torch.full((b, H), -1e30, device="cuda"))
+    return mlstm_chunk_ref(*mlstm_inputs(b, 20, H, dh, gen), *zero)[1:]
+
+
+# (b, s, H, dh): xLSTM-1.3B's 4 heads of 512 at batch 1, a decode step,
+# prompts, a full chunk and several chunks; then narrow heads
+MLSTM_SERVED = [(1, s, 4, 512) for s in (1, 7, 15, 64, 200)]
+MLSTM_EDGES = [(2, 65, 2, 16), (1, 130, 4, 64), (3, 1, 2, 64), (2, 15, 4, 16)]
+
+
+def check_mlstm_chunk(gen) -> tuple[float, float]:
+    """Kernel vs plain version from a carried state, output and returned
+    state (C, n, m) at fp32 2e-5; returns the max abs error of the output
+    and the max relative error of the state (C grows to hundreds) at the
+    serving shapes."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_op
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+
+    err = state_err = 0.0
+    for case in MLSTM_SERVED + MLSTM_EDGES:
+        b, s, H, dh = case
+        args = mlstm_inputs(b, s, H, dh, gen)
+        c, n, m = mlstm_state(b, H, dh, gen)
+        want = mlstm_chunk_ref(*args, c, n, m)
+        c_card = c.clone()
+        got = mlstm_chunk_op(*args, c_card, n, m)
+        torch.cuda.synchronize()
+        if got[1] is not c_card:
+            fail("mlstm_chunk_op did not update C in place")
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        if case in MLSTM_SERVED:
+            err = max(err, (got[0] - want[0]).abs().max().item())
+            for g, w in zip(got[1:], want[1:]):
+                state_err = max(state_err, ((g - w).abs() / w.abs().clamp(min=1.0)).max().item())
+    print(f"mlstm_chunk fp32: output and state match plain at "
+          f"{len(MLSTM_SERVED + MLSTM_EDGES)} shapes from a carried state (tol 2e-5); at the "
+          f"serving shapes output max abs err {err:.3e}, state max rel err {state_err:.3e}")
+    return err, state_err
+
+
+def mlstm_work(b, s, H, dh) -> tuple[int, int]:
+    """(bytes, operations) in fp32: q, k, v and the gates read, C, n and m
+    read and written, h written; per chunk of L steps and head, 2·L·dh² for
+    q·C, 2·L·dh² + dh² for C's update, 2·L(L+1)·dh for the scores and W·v,
+    4·L·dh for q·n and n's update."""
+    n_bytes = 4 * b * H * (4 * s * dh + 2 * s + 2 * dh * dh + 2 * dh + 2)
+    n_ops = 0
+    for c0 in range(0, s, 64):
+        L = min(64, s - c0)
+        n_ops += b * H * (4 * L * dh * dh + dh * dh + 2 * L * (L + 1) * dh + 4 * L * dh)
+    return n_bytes, n_ops
+
+
+def time_mlstm_chunk(gen, bw: float, flops: float) -> dict:
+    """Times of a decode step and a 10-token prefill at xLSTM-1.3B's heads
+    from a carried state. No single PyTorch call computes the chunkwise
+    mLSTM, so there is no library yardstick."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_op
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+
+    rows = {}
+    for label, case in (("decode", (1, 1, 4, 512)), ("prefill", (1, 10, 4, 512))):
+        args = mlstm_inputs(*case, gen)
+        c, n, m = mlstm_state(case[0], case[2], case[3], gen)
+        n_bytes, n_ops = mlstm_work(*case)
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / flops * 1e3
+        rows[label] = {
+            "ms": device_ms(lambda: mlstm_chunk_op(*args, c, n, m)),  # C evolves in place
+            "plain_ms": device_ms(lambda: mlstm_chunk_ref(*args, c, n, m)),
+            "library_ms": None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": list(case),
+        }
+        print(f"mlstm_chunk fp32 {label}: {json.dumps(rows[label])}")
     return rows
 
 
@@ -425,11 +609,33 @@ def token_agreement(a: dict[int, list[int]], b: dict[int, list[int]]) -> float:
     return same / sum(max(len(a[u]), len(b[u])) for u in a)
 
 
+def lm_launch_counters() -> dict[str, dict]:
+    """The LM kernels' launch counters, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+
+    return {"flash_attention": flash_ops.LAUNCHES, "rg_lru": rg_ops.LAUNCHES,
+            "mlstm_chunk": mlstm_ops.LAUNCHES}
+
+
+def exact_param_count(cfg) -> int:
+    """The size of the JAX ``LM.init`` tree without the norms, which the CPU
+    tests hold the port's ``LM.param_count()`` to. The analytic
+    ``ArchConfig.param_count()`` leaves out each RG-LRU layer's gate biases
+    b_r and b_i (2·d_rnn) and counts an mLSTM layer's gate projection as
+    2·d_rnn instead of d_rnn·2H + 2H."""
+    from repro_torch.models.lm import layer_kinds
+
+    dr, H = cfg.resolved_d_rnn, cfg.n_heads
+    gap = {"rglru": 2 * dr, "mlstm": dr * 2 * H + 2 * H - 2 * dr}
+    return cfg.param_count() + sum(gap.get(kind, 0) for kind in layer_kinds(cfg))
+
+
 def serve_lm(cfg):
     """Serve ``LM_REQUESTS`` requests at ``cfg``'s width with random weights
-    from ``SEED`` built on the card; returns the flash launches and the
-    ``serve_lm`` line."""
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from ``SEED`` built on the card; returns the LM kernels' launches and
+    the ``serve_lm`` line."""
     from repro_torch.launch.serve import lm_requests
     from repro_torch.models.lm import LM
     from repro_torch.runtime.serve_loop import serve_requests
@@ -438,21 +644,23 @@ def serve_lm(cfg):
     model = LM(cfg, "cuda", seed=SEED)
     torch.cuda.synchronize()
     n_params = model.param_count()
-    if n_params != cfg.param_count():
-        fail(f"{cfg.name} has {n_params} parameters, expected {cfg.param_count()}")
-    print(f"{cfg.name}: {n_params} parameters built on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != exact_param_count(cfg):
+        fail(f"{cfg.name} has {n_params} parameters, expected {exact_param_count(cfg)}")
+    print(f"{cfg.name}: {n_params} parameters ({torch.cuda.memory_allocated() / 1e9:.1f} GB "
+          f"on the card) built in {time.perf_counter() - t0:.1f} s")
     requests = lm_requests(cfg, LM_REQUESTS, max_new=LM_MAX_NEW, seed=SEED)
     kw = dict(slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
     serve_requests(model, requests[:1], **kw)  # warm-up
     torch.cuda.synchronize()
 
-    flash_ops.LAUNCHES["flash_attention"] = 0
+    counters = lm_launch_counters()
+    for name, counter in counters.items():
+        counter[name] = 0
     t0 = time.perf_counter()
     out = serve_requests(model, requests, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = flash_ops.LAUNCHES["flash_attention"]
+    launches = {name: counter[name] for name, counter in counters.items()}
     n_tokens = sum(len(t) for t in out.values())
     if sorted(out) != [r.uid for r in requests]:
         fail("serve_requests did not answer every request")
@@ -460,23 +668,30 @@ def serve_lm(cfg):
         fail("a request got no token or more than max_new")
     if any(not 0 <= x < cfg.vocab_size for t in out.values() for x in t):
         fail("a served token lies outside the vocabulary")
-    if launches != cfg.n_layers * n_tokens:
-        fail(f"serving made {launches} flash_attention launches, expected "
-             f"{cfg.n_layers} x {n_tokens} = {cfg.n_layers * n_tokens}")
-    print(f"served {len(out)} LM requests / {n_tokens} tokens in {seconds:.3f} s "
-          f"({len(out) / seconds:.2f} requests/s, {n_tokens / seconds:.1f} tokens/s); "
-          f"flash_attention launches {launches} = {cfg.n_layers} x {n_tokens}")
+    per_pass = {name: 0 for name in counters}
+    for kind in model.kinds:
+        if kind in KERNEL_OF_KIND:
+            per_pass[KERNEL_OF_KIND[kind]] += 1
+    for name, n in per_pass.items():
+        if launches[name] != n * n_tokens:
+            fail(f"serving {cfg.name} made {launches[name]} {name} launches, expected "
+                 f"{n} x {n_tokens} = {n * n_tokens}")
+    print(f"served {len(out)} {cfg.name} requests / {n_tokens} tokens in {seconds:.3f} s "
+          f"({len(out) / seconds:.2f} requests/s, {n_tokens / seconds:.1f} tokens/s); launches "
+          + ", ".join(f"{name} {launches[name]} = {n} x {n_tokens}"
+                      for name, n in per_pass.items() if n))
     for uid in sorted(out)[:2]:
         print(f"  req {uid}: {requests[uid].prompt.tolist()} -> {out[uid]}")
-    line = {"arch": cfg.name, "params": n_params, "requests": len(out), "tokens": n_tokens,
-            "slots": LM_SLOTS, "max_new": LM_MAX_NEW, "max_seq": LM_MAX_SEQ,
+    line = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers, "requests": len(out),
+            "tokens": n_tokens, "slots": LM_SLOTS, "max_new": LM_MAX_NEW, "max_seq": LM_MAX_SEQ,
             "seconds": seconds, "requests_per_s": len(out) / seconds,
-            "tokens_per_s": n_tokens / seconds}
+            "tokens_per_s": n_tokens / seconds,
+            "launches": {name: launches[name] for name, n in per_pass.items() if n}}
     return launches, line
 
 
-def lm_card_vs_cpu(cfg) -> dict:
-    """A 2-layer model of ``cfg``'s width at ``init_scale=1`` on the card
+def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
+    """A model of ``cfg``'s width cut to ``n_layers`` at ``init_scale=1`` on the card
     and on the CPU with the same weights. At the reference scale (0.02) the
     layers add ~1e-4 to a residual of ~50 and move the logits by ~1e-7, so
     no comparison of logits could see them; at 1 they add O(1). Checked:
@@ -491,7 +706,7 @@ def lm_card_vs_cpu(cfg) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.runtime.serve_loop import serve_requests
 
-    small = dataclasses.replace(cfg, n_layers=2, init_scale=1.0)
+    small = dataclasses.replace(cfg, n_layers=n_layers, init_scale=1.0)
     card = LM(small, "cuda", seed=SEED)
     cpu = LM(small, "meta")
     cpu.to_empty(device="cpu")
@@ -528,13 +743,13 @@ def lm_card_vs_cpu(cfg) -> dict:
     kw = dict(slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
     agreement = token_agreement(serve_requests(card, requests, **kw),
                                 serve_requests(cpu, requests, **kw))
-    print(f"{small.name} with 2 layers at init_scale 1, card vs CPU: what the layers add "
+    print(f"{small.name} with {n_layers} layers at init_scale 1, card vs CPU: what the layers add "
           f"(mean abs {delta_size:.3e}) max abs err {delta_err:.3e}, forward logits max abs "
           f"err {logit_err:.3e} (tol 1e-4); card decode_step vs forward max abs err "
           f"{decode_err:.3e} (tol 1e-4); served-token agreement {agreement:.4%}")
     if agreement < 0.99:
         fail(f"served-token agreement {agreement:.4%} is under 99%")
-    return {"layers_add_mean_abs": delta_size, "layers_add_max_abs_err": delta_err,
+    return {"card_vs_cpu_layers": n_layers, "layers_add_mean_abs": delta_size, "layers_add_max_abs_err": delta_err,
             "logits_max_abs_err": logit_err,
             "decode_vs_forward_max_abs_err": decode_err, "token_agreement": agreement}
 
@@ -548,6 +763,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     from repro_torch import device
     from repro_torch.data.synthetic import abstracts_and_titles
     from repro_torch.kernels import _build
@@ -569,6 +785,10 @@ def main() -> int:
         f"nvcc took {_build.build_seconds:.1f} s"
     print(f"kernels ready in {time.perf_counter() - t0:.1f} s ({built}) "
           f"-> {_build.LIBRARY.relative_to(ROOT)}")
+    for src, report in _build.build_report.items():
+        print(f"  {src}: nvcc {report['seconds']:.1f} s")
+        for kernel, resources in report["kernels"].items():
+            print(f"    {kernel}: {resources}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
@@ -576,27 +796,46 @@ def main() -> int:
     lstm_err = check_lstm_cell(gen)
     scan_err = check_text_scan(abstracts, titles)
     flash_err = check_flash_attention(gen)
+    rg_err = check_rg_lru(gen)
+    mlstm_err, mlstm_state_err = check_mlstm_chunk(gen)
 
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
     scan_t = time_text_scan(abstracts, bw)
-    flash_rows = time_flash_attention(gen, bw, flops)
+    timed = {"flash_attention": time_flash_attention(gen, bw, flops),
+             "rg_lru": time_rg_lru(gen, bw, flops),
+             "mlstm_chunk": time_mlstm_chunk(gen, bw, flops)}
 
     # 5. the summarizer at CONFIG width
     launches, serve_line = serve(abstracts, titles)
 
-    # 6. StableLM-3B at CONFIG width, then card vs CPU at 2 layers
+    # 6. each LM at CONFIG width and depth, then card vs CPU at a few layers
     from repro_torch.configs import get
 
-    lm_cfg = get(LM_ARCH)
-    flash_launches, serve_lm_line = serve_lm(lm_cfg)
-    # headline: the decode row, which is most of the serving run's launches
-    flash_t = {**{k: flash_rows["decode"][k] for k in
-                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **flash_rows}
-    torch.cuda.empty_cache()
-    serve_lm_line.update(lm_card_vs_cpu(lm_cfg))
+    lm_launches = {name: {} for name in timed}
+    serve_lm_lines = []
+    for arch in LM_ARCHS:
+        cfg = get(arch)
+        counts, line = serve_lm(cfg)
+        for kernel, n in counts.items():
+            if n:
+                lm_launches[kernel][cfg.name] = n
+        torch.cuda.empty_cache()
+        line.update(lm_card_vs_cpu(cfg, CARD_VS_CPU_LAYERS[arch]))
+        torch.cuda.empty_cache()
+        serve_lm_lines.append(line)
 
     # 7. report
+    def lm_kernel(name, err, source, replaces):
+        """Headline: the decode row, most of a serving run's launches; all
+        timed rows nested; launches summed over the served LMs."""
+        rows = timed[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(lm_launches[name].values()),
+                "launches_by_arch": lm_launches[name], "max_abs_err": err,
+                **{k: rows["decode"][k] for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **rows}
+
     kernels = [
         {"name": "lstm_cell", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
@@ -606,14 +845,19 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
          "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
-         "launches": flash_launches, "max_abs_err": flash_err, **flash_t},
+        lm_kernel("flash_attention", flash_err, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:27"),
+        lm_kernel("rg_lru", rg_err, "src/repro_torch/kernels/csrc/rg_lru.cu",
+                  "src/repro/kernels/rg_lru/rg_lru.py:28"),
+        {**lm_kernel("mlstm_chunk", mlstm_err, "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                     "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:32"),
+         "state_max_rel_err": mlstm_state_err},
     ]
+    print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
-    print(json.dumps({"serve_lm": {**serve_lm_line, "card": card}}))
+    for line in serve_lm_lines:
+        print(json.dumps({"serve_lm": {**line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

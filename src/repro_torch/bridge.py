@@ -7,10 +7,13 @@ becomes ``{path: tensor}`` with the paths of
 sorted order, list indices, joined by ``/``, e.g. ``encoder/0/wx``), and a
 model or such a mapping turns back into the nested tree.
 
-The LM's tree (``repro/models/lm.py:206 LM.init``) keeps its repeated
-layers stacked under ``units/0/...`` with a leading ``n_units`` axis;
-``lm_params_from_jax`` splits that axis into one ``layers/<i>/...`` entry
-per layer and ``lm_params_to_jax`` stacks them back.
+The LM's tree (``repro/models/lm.py:206 LM.init``) keeps one stacked tree
+per position of the block pattern under ``units/<j>/...``, each with a
+leading ``n_units`` axis, and the unrolled remainder under ``tail/<t>/...``.
+``lm_params_from_jax`` turns them into one ``layers/<i>/...`` entry per
+layer (position j of unit u is layer ``u·len(pattern) + j``, ``tail[t]``
+is layer ``n_units·len(pattern) + t``) and ``lm_params_to_jax`` stacks
+them back.
 """
 
 from __future__ import annotations
@@ -63,35 +66,54 @@ def to_jax_params(params: nn.Module | Mapping[str, torch.Tensor]) -> dict:
     return _nest(tree)
 
 
+def _layout(cfg) -> tuple[int, int, int]:
+    """(pattern length, stacked units, tail layers) of the JAX ``LM``."""
+    period = len(cfg.block_pattern)
+    n_units, n_tail = divmod(cfg.n_layers, period)
+    return period, n_units, n_tail
+
+
 def lm_params_from_jax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
     """``{"embed/embedding": ..., "layers/0/attn/wq": ..., ...}`` from a
-    JAX ``LM.init`` tree of an attention-only configuration (empty
-    ``head`` and ``tail``, one stacked unit of ``cfg.n_layers`` layers)."""
-    if tree["head"] or tree["tail"] or len(tree["units"]) != 1:
-        raise ValueError("expected empty head/tail and a single stacked unit")
+    JAX ``LM.init`` tree of a configuration without MoE (empty ``head``)."""
+    period, n_units, n_tail = _layout(cfg)
+    if tree["head"] or len(tree["units"]) != period or len(tree["tail"]) != n_tail:
+        raise ValueError(f"expected an empty head, {period} stacked units and {n_tail} "
+                         f"tail layers")
     out = from_jax_params({"embed": tree["embed"], "final_norm": tree["final_norm"]})
-    for path, stacked in from_jax_params(tree["units"][0]).items():
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"units/0/{path} stacks {stacked.shape[0]} layers, "
-                             f"expected {cfg.n_layers}")
-        for i, layer in enumerate(stacked):
-            out[f"layers/{i}/{path}"] = layer.clone()
+    for j, unit in enumerate(tree["units"]):
+        for path, stacked in from_jax_params(unit).items():
+            if stacked.shape[0] != n_units:
+                raise ValueError(f"units/{j}/{path} stacks {stacked.shape[0]} layers, "
+                                 f"expected {n_units}")
+            for u, layer in enumerate(stacked):
+                out[f"layers/{u * period + j}/{path}"] = layer.clone()
+    for t, block in enumerate(tree["tail"]):
+        for path, leaf in from_jax_params(block).items():
+            out[f"layers/{n_units * period + t}/{path}"] = leaf
     return out
 
 
 def lm_params_to_jax(model: nn.Module) -> dict:
     """The JAX ``LM.init`` tree (numpy leaves) of a port ``LM``: its
-    layers stacked back under ``units/0``, empty ``head`` and ``tail``."""
+    layers stacked back under ``units/<j>`` and ``tail``, an empty
+    ``head``."""
+    period, n_units, n_tail = _layout(model.cfg)
     rest: dict[str, torch.Tensor] = {}
-    per_layer: dict[str, list[torch.Tensor]] = {}
+    layers: list[dict[str, torch.Tensor]] = [{} for _ in range(model.cfg.n_layers)]
     for name, p in model.named_parameters():
         path = name.replace(".", "/")
         if path.startswith("layers/"):
-            _, _, sub = path.split("/", 2)
-            per_layer.setdefault(sub, []).append(p)  # named_parameters walks layers in order
+            _, i, sub = path.split("/", 2)
+            layers[int(i)][sub] = p
         else:
             rest[path] = p
     tree = to_jax_params(rest)
-    tree["units"] = [to_jax_params({sub: torch.stack(ts) for sub, ts in per_layer.items()})]
-    tree["head"], tree["tail"] = [], []
+    tree["head"] = []
+    tree["units"] = [
+        to_jax_params({sub: torch.stack([layers[u * period + j][sub] for u in range(n_units)])
+                       for sub in layers[j]})
+        for j in range(period)
+    ]
+    tree["tail"] = [to_jax_params(layers[n_units * period + t]) for t in range(n_tail)]
     return tree

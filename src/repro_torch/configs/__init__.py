@@ -6,7 +6,8 @@ Copy of ``repro/configs/__init__.py:19-197``: ``MoEConfig``, ``ArchConfig``
 exports ``CONFIG`` (the published configuration) and ``SMOKE`` (a reduced
 same-family configuration for CPU tests). ``ARCH_IDS`` lists only the
 configurations whose modules the port has: the attention-only dense
-models, which run through ``models/lm.py`` as it stands.
+models and the recurrent ones (RG-LRU with local attention, xLSTM), which
+run through ``models/lm.py``. MoE and the frontends are not ported yet.
 """
 
 from __future__ import annotations
@@ -139,6 +140,8 @@ ARCH_IDS = [
     "command_r_plus_104b",
     "granite_20b",
     "qwen2_5_32b",
+    "recurrentgemma_9b",
+    "xlstm_1_3b",
 ]
 
 

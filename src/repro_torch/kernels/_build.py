@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBRARY = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -46,11 +47,18 @@ SIGNATURES = {
     # q, k and v in elements; causal, window, q_offset, kv_len; scale; stream
     "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
     "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
+    # a, b, h0 (or null), out, h_last; batch, seq, d; stream
+    "rg_lru_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # q, k, v, i, f, C (in place), n_in, m_in, n_out, m_out, out; b, s, H, dh; stream
+    "mlstm_chunk_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build, if it built
+# per source, when this process built: nvcc's seconds and ptxas's resource
+# lines (registers, spills, static shared memory) of each kernel
+build_report: dict[str, dict] = {}
 
 
 def sources() -> list[Path]:
@@ -75,17 +83,35 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (neither on PATH nor under /usr/local/cuda/bin)")
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with stderr if any fails."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    failures = []
-    for cmd, p in zip(cmds, procs):
-        out, err = p.communicate()
-        if p.returncode != 0:
-            failures.append(f"$ {' '.join(cmd)}\n{out}{err}")
+def _run_all(cmds: list[list[str]]) -> list[tuple[float, str]]:
+    """Run the commands in parallel -> (seconds, stderr) of each; raise
+    with the output if any fails."""
+    def run(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        return p, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        done = list(pool.map(run, cmds))
+    failures = [f"$ {' '.join(cmd)}\n{p.stdout}{p.stderr}"
+                for cmd, (p, _) in zip(cmds, done) if p.returncode != 0]
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return [(seconds, p.stderr) for p, seconds in done]
+
+
+def _resources(ptxas_log: str) -> dict[str, str]:
+    """ptxas's ``-v`` lines by mangled kernel name: registers, barriers,
+    static shared memory and spills."""
+    out: dict[str, str] = {}
+    name = None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            part = line.split(":", 1)[-1].strip()
+            out[name] = f"{out[name]}; {part}" if name in out else part
+    return out
 
 
 def build() -> Path:
@@ -100,8 +126,10 @@ def build() -> Path:
     tool = nvcc()
     tag = str(os.getpid())  # private names: concurrent builds never share files
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
-    _run_all([[tool, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-              for src, obj in zip(sources(), objs)])
+    compiled = _run_all([[tool, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(sources(), objs)])
+    for src, (seconds, log) in zip(sources(), compiled):
+        build_report[src.name] = {"seconds": seconds, "kernels": _resources(log)}
     tmp = BUILD_DIR / f"libkernels.{tag}.so"
     _run_all([[tool, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
     for obj in objs:

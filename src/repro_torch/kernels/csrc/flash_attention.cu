@@ -25,7 +25,9 @@
 // 4 * kv_len * 32 * 80 operations: well under a microsecond of either on an
 // H100. So one launch is bound by launch latency and by how few blocks
 // (b * nq = 32) there are, not by the card's memory or arithmetic rate; a
-// long cache makes it bound by the bytes of K and V.
+// long cache makes it bound by the bytes of K and V. RecurrentGemma-9B's
+// local attention (16 query heads of 256 over one kv head) is the same:
+// a decode step reads 2 KB of keys and values per cached token.
 //
 // Design (right before fast): one block of 4 warps per (batch * q head,
 // tile of 16 query rows). The block computes the range of keys any of its
@@ -36,11 +38,15 @@
 // of the tile against them (the key tile's rows are padded to an odd
 // stride, so the 32 lanes hit 32 banks), the warp reduces max and sum with
 // shuffles, and then each lane accumulates p . v for head dims lane,
-// lane + 32, ... (hd <= 128: four register slots per row), with p broadcast
-// by shuffle. Masking follows the Pallas kernel exactly, -1e30 and not
-// -inf: a tile fully masked for a row before its first visible key adds
-// p = 1 garbage that the next visible key wipes out with
-// corr = exp(-1e30 - m) = 0; with 16 rows per block and 32 keys per tile
+// lane + 32, ... with p broadcast by shuffle. The number of register slots
+// per row is a template parameter: four for hd <= 128 (StableLM-3B's 80),
+// eight for hd <= 256 (RecurrentGemma-9B's 256), so a narrow head does not
+// pay for the wide one's registers. At hd = 256 the block's tiles take
+// 82 KB of dynamic shared memory, above the 48 KB default, which the launch
+// raises with cudaFuncSetAttribute. Masking follows the Pallas kernel
+// exactly, -1e30 and not -inf: a tile fully masked for a row before its
+// first visible key adds p = 1 garbage that the next visible key wipes out
+// with corr = exp(-1e30 - m) = 0; with 16 rows per block and 32 keys per tile
 // every row's first visible key lies in the block's first tile. No tensor
 // cores and no TF32: fp32 parity with the plain version rules them out.
 
@@ -54,7 +60,6 @@ constexpr int kRows = 16;  // query rows per block
 constexpr int kKeys = 32;  // keys per shared-memory tile, one per lane
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kSlots = 4;  // head dims per lane: hd <= 32 * kSlots = 128
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -84,7 +89,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// kSlots head dims per lane: hd <= 32 * kSlots.
+template <typename T, int kSlots>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
@@ -196,19 +202,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv,
-           int nq, int nkv, int hd, long long q_sb, long long q_ss, long long q_sh,
-           long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, int causal, int window, int q_offset, int kv_len, float scale,
-           void* stream) {
-  if (hd < 1 || hd > 32 * kSlots || nkv < 1 || nq % nkv != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (b == 0 || sq == 0 || nq == 0) return static_cast<int>(cudaSuccess);
+template <typename T, int kSlots>
+int launch_slots(const void* q, const void* k, const void* v, void* out, int b, int sq,
+                 int skv, int nq, int nkv, int hd, long long q_sb, long long q_ss,
+                 long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                 long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+                 int q_offset, int kv_len, float scale, void* stream) {
   const size_t smem = sizeof(float) * (kRows * hd + kKeys * (hd | 1) + kKeys * hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, kSlots>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid(b * nq, (sq + kRows - 1) / kRows);
-  flash_attention_kernel<T><<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_kernel<T, kSlots>
+      <<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), sq, skv, nq, nkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
       v_sb, v_ss, v_sh, causal, window, q_offset, kv_len, scale);
@@ -225,6 +234,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
 #define FLASH_PASS                                                                       \
   q, k, v, out, b, sq, skv, nq, nkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, \
       v_sh, causal, window, q_offset, kv_len, scale, stream
+
+namespace {
+
+template <typename T>
+int launch(FLASH_ARGS) {
+  if (hd < 1 || hd > 256 || nkv < 1 || nq % nkv != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || sq == 0 || nq == 0) return static_cast<int>(cudaSuccess);
+  return hd <= 128 ? launch_slots<T, 4>(FLASH_PASS) : launch_slots<T, 8>(FLASH_PASS);
+}
+
+}  // namespace
 
 extern "C" int flash_attention_f32(FLASH_ARGS) { return launch<float>(FLASH_PASS); }
 

@@ -22,7 +22,7 @@ from .ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-MAX_HEAD_DIM = 128  # four 32-lane slots of the accumulator in the kernel
+MAX_HEAD_DIM = 256  # eight 32-lane slots of the accumulator in the kernel
 _ROWS = 16  # query rows per block (csrc/flash_attention.cu kRows)
 
 

@@ -144,6 +144,11 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
                 sync, f"request of {len(req.prompt)} prompt tokens, {req.max_new} new")
 
 
+# kernel names of csrc/*.cu, as the profiler lists them
+HAND_WRITTEN = ("lstm_cell_kernel", "text_scan_kernel", "flash_attention_kernel",
+                "rg_lru_kernel", "mlstm_chunk_kernel")
+
+
 def _where(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -166,7 +171,13 @@ def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], N
     stats = prof.key_averages()
     print(stats.table(sort_by="self_device_time_total", row_limit=15))
     # kernels only: an operator's own device time repeats its kernels'
-    busy_us = sum(e.self_device_time_total for e in stats if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    for e in kernels:  # the port's hand-written kernels, wherever they rank
+        if any(name in e.key for name in HAND_WRITTEN):
+            print(f"  {e.key[:60]}: {e.count} launches, {e.self_device_time_total / 1e3:.3f} ms "
+                  f"({e.self_device_time_total / e.count:.3f} us each, "
+                  f"{e.self_device_time_total / busy_us:.2%} of the device time)")
     print(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}")
 

@@ -5,7 +5,8 @@ Counterpart of ``repro/models/attention.py``. Every attention product is
 version on the CPU. It stands where the JAX package calls ``sdpa`` or
 ``chunked_sdpa``, in all three uses of ``attend``: the full sequence
 without a cache, block prefill into the cache at ``cache_pos = 0``, and a
-one-token decode step at ``cache_pos = pos``.
+one-token decode step at ``cache_pos = pos``; with a sliding window the
+cache may be the ring of ``_ring_attend``.
 """
 
 from __future__ import annotations
@@ -104,12 +105,47 @@ def attend(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     return y, new_cache
 
 
-def _ring_attend(q, k, v, cache, cache_pos, cfg):
+def _ring_attend(q, k, v, cache: KVCache, cache_pos: int, cfg):
     """The sliding-window ring-buffer cache of
-    ``repro/models/attention.py:260 _ring_attend`` (windowed configs)."""
-    raise NotImplementedError(
-        "the sliding-window ring KV cache comes with the windowed configs "
-        "(ROADMAP.md Queue 1: the rest of the LM family)")
+    ``repro/models/attention.py:260 _ring_attend``: the cache holds only
+    the last ``w`` keys, position P in slot P % w, written IN PLACE.
+
+    A decode step reaches the ring through ``flash_attention_op`` without
+    key positions. While ``cache_pos < w`` slot i holds position i, so the
+    step attends like one over a linear cache (``q_offset=pos``,
+    ``kv_len=pos + 1``, causal and windowed). From ``cache_pos >= w`` on
+    every slot holds one of the last ``w <= window`` positions, all of them
+    visible, so the step attends over all ``w`` slots with no mask. This is
+    what the reference's ``k_positions`` mask gives (unwritten slots at
+    negative positions).
+
+    A block prefill attends within the block and writes its last ``w``
+    tokens into the ring; the reference allows it at ``cache_pos == 0``
+    only and would ignore the ring's earlier keys elsewhere, so the port
+    raises on a block at ``cache_pos > 0``."""
+    w = cache.k.shape[1]
+    s = q.shape[1]
+    if s == 1:
+        slot = cache_pos % w
+        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+        if cache_pos < w:
+            out = flash_attention_op(q, cache.k, cache.v, causal=cfg.causal, window=cfg.window,
+                                     q_offset=cache_pos, kv_len=cache_pos + 1)
+        else:
+            out = flash_attention_op(q, cache.k, cache.v, causal=False, window=0, kv_len=w)
+        return out, cache
+    if cache_pos != 0:
+        raise NotImplementedError(
+            f"a block of {s} tokens into the ring KV cache at position {cache_pos}: the "
+            "reference attends within the block only, so the port allows a block prefill "
+            "at position 0 alone (ROADMAP.md Queue 3)")
+    out = flash_attention_op(q, k, v, causal=cfg.causal, window=cfg.window)
+    take = min(w, s)
+    slots = torch.arange(s - take, s, device=k.device) % w
+    cache.k[:, slots] = k[:, s - take:].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, s - take:].to(cache.v.dtype)
+    return out, cache
 
 
 def init_kv_cache(batch: int, max_seq: int, cfg, dtype=torch.float32,

@@ -1,12 +1,16 @@
-"""The transformer LM of the port, for attention-only dense configurations.
+"""The LM of the port: attention, RG-LRU and xLSTM blocks.
 
-Counterpart of ``repro/models/lm.py:180 LM`` for
-``block_pattern == ("attn",)`` without MoE or a frontend (StableLM-3B,
-Granite-20B, Qwen2.5-32B, Command R+). A Python loop over the layers takes
-the place of ``lax.scan`` over stacked units, so each layer keeps its own
-parameters (``repro_torch.bridge.lm_params_from_jax`` splits the JAX
-package's stacked tree). Every other block kind, MoE and the frontends
-raise ``NotImplementedError`` naming their ROADMAP item.
+Counterpart of ``repro/models/lm.py:180 LM`` without MoE or a frontend:
+the attention-only dense configurations (StableLM-3B, Granite-20B,
+Qwen2.5-32B, Command R+), Griffin (RecurrentGemma-9B: ``rglru, rglru,
+attn`` with local attention) and xLSTM (xLSTM-1.3B: 7 mLSTM + 1 sLSTM).
+Layer ``i`` has kind ``block_pattern[i % len(block_pattern)]``, the order
+of the reference's stacked ``units`` followed by its unrolled ``tail``. A
+Python loop over the layers takes the place of ``lax.scan`` over the
+units, so each layer keeps its own parameters
+(``repro_torch.bridge.lm_params_from_jax`` splits the JAX package's
+stacked tree). MoE and the frontends raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,9 +20,13 @@ from torch import nn
 
 from ..bridge import lm_params_from_jax
 from ..device import resolve
-from .attention import KVCache, attend, init_attention, init_kv_cache
+from . import rglru as RG
+from . import xlstm as XL
+from .attention import attend, init_attention, init_kv_cache
 from .blocks import (apply_mlp, apply_norm, embed_tokens, init_embed, init_mlp, init_norm,
                      lm_logits)
+
+BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def _supported(cfg) -> None:
@@ -27,14 +35,27 @@ def _supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: MoE blocks wait for models/moe.py ({todo})")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend waits for {todo}")
-    if cfg.window > 0 and cfg.ring_kv:
-        raise NotImplementedError(
-            f"{cfg.name}: the sliding-window ring KV cache waits for the windowed configs "
-            f"({todo})")
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} needs the RG-LRU or xLSTM "
-            f"blocks ({todo})")
+    unknown = set(cfg.block_pattern) - set(BLOCK_KINDS)
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
+
+
+def layer_kinds(cfg) -> list[str]:
+    """The block kind of every layer, in order."""
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def _init_block(cfg, kind: str, g: torch.Generator, **kw) -> dict[str, dict]:
+    """Counterpart of ``repro/models/lm.py:77 _init_block`` without MoE."""
+    if kind == "attn":
+        return {"norm1": init_norm(cfg, **kw), "attn": init_attention(cfg, g, **kw),
+                "norm2": init_norm(cfg, **kw), "mlp": init_mlp(cfg, g, **kw)}
+    if kind == "rglru":
+        return {"norm1": init_norm(cfg, **kw), "rec": RG.init_rglru(cfg, g, **kw),
+                "norm2": init_norm(cfg, **kw), "mlp": init_mlp(cfg, g, **kw)}
+    init_mix = XL.init_mlstm if kind == "mlstm" else XL.init_slstm
+    return {"norm1": init_norm(cfg, **kw), "mix": init_mix(cfg, g, **kw)}
 
 
 def _params(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -44,8 +65,10 @@ def _params(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 class LM(nn.Module):
     """Parameters, with the JAX package's names per layer:
-    ``embed.{embedding,lm_head}``, ``layers.<i>.{norm1,attn,norm2,mlp}.*``,
-    ``final_norm.*``. Forward-only: parameters do not require grad."""
+    ``embed.{embedding,lm_head}``, ``layers.<i>.*`` (``{norm1,attn,norm2,mlp}``
+    for ``attn``, ``{norm1,rec,norm2,mlp}`` for ``rglru``, ``{norm1,mix}``
+    for ``mlstm`` and ``slstm``), ``final_norm.*``. Forward-only:
+    parameters do not require grad."""
 
     def __init__(self, cfg, device=None, *, dtype=torch.float32, seed: int = 0):
         """Random weights drawn from a ``torch.Generator`` seeded with
@@ -57,19 +80,15 @@ class LM(nn.Module):
         _supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.kinds = layer_kinds(cfg)
         device = resolve(device)
         g = torch.Generator(device="cpu" if device.type == "meta" else device)
         g.manual_seed(seed)
         kw = dict(dtype=dtype, device=device)
         self.embed = _params(init_embed(cfg, g, **kw))
         self.layers = nn.ModuleList(
-            nn.ModuleDict({
-                "norm1": _params(init_norm(cfg, **kw)),
-                "attn": _params(init_attention(cfg, g, **kw)),
-                "norm2": _params(init_norm(cfg, **kw)),
-                "mlp": _params(init_mlp(cfg, g, **kw)),
-            })
-            for _ in range(cfg.n_layers)
+            nn.ModuleDict({name: _params(t) for name, t in _init_block(cfg, kind, g, **kw).items()})
+            for kind in self.kinds
         )
         self.final_norm = _params(init_norm(cfg, **kw))
 
@@ -79,7 +98,8 @@ class LM(nn.Module):
 
     def param_count(self) -> int:
         """Parameters outside the norms, which is what the analytic
-        ``ArchConfig.param_count()`` counts."""
+        ``ArchConfig.param_count()`` counts (exactly so for attention-only
+        configurations; for the recurrent blocks it differs by a few vectors)."""
         return sum(p.numel() for name, p in self.named_parameters() if "norm" not in name)
 
     def load_jax_params(self, tree) -> None:
@@ -88,11 +108,19 @@ class LM(nn.Module):
             {path.replace("/", "."): t for path, t in lm_params_from_jax(tree, self.cfg).items()}
         )
 
-    def _block(self, layer, x, positions, cache=None, cache_pos=0):
-        """``repro/models/lm.py:118 _apply_block`` for ``attn`` without MoE."""
+    def _block(self, layer, kind, x, positions, cache=None, cache_pos=0):
+        """``repro/models/lm.py:118 _apply_block`` without MoE."""
         cfg = self.cfg
-        h, new_cache = attend(layer["attn"], apply_norm(layer["norm1"], x, cfg.norm), cfg,
-                              positions=positions, cache=cache, cache_pos=cache_pos)
+        h_in = apply_norm(layer["norm1"], x, cfg.norm)
+        if kind == "attn":
+            h, new_cache = attend(layer["attn"], h_in, cfg, positions=positions, cache=cache,
+                                  cache_pos=cache_pos)
+        elif kind == "rglru":
+            h, new_cache = RG.apply_rglru_mix(layer["rec"], h_in, cfg, state=cache)
+        else:
+            scan = XL.mlstm_scan if kind == "mlstm" else XL.slstm_scan
+            h, new_cache = scan(layer["mix"], h_in, cfg, state=cache)
+            return x + h, new_cache  # an xLSTM block has no MLP
         x = x + h
         return x + apply_mlp(layer["mlp"], apply_norm(layer["norm2"], x, cfg.norm), cfg), new_cache
 
@@ -104,8 +132,8 @@ class LM(nn.Module):
         x = embed_tokens(self.embed, tokens, self.cfg)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
-        for layer in self.layers:
-            x, _ = self._block(layer, x, positions)
+        for layer, kind in zip(self.layers, self.kinds):
+            x, _ = self._block(layer, kind, x, positions)
         return x
 
     @torch.no_grad()
@@ -116,29 +144,43 @@ class LM(nn.Module):
         x = apply_norm(self.final_norm, self.hidden(batch["tokens"]), self.cfg.norm)
         return lm_logits(self.embed, x, self.cfg)
 
-    def init_decode_state(self, batch: int, max_seq: int) -> list[KVCache]:
-        """One zeroed KV cache per layer, in the model's dtype. Counterpart
+    def init_decode_state(self, batch: int, max_seq: int) -> list:
+        """One state per layer, of its kind: a zeroed KV cache (a ring of
+        ``min(max_seq, window)`` slots for a windowed configuration), an
+        ``RGLRUState``, an ``MLSTMState`` or an ``SLSTMState``. Counterpart
         of ``repro/models/lm.py:317 LM.init_decode_state``, whose default
-        cache dtype is bf16: the attention kernel reads the cache in place
-        and takes one dtype for q, k and v."""
-        return [init_kv_cache(batch, max_seq, self.cfg, self.dtype, self.device)
-                for _ in range(self.cfg.n_layers)]
+        cache dtype is bf16: here the KV cache and the conv tail take the
+        model's dtype (the attention kernel reads the cache in place and
+        takes one dtype for q, k and v); the recurrent states are fp32, as
+        in the reference."""
+        cfg, dev = self.cfg, self.device
+
+        def one(kind):
+            if kind == "attn":
+                return init_kv_cache(batch, max_seq, cfg, self.dtype, dev)
+            if kind == "rglru":
+                return RG.init_rglru_state(batch, cfg, self.dtype, dev)
+            if kind == "mlstm":
+                return XL.init_mlstm_state(batch, cfg, dev)
+            return XL.init_slstm_state(batch, cfg, dev)
+
+        return [one(kind) for kind in self.kinds]
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, state: list[KVCache], pos: int
-                    ) -> tuple[torch.Tensor, list[KVCache]]:
+    def decode_step(self, tokens: torch.Tensor, state: list, pos: int
+                    ) -> tuple[torch.Tensor, list]:
         """One decode step, or a block prefill when ``tokens`` is ``(b, n)``
-        with n > 1. ``pos`` is the number of tokens already in the cache.
-        Returns the logits of the last position ``(b, 1, vocab)`` and the
-        state, whose caches were written in place. Counterpart of
-        ``repro/models/lm.py:373 LM.decode_step``."""
+        with n > 1. ``pos`` is the number of tokens already seen. Returns
+        the logits of the last position ``(b, 1, vocab)`` and the new state;
+        the KV caches and the mLSTM memories C were written in place.
+        Counterpart of ``repro/models/lm.py:373 LM.decode_step``."""
         tokens = tokens.to(self.device)
         x = embed_tokens(self.embed, tokens, self.cfg)
         b, s = tokens.shape
         positions = pos + torch.arange(s, device=self.device).expand(b, s)
         new_state = []
-        for layer, cache in zip(self.layers, state):
-            x, cache = self._block(layer, x, positions, cache, pos)
+        for layer, kind, cache in zip(self.layers, self.kinds, state):
+            x, cache = self._block(layer, kind, x, positions, cache, pos)
             new_state.append(cache)
         x = apply_norm(self.final_norm, x, self.cfg.norm)
         return lm_logits(self.embed, x[:, -1:], self.cfg), new_state

@@ -29,6 +29,7 @@ FLASH_CASES = [
     (1, 96, 96, 4, 4, 64, False, 0, 64),  # encoder (non-divisible seq)
     (1, 200, 200, 2, 2, 128, True, 0, 128),  # padded seq
     (1, 256, 256, 2, 1, 32, True, 16, 64),  # fully masked early tiles
+    (1, 64, 64, 16, 1, 256, True, 16, 32),  # RecurrentGemma's heads: MQA at hd 256
 ]
 jax_sdpa = jax.jit(sdpa, static_argnames=("causal", "window"))
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -86,6 +87,29 @@ def test_port_matches_model_sdpa_with_offset_and_kv_len(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
+# (sq, skv, causal, window, q_offset, kv_len) at RecurrentGemma's heads (16
+# query heads of 256 over one kv head): block prefill and decode into a
+# 128-long cache with the 2048 window, and a decode step over a wrapped ring
+# of 16 slots, which attends to every slot without a mask.
+RING_CASES = [
+    (13, 128, True, 2048, 0, 13),
+    (1, 128, True, 2048, 20, 21),
+    (1, 16, True, 16, 9, 10),
+    (1, 16, False, 0, 0, 16),
+]
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=[str(c) for c in RING_CASES])
+def test_port_matches_model_sdpa_at_head_dim_256(case):
+    sq, skv, causal, window, q_offset, kv_len = case
+    q, k, v = qkv(1, sq, skv, 16, 1, 256, seed=sq + skv)
+    want = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                    window=window, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention_op(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
 def test_keys_past_kv_len_change_nothing():
     q, k, v = (torch.from_numpy(a) for a in qkv(1, 1, 32, 4, 4, 80))
     got = ops.flash_attention_op(q, k, v, q_offset=9, kv_len=10)
@@ -106,8 +130,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention_op(torch.zeros(1, 4, 3, 16), k, v)
     with pytest.raises(TypeError, match="expected torch.float32"):
         ops.flash_attention_op(q, k.double(), v)
-    with pytest.raises(ValueError, match="head_dim 160 exceeds 128"):
-        ops.flash_attention_op(*(torch.zeros(1, 2, 2, 160) for _ in range(3)))
+    with pytest.raises(ValueError, match="head_dim 320 exceeds 256"):
+        ops.flash_attention_op(*(torch.zeros(1, 2, 2, 320) for _ in range(3)))
     with pytest.raises(ValueError, match="q_offset"):
         ops.flash_attention_op(q, k, v, q_offset=-1)
     with pytest.raises(ValueError, match="kv_len"):

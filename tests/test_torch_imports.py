@@ -74,15 +74,26 @@ def test_default_device_never_picks_the_cpu():
 
 
 def test_cpu_tensor_leaves_the_launch_counters_at_zero():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
     from repro_torch.kernels.text_clean import ops as scan_ops
 
-    before = (lstm_ops.LAUNCHES["lstm_cell"], scan_ops.LAUNCHES["text_scan"])
+    counters = [(lstm_ops, "lstm_cell"), (scan_ops, "text_scan"),
+                (flash_ops, "flash_attention"), (rg_ops, "rg_lru"), (mlstm_ops, "mlstm_chunk")]
+    before = [mod.LAUNCHES[name] for mod, name in counters]
     x, h = torch.ones(2, 3), torch.zeros(2, 4)
     lstm_ops.lstm_cell_op(x, h, h, torch.ones(3, 16), torch.ones(4, 16), torch.zeros(16))
     buf = np.frombuffer(b"A <b>x</b>\x00", dtype=np.uint8)
     assert scan_ops.scan_flat(buf, strip_html=True, device="cpu").tobytes() == b"a x\x00"
-    assert (lstm_ops.LAUNCHES["lstm_cell"], scan_ops.LAUNCHES["text_scan"]) == before
+    q = torch.ones(1, 3, 2, 8)
+    flash_ops.flash_attention_op(q, q, q)
+    rg_ops.rg_lru_op(torch.ones(1, 3, 4), torch.ones(1, 3, 4), torch.zeros(1, 4))
+    mlstm_ops.mlstm_chunk_op(q, q, q, torch.zeros(1, 3, 2), torch.zeros(1, 3, 2),
+                             torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8),
+                             torch.full((1, 2), -1e30))
+    assert [mod.LAUNCHES[name] for mod, name in counters] == before
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):

@@ -1,18 +1,24 @@
-"""The port's LM and its blocks against the JAX package's, on the four
-attention-only dense SMOKE configurations (StableLM-3B: LayerNorm, SiLU
-GLU; Granite-20B: MQA, GELU, no GLU; Qwen2.5-32B: GQA, qkv bias, RMSNorm,
-θ=1e6; Command R+: GQA, tied embeddings), with parameters made by the JAX
-``init`` at ``init_scale=1`` and carried across by ``repro_torch.bridge``.
-At that scale, with the norms' scales and biases and the qkv biases drawn at
-random, every sub-layer moves the logits by O(1), so a wrong MLP, norm,
-residual, RoPE offset or cache position shows in them; at the reference
-scale (0.02) the whole layer stack moves them by about 1e-6.
+"""The port's LM and its blocks against the JAX package's, on the SMOKE
+configurations of ``ARCH_IDS``: the four attention-only dense ones
+(StableLM-3B: LayerNorm, SiLU GLU; Granite-20B: MQA, GELU, no GLU;
+Qwen2.5-32B: GQA, qkv bias, RMSNorm, θ=1e6; Command R+: GQA, tied
+embeddings) and the two recurrent ones (RecurrentGemma-9B: two RG-LRU
+blocks and one local-attention block per unit, a ring KV cache of the
+16-token window, two tail layers; xLSTM-1.3B: mLSTM and sLSTM blocks),
+with parameters made by the JAX ``init`` at ``init_scale=1`` and carried
+across by ``repro_torch.bridge``. At that scale, with the norms' scales and
+biases, the qkv biases and the recurrent gates' biases drawn at random,
+every sub-layer moves the logits by O(1), so a wrong MLP, norm, residual,
+RoPE offset, cache position or recurrent state shows in them; at the
+reference scale (0.02) the whole layer stack moves them by about 1e-6.
 
 Tolerances: blocks, ``attend``, ``forward`` logits and each ``decode_step``
 against JAX at rtol=atol=2e-5 (fp32, the same sums in another order);
 ``decode_step`` against the port's own ``forward`` at 1e-4 (a block
-prefill and single steps against one full pass); the bridge exactly. Every
-compared tensor's mean magnitude is held above 100x the tolerance."""
+prefill and single steps against one full pass, past the window so that
+the ring wraps); the final decode states against JAX's at rtol 1e-4; the
+bridge exactly. Every compared tensor's mean magnitude is held above 100x
+the tolerance."""
 
 import dataclasses
 
@@ -34,6 +40,9 @@ from repro_torch.models.lm import LM
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 jax_attend = jax.jit(JA.attend, static_argnums=2)
+# static properties of the configurations, the same in every process
+WITH_ATTENTION = [n for n in ARCH_IDS if "attn" in get_smoke(n).block_pattern]
+ATTENTION_ONLY = [n for n in ARCH_IDS if tuple(get_smoke(n).block_pattern) == ("attn",)]
 
 
 @pytest.fixture(scope="module", params=ARCH_IDS)
@@ -59,8 +68,10 @@ def randomize_constants(params, seed=0):
         name = path[-1].key
         if name == "scale":
             return (1.0 + 0.5 * rng.standard_normal(a.shape)).astype(a.dtype)
-        if name in ("bias", "bq", "bk", "bv"):
+        if name in ("bias", "bq", "bk", "bv", "b_r", "b_i", "b"):
             return (0.5 * rng.standard_normal(a.shape)).astype(a.dtype)
+        if name == "b_if":  # around the reference's 0 (input) and 3 (forget)
+            return (a + 0.5 * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
 
     return jax.tree_util.tree_map_with_path(draw, params)
@@ -70,9 +81,20 @@ def tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
 
 
-def layer0(params):
-    """Layer 0's parameters out of the JAX tree's stacked unit."""
-    return jax.tree_util.tree_map(lambda a: a[0], params["units"][0])
+def jax_layer(tree, cfg, i):
+    """Layer ``i`` out of a JAX tree of parameters or decode state: position
+    ``i % len(pattern)`` of stacked unit ``i // len(pattern)``, or the tail."""
+    period = len(cfg.block_pattern)
+    n_units = cfg.n_layers // period
+    if i >= n_units * period:
+        return tree["tail"][i - n_units * period]
+    return jax.tree_util.tree_map(lambda a: a[i // period], tree["units"][i % period])
+
+
+def first_layer(arch, kind):
+    """(JAX parameters, port parameters) of the first layer of ``kind``."""
+    i = list(arch["cfg"].block_pattern).index(kind)
+    return jax_layer(arch["params"], arch["cfg"], i), arch["port"].layers[i]
 
 
 def close(got, want, **tol):
@@ -88,13 +110,17 @@ def test_config_copies_match_the_reference(arch):
 
 
 def test_blocks_match(arch):
-    cfg, jp, tp = arch["cfg"], layer0(arch["params"]), arch["port"].layers[0]
+    cfg = arch["cfg"]
+    jp, tp = jax_layer(arch["params"], cfg, 0), arch["port"].layers[0]
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 7, cfg.d_model), dtype=np.float32)
     tx = torch.from_numpy(x)
     close(B.apply_norm(tp["norm1"], tx, cfg.norm), JB.apply_norm(jp["norm1"], x, cfg.norm))
-    # 3x: pre-activations of |z| ~ 2.6, where GELU's tanh and erf forms differ
-    close(B.apply_mlp(tp["mlp"], 3 * tx, cfg), JB.apply_mlp(jp["mlp"], 3 * x, cfg))
+    mlp_kinds = [k for k in cfg.block_pattern if k in ("attn", "rglru")]
+    if mlp_kinds:  # xLSTM blocks have no MLP
+        jp, tp = first_layer(arch, mlp_kinds[0])
+        # 3x: pre-activations of |z| ~ 2.6, where GELU's tanh and erf forms differ
+        close(B.apply_mlp(tp["mlp"], 3 * tx, cfg), JB.apply_mlp(jp["mlp"], 3 * x, cfg))
     hd = cfg.resolved_head_dim
     h = rng.standard_normal((2, 7, cfg.n_heads, hd), dtype=np.float32)
     pos = np.array([[0, 1, 2, 3, 4, 5, 6], [9, 10, 11, 12, 13, 14, 15]])
@@ -106,19 +132,24 @@ def test_blocks_match(arch):
     close(B.lm_logits(arch["port"].embed, tx, cfg), JB.lm_logits(arch["params"]["embed"], x, cfg))
 
 
+@pytest.mark.parametrize("arch", WITH_ATTENTION, indirect=True)
 def test_attend_matches_with_and_without_cache(arch):
-    cfg, jp, tp = arch["cfg"], layer0(arch["params"])["attn"], arch["port"].layers[0]["attn"]
-    x = np.random.default_rng(2).standard_normal((1, 9, cfg.d_model), dtype=np.float32)
-    pos = np.arange(9)[None]
+    """The first attention layer: a full pass, then a block prefill and
+    single steps into a 16-long cache (for a windowed configuration the
+    ring of its 16-token window) up to position 19, so the ring wraps."""
+    cfg = arch["cfg"]
+    jp, tp = (p["attn"] for p in first_layer(arch, "attn"))
+    x = np.random.default_rng(2).standard_normal((1, 20, cfg.d_model), dtype=np.float32)
+    pos = np.arange(20)[None]
     want, _ = jax_attend(jp, jnp.asarray(x), cfg, positions=jnp.asarray(pos))
     got, none = A.attend(tp, torch.from_numpy(x), cfg, positions=torch.from_numpy(pos))
     assert none is None
     close(got, want)
 
-    # block prefill of 6 tokens into a 16-long cache, then 3 single steps
-    jcache = JA.init_kv_cache(1, 16, cfg, jnp.float32)
-    cache = A.init_kv_cache(1, 16, cfg, torch.float32)
-    for start, end in ((0, 6), (6, 7), (7, 8), (8, 9)):
+    max_seq = 16 if cfg.window else 20
+    jcache = JA.init_kv_cache(1, max_seq, cfg, jnp.float32)
+    cache = A.init_kv_cache(1, max_seq, cfg, torch.float32)
+    for start, end in [(0, 6)] + [(i, i + 1) for i in range(6, 20)]:
         jy, jcache = jax_attend(jp, jnp.asarray(x[:, start:end]), cfg,
                                positions=jnp.asarray(pos[:, start:end]), cache=jcache,
                                cache_pos=start)
@@ -129,7 +160,8 @@ def test_attend_matches_with_and_without_cache(arch):
         close(ty, jy)
         close(cache.k, jcache.k)
         close(cache.v, jcache.v)
-    close(ty, want[:, -1:])  # the last step equals the full pass's last row
+        if not cfg.window:  # a window narrower than the sequence differs from it
+            close(ty, want[:, start:end])
 
 
 def test_forward_matches(arch):
@@ -141,28 +173,39 @@ def test_forward_matches(arch):
 
 
 def test_decode_steps_match(arch):
-    """A 5-token block prefill, then 4 single steps, each against JAX; and
-    every step's logits against the port's own full forward pass."""
+    """A 5-token block prefill, then 15 single steps (past the SMOKE window
+    of 16, so a ring cache wraps), each against JAX; every step's logits
+    against the port's own full forward pass; and every layer's final
+    decode state against JAX's."""
     cfg, model = arch["cfg"], arch["port"]
-    seq = tokens(cfg, 1, 9, seed=3)
+    seq = tokens(cfg, 1, 20, seed=3)
     full = model({"tokens": torch.from_numpy(seq)})
     jstep = jax.jit(arch["jax"].decode_step)
-    jstate = arch["jax"].init_decode_state(1, 16, jnp.float32)
-    state = model.init_decode_state(1, 16)
-    for start, end in ((0, 5), (5, 6), (6, 7), (7, 8), (8, 9)):
+    jstate = arch["jax"].init_decode_state(1, 24, jnp.float32)
+    state = model.init_decode_state(1, 24)
+    for start, end in [(0, 5)] + [(i, i + 1) for i in range(5, 20)]:
         jlogits, jstate = jstep(arch["params"], jnp.asarray(seq[:, start:end]), jstate,
                                 jnp.int32(start))
         logits, state = model.decode_step(torch.from_numpy(seq[:, start:end]), state, start)
         assert tuple(logits.shape) == (1, 1, cfg.vocab_size)
         close(logits, jlogits)
         close(logits, full[:, end - 1 : end], rtol=1e-4, atol=1e-4)
-    close(state[-1].k, jstate["units"][0].k[-1])
+    for i, (kind, got) in enumerate(zip(model.kinds, state)):
+        want = jax_layer(jstate, cfg, i)
+        assert type(got).__name__ == type(want).__name__, (i, kind)
+        for t, w in zip(got, want):
+            np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
 
 
 def test_bridge_round_trip_is_exact(arch):
     params = arch["params"]
-    flat = lm_params_from_jax(params, arch["cfg"])
-    assert f"layers/{arch['cfg'].n_layers - 1}/attn/wq" in flat
+    cfg = arch["cfg"]
+    flat = lm_params_from_jax(params, cfg)
+    assert {k.split("/")[1] for k in flat if k.startswith("layers/")} == \
+        {str(i) for i in range(cfg.n_layers)}
+    for i, kind in enumerate(arch["port"].kinds):
+        mixer = {"attn": "attn/wq", "rglru": "rec/lam", "mlstm": "mix/w_q", "slstm": "mix/r"}
+        assert f"layers/{i}/{mixer[kind]}" in flat
     back = lm_params_to_jax(arch["port"])
     la, ta = jax.tree_util.tree_flatten(back)
     lb, tb = jax.tree_util.tree_flatten(params)
@@ -175,19 +218,32 @@ def test_bridge_round_trip_is_exact(arch):
 @pytest.mark.parametrize("name", ARCH_IDS)
 def test_config_parameter_count_on_meta(name):
     """The published width, built on the meta device (no memory), has the
-    analytic parameter count (norms aside)."""
+    JAX ``LM.init`` tree's exact parameter count, taken with
+    ``jax.eval_shape`` (no memory), norms aside. For the attention-only
+    configurations that is also the analytic ``param_count()``; for the
+    recurrent ones the analytic count leaves out the RG-LRU gate biases
+    ``b_r``/``b_i`` and counts the mLSTM gate projection as 2·d_rnn."""
     cfg = get(name)
     model = LM(cfg, "meta")
     assert model.device.type == "meta"
-    assert model.param_count() == cfg.param_count() == jax_get(name).param_count()
+    shapes = jax.eval_shape(JaxLM(jax_get(name), remat=False, dtype=jnp.float32).init,
+                            jax.random.PRNGKey(0))
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    exact = sum(int(np.prod(leaf.shape)) for path, leaf in leaves
+                if not any("norm" in str(getattr(k, "key", "")) for k in path))
+    assert model.param_count() == exact
+    if name in ATTENTION_ONLY:
+        assert exact == cfg.param_count() == jax_get(name).param_count()
 
 
 def test_unported_blocks_raise():
+    """What the port does not take yet raises, naming its ROADMAP item: MoE,
+    the vision and audio frontends, M-RoPE, and a block of several tokens
+    into a ring KV cache at a position past 0."""
     base = get_smoke("stablelm_3b")
-    for cfg in (dataclasses.replace(base, block_pattern=("rglru", "attn")),
+    for cfg in (dataclasses.replace(base, moe=object()),
                 dataclasses.replace(base, frontend="vision"),
-                dataclasses.replace(base, moe=object()),
-                dataclasses.replace(base, window=4)):
+                dataclasses.replace(base, frontend="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(cfg, "cpu")
     p = A.init_attention(base, torch.Generator().manual_seed(0))
@@ -195,8 +251,11 @@ def test_unported_blocks_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         A.attend(p, x, dataclasses.replace(base, rope="mrope"), positions=pos)
     windowed = dataclasses.replace(base, window=4)
+    ring = A.init_kv_cache(1, 8, windowed)
+    assert ring.k.shape[1] == 4, "a windowed configuration's cache is a ring of the window"
+    A.attend(p, x, windowed, positions=pos, cache=ring)  # a block prefill at 0 is taken
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.attend(p, x, windowed, positions=pos, cache=A.init_kv_cache(1, 8, windowed))
+        A.attend(p, x, windowed, positions=pos + 2, cache=ring, cache_pos=2)
 
 
 def test_model_resolves_the_card_by_default():
