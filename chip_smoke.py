@@ -29,8 +29,20 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    on the CPU with the same weights: what the layers add to the residual,
    ``forward`` logits and served tokens compared, and ``decode_step`` on
    the card held against ``forward``;
-7. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
-   line per LM, the card line from nvidia-smi, and the result line.
+7. the paper's preprocessing (Algorithm 1) on the card: write a 64 MB
+   JSONL corpus from the seed with ``write_corpus``, ``ingest`` it,
+   ``pre_clean`` it and clean titles and abstracts with
+   ``device_case_study_cleaner`` (the ``text_clean`` kernel, counters set to
+   0 just before and read just after: one launch per column), every value
+   held against the same path on the CPU;
+8. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
+   onto a ``BucketGrid`` in ``DeviceFeed``'s fill thread, copied to the
+   card and run through ``Seq2Seq.encode`` at CONFIG width inside
+   ``feed.step``; the ``OverlapReport`` and the exact ``lstm_cell`` launch
+   count (snapped width x 3 encoder layers, summed);
+9. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the ``preprocess`` and ``feed`` lines, the card line from
+   nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -73,6 +85,17 @@ ADVERSARIAL = [
     "nested ((deep (er))) out", "<<< (((", ")))) >>>>", "naïve café 漢字 🙂 (ñé) <Ω>", "",
     "Giant <b>Row</b> " + "Lorem IPSUM (drop me) " * 200, "<" + "x" * 3000 + ">tail",
 ]
+# The preprocessing phase: corpus size, shards and the columns cleaned.
+CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
+FIELDS = ("title", "abstract")
+# The feed phase: host batches of cleaned abstracts onto a bucket ladder.
+FEED_BATCHES, FEED_LADDER, FEED_VOCAB = 32, (32, 64, 128), 8000
+# The character cleaning kernel's rows from the JAX suite
+# (tests/test_kernels.py:178-183) and the stray-'>', NUL and non-ASCII cases.
+CLEAN_ROWS = ["Hello <b>World</b> 42!", "plain text only", "UPPER and (kept by kernel) 123",
+              "", "x > yy zz <b>q", "A\x00B c", "café Naïve"]
+CLEAN_WIDTHS = (1, 2, 3, 31, 255, 256, 511, 512, 1023, 1024, 1025, 2047, 2048, 2049, 3072,
+                4095, 4096, 4097, 5000)
 
 
 def fail(msg: str) -> None:
@@ -225,6 +248,215 @@ def time_text_scan(abstracts, bw: float) -> dict:
     return {"ms": device_ms(lambda: text_scan_op(buf, offsets, **flags)),
             "plain_ms": device_ms(lambda: text_scan_ref(buf, offsets, **flags)),
             "library_ms": None, "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
+
+
+def clean_noise(gen, n: int, width: int) -> torch.Tensor:
+    """Random bytes on the card, 70% of them drawn from '<', '>', NUL,
+    uppercase, lowercase, space and bytes above 127."""
+    alphabet = torch.tensor(list(b"<<>>\x00AZaz \xc3\xa9\xff."), dtype=torch.uint8)
+    mat = torch.randint(0, 256, (n, width), generator=gen, dtype=torch.uint8)
+    pick = torch.rand(n, width, generator=gen) < 0.7
+    mat[pick] = alphabet[torch.randint(0, alphabet.numel(), (int(pick.sum()),), generator=gen)]
+    return mat.cuda()
+
+
+def check_text_clean(gen) -> float:
+    """The character cleaning kernel against its plain version, with and
+    without the HTML span: the JAX suite's rows, random bytes at widths 1
+    to 5,000 (one matrix per width, and ragged rows of every length up to
+    5,000 by offsets), 4,096 x 512 random printable bytes; then
+    ``clean_rows`` on the card against the CPU."""
+    from repro_torch.kernels.text_clean.ops import (clean_rows, pack_rows, text_clean_flat,
+                                                    text_clean_op)
+    from repro_torch.kernels.text_clean.ref import text_clean_flat_ref, text_clean_ref
+
+    mats = [torch.from_numpy(pack_rows(CLEAN_ROWS * 7)).cuda(),
+            torch.randint(32, 127, (4096, 512), generator=gen, dtype=torch.uint8).cuda()]
+    mats += [clean_noise(gen, 9, w) for w in CLEAN_WIDTHS]
+    lens = torch.randint(0, 5001, (300,), generator=gen)
+    lens[:3] = torch.tensor([0, 1, 5000])
+    flat = clean_noise(gen, 1, int(lens.sum())).view(-1)
+    offsets = torch.cat([lens.new_zeros(1), lens.cumsum(0)]).cuda()
+    n_bytes = 0
+    for html in (True, False):
+        for mat in mats:
+            got = text_clean_op(mat, strip_html=html)
+            torch.cuda.synchronize()
+            if not torch.equal(got, text_clean_ref(mat, strip_html=html)):
+                fail(f"text_clean differs from its plain version at {tuple(mat.shape)}, "
+                     f"strip_html={html}")
+            n_bytes += mat.numel()
+        got = text_clean_flat(flat, offsets, strip_html=html)
+        torch.cuda.synchronize()
+        if not torch.equal(got, text_clean_flat_ref(flat, offsets, strip_html=html)):
+            fail(f"text_clean differs from its plain version on ragged rows, strip_html={html}")
+        rows = ADVERSARIAL + CLEAN_ROWS
+        if clean_rows(rows, strip_html=html, device="cuda") != \
+                clean_rows(rows, strip_html=html, device="cpu"):
+            fail(f"clean_rows on the card differs from the CPU, strip_html={html}")
+    print(f"text_clean: bytes identical to plain with and without strip_html at "
+          f"{len(mats)} matrices ({n_bytes // 2} bytes) and {lens.numel()} ragged rows of "
+          f"0-5000 bytes; clean_rows on the card equals the CPU")
+    return 0.0
+
+
+def time_text_clean(gen, abstracts_flat, bw: float) -> dict:
+    """The kernel at 4,096 x 512 (``benchmarks/bench_kernels.py:111``) and
+    over the preprocessing phase's abstract column (flat, by offsets): each
+    byte read once and written once, plus the offsets."""
+    from repro_torch.kernels.text_clean.ops import text_clean_flat, text_clean_op
+    from repro_torch.kernels.text_clean.ref import text_clean_flat_ref, text_clean_ref
+
+    mat = torch.randint(32, 127, (4096, 512), generator=gen, dtype=torch.uint8).cuda()
+    buf, offsets = abstracts_flat
+    rows = {}
+    for label, fn, plain, n_bytes, shape in (
+            ("matrix", lambda: text_clean_op(mat), lambda: text_clean_ref(mat),
+             2 * mat.numel(), list(mat.shape)),
+            ("abstracts", lambda: text_clean_flat(buf, offsets),
+             lambda: text_clean_flat_ref(buf, offsets), 2 * buf.numel() + 8 * offsets.numel(),
+             [offsets.numel() - 1, buf.numel()])):
+        rows[label] = {"ms": device_ms(fn), "plain_ms": device_ms(plain), "library_ms": None,
+                       "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes", "shape": shape}
+        print(f"text_clean {label}: {json.dumps(rows[label])}")
+    return rows
+
+
+def preprocess(workdir: Path):
+    """Algorithm 1 on the card: corpus -> ingest -> pre_clean -> device
+    cleaning of both columns, held against the CPU. Returns the cleaned
+    frame, the abstract column as a flat buffer with offsets on the card
+    (for timing), the launches and the ``preprocess`` line."""
+    import shutil
+
+    from repro_torch.core.device_pipeline import device_case_study_cleaner
+    from repro_torch.core.ingest import ingest, pre_clean
+    from repro_torch.data.synthetic import write_corpus
+    from repro_torch.kernels.text_clean import ops as clean_ops
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_corpus(workdir, CORPUS_BYTES, n_files=CORPUS_FILES, seed=SEED)
+    corpus_bytes = sum(p.stat().st_size for p in paths)
+    times = {"write_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    # one process: a pool's spawned workers import this script, and torch, again
+    frame = ingest([workdir], FIELDS)
+    times["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clean = pre_clean(frame, list(FIELDS))
+    times["pre_clean_s"] = time.perf_counter() - t0
+    shutil.rmtree(workdir)
+
+    cleaner = device_case_study_cleaner()
+    clean_ops.LAUNCHES["text_clean"] = 0
+    t0 = time.perf_counter()
+    out = cleaner.transform(clean, list(FIELDS))
+    times["clean_s"] = time.perf_counter() - t0
+    launches = clean_ops.LAUNCHES["text_clean"]
+    times.update({f"{k}_s": v for k, v in cleaner.seconds.items()})
+    if launches != len(FIELDS):
+        fail(f"cleaning {len(FIELDS)} columns made {launches} text_clean launches")
+    cpu = device_case_study_cleaner("cpu").transform(clean, list(FIELDS))
+    n_values = same = 0
+    for f in FIELDS:
+        same += sum(a == b for a, b in zip(out[f], cpu[f]))
+        n_values += len(cpu[f])
+    if len(out) != len(clean) or same != n_values:
+        fail(f"device cleaning equals the CPU in {same} of {n_values} values")
+    if not all(set(v) <= set("abcdefghijklmnopqrstuvwxyz ") for v in out["abstract"][:1000]):
+        fail("a cleaned abstract holds a byte outside [a-z ]")
+    print(f"preprocess: {corpus_bytes} bytes of JSONL in {len(paths)} shards written in "
+          f"{times['write_s']:.3f} s, {len(frame)} records")
+    print(f"preprocess: ingest (1 process) {times['ingest_s']:.3f} s")
+    print(f"preprocess: pre_clean {times['pre_clean_s']:.3f} s -> {len(clean)} records")
+    print(f"preprocess: device cleaning of {len(FIELDS)} columns {times['device_clean_s']:.3f} s "
+          f"({launches} text_clean launches)")
+    print(f"preprocess: word tail {times['word_tail_s']:.3f} s; cleaned values equal to the CPU "
+          f"path: {same} of {n_values}")
+    enc = [v.encode() for v in clean["abstract"]]
+    lens = torch.tensor([len(e) for e in enc])
+    abstracts_flat = (torch.frombuffer(bytearray(b"".join(enc)), dtype=torch.uint8).cuda(),
+                      torch.cat([lens.new_zeros(1), lens.cumsum(0)]).cuda())
+    line = {"corpus_bytes": corpus_bytes, "shards": len(paths), "records": len(frame),
+            "records_clean": len(clean), **times, "text_clean_launches": launches,
+            "equal_to_cpu": same / n_values}
+    return out, abstracts_flat, launches, line
+
+
+def feed(cleaned):
+    """32 batches of cleaned abstracts through ``DeviceFeed`` into
+    ``Seq2Seq.encode`` at CONFIG width; returns the ``feed`` line."""
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.core.device_pipeline import BucketGrid, DeviceFeed
+    from repro_torch.data.tokenizer import PAD, WordTokenizer
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models.seq2seq import Seq2Seq
+
+    abstracts = list(cleaned["abstract"])
+    tok = WordTokenizer.fit(abstracts, vocab_size=FEED_VOCAB)
+    grid = BucketGrid(BATCH, {"encoder_tokens": FEED_LADDER})
+    hosts = []
+
+    def batches():
+        """Tokenized in the feed's fill thread, each trimmed to its longest row."""
+        for i in range(FEED_BATCHES):
+            ids = np.stack([tok.encode(t, CONFIG.max_abstract_len)
+                            for t in abstracts[i * BATCH : (i + 1) * BATCH]])
+            width = max(1, int((ids != PAD).sum(1).max()))
+            hosts.append(ids[:, :width])
+            yield {"encoder_tokens": ids[:, :width]}
+
+    model = Seq2Seq(CONFIG, "cuda", seed=SEED)
+    with torch.no_grad():
+        model.encode(torch.ones(BATCH, 4, dtype=torch.int32, device="cuda"))  # warm-up
+    torch.cuda.synchronize()
+    lstm_ops.LAUNCHES["lstm_cell"] = 0
+    widths = []
+    t0 = time.perf_counter()
+    the_feed = DeviceFeed(batches(), grid=grid, prefetch=2)
+    try:
+        for batch in the_feed:
+            with the_feed.step(batch), torch.no_grad():
+                enc = batch["encoder_tokens"]
+                widths.append(enc.shape[1])
+                hs, _, _ = model.encode(enc)
+                torch.cuda.synchronize()
+    finally:
+        the_feed.close()
+    seconds = time.perf_counter() - t0
+    launches = lstm_ops.LAUNCHES["lstm_cell"]
+    want = sum(widths) * CONFIG.n_encoder_layers
+    if len(widths) != FEED_BATCHES or launches != want:
+        fail(f"the feed ran {len(widths)} batches and {launches} lstm_cell launches, expected "
+             f"{FEED_BATCHES} and {want}")
+    if any(w not in FEED_LADDER for w in widths):
+        fail(f"a batch left the bucket grid: widths {widths}")
+    try:
+        batch["encoder_tokens"]
+        fail("a consumed DeviceBatch could still be read")
+    except RuntimeError:
+        pass
+    # the last batch again: card vs CPU encoder states, same weights
+    cpu = Seq2Seq(CONFIG, "cpu", seed=SEED)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    last = torch.from_numpy(grid.snap({"encoder_tokens": hosts[-1]})["encoder_tokens"])
+    with torch.no_grad():
+        hs_cpu = cpu.encode(last)[0]
+    if not torch.isfinite(hs).all():
+        fail("non-finite encoder states on the card")
+    torch.testing.assert_close(hs.cpu(), hs_cpu, rtol=1e-4, atol=1e-4)
+    err = (hs.cpu() - hs_cpu).abs().max().item()
+    report = the_feed.report().as_dict()
+    print(f"feed: {len(widths)} batches of {BATCH} in {seconds:.3f} s, snapped widths "
+          f"{dict(sorted((w, widths.count(w)) for w in set(widths)))}; report {json.dumps(report)}")
+    print(f"feed: lstm_cell launches {launches} = {sum(widths)} x {CONFIG.n_encoder_layers}; "
+          f"last batch card vs CPU encoder states max abs err {err:.3e} (tol 1e-4); a consumed "
+          f"batch raises on access")
+    return {"batches": len(widths), "batch": BATCH, "seconds": seconds,
+                      "widths": widths, "lstm_cell_launches": launches,
+                      "encoder_max_abs_err": err, **report,
+                      "loader": the_feed.loader_stats.as_dict()}
 
 
 # (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len); kv_len None = skv
@@ -798,6 +1030,7 @@ def main() -> int:
     flash_err = check_flash_attention(gen)
     rg_err = check_rg_lru(gen)
     mlstm_err, mlstm_state_err = check_mlstm_chunk(gen)
+    clean_err = check_text_clean(gen)
 
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
@@ -825,7 +1058,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_lm_lines.append(line)
 
-    # 7. report
+    # 7. preprocessing: corpus -> ingest -> pre_clean -> device cleaning
+    cleaned, abstracts_flat, clean_launches, preprocess_line = preprocess(
+        ROOT / "build" / "chip_smoke_corpus")
+    clean_t = time_text_clean(gen, abstracts_flat, bw)
+    del abstracts_flat
+    torch.cuda.empty_cache()
+
+    # 8. the feed into the summarizer's encoder
+    feed_line = feed(cleaned)
+
+    # 9. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -852,12 +1095,20 @@ def main() -> int:
         {**lm_kernel("mlstm_chunk", mlstm_err, "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                      "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:32"),
          "state_max_rel_err": mlstm_state_err},
+        {"name": "text_clean", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/text_clean.cu",
+         "replaces": "src/repro/kernels/text_clean/text_clean.py:34",
+         "launches": clean_launches, "max_abs_err": clean_err,
+         **{k: clean_t["matrix"][k] for k in
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
     ]
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
     for line in serve_lm_lines:
         print(json.dumps({"serve_lm": {**line, "card": card}}))
+    print(json.dumps({"preprocess": {**preprocess_line, "card": card}}))
+    print(json.dumps({"feed": {**feed_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

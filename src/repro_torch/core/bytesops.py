@@ -1,14 +1,16 @@
-"""Host byte operations of the cleaning chain, on flat row buffers.
+"""Host byte operations of the cleaning chains, on flat row buffers.
 
-Copies of what the abstract and title chains need from
-``repro/core/bytesops.py``: a column of ``n`` strings is one uint8 array
-whose rows each end in ``ROW_SEP`` (``\\x00``). The scan pass (lowercase
-and the two span strips) runs on the device instead; see
+Copies of what the serving chains and the ``col()`` chains of
+``repro_torch.core.expr`` need from ``repro/core/bytesops.py``: a column of
+``n`` strings is one uint8 array whose rows each end in ``ROW_SEP``
+(``\\x00``). The serving chains run the scan pass (lowercase and the two
+span strips) on the device instead; see
 ``repro_torch.kernels.text_clean.ops.scan_flat``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
@@ -34,6 +36,10 @@ def unflatten(buf: np.ndarray) -> list[str]:
     return [p.decode("utf-8", errors="ignore") for p in parts]
 
 
+# ConvertToLower. Copy of ``repro/core/bytesops.py:110 LOWER_LUT``.
+LOWER_LUT = np.arange(256, dtype=np.uint8)
+LOWER_LUT[ord("A") : ord("Z") + 1] += 32
+
 # RemoveUnwantedCharacters: keep [a-z], space, ROW_SEP; everything else
 # (digits, punctuation, specials, residual uppercase, UTF-8 >127) -> space.
 # Copy of ``repro/core/bytesops.py:115 UNWANTED_LUT``.
@@ -58,6 +64,30 @@ CONTRACTIONS: tuple[tuple[bytes, bytes], ...] = (
     (b"'s", b""),
     (b"'", b""),
 )
+
+
+def apply_lut(buf: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """Copy of ``repro/core/bytesops.py:143 apply_lut``."""
+    return lut[buf]
+
+
+def span_strip(buf: np.ndarray, open_b: int, close_b: int) -> np.ndarray:
+    """Delete ``open .. close`` spans (both delimiters included), depth
+    reset at every row separator. Copy of ``repro/core/bytesops.py:147``."""
+    opens = buf == open_b
+    closes = buf == close_b
+    delta = np.subtract(opens, closes, dtype=np.int8)
+    depth = np.cumsum(delta, dtype=np.int32)
+    sep = buf == ROW_SEP
+    sep_depths = depth[sep]
+    if sep_depths.size and sep_depths.any():  # malformed rows: per-row reset
+        row_id = np.cumsum(sep, dtype=np.int32) - sep
+        start_depth = np.concatenate(([0], sep_depths)).astype(np.int32)[row_id]
+        inside = (depth - start_depth) > 0
+    else:
+        inside = depth > 0  # includes opener, excludes closer
+    keep = ~(inside | closes) | sep
+    return buf[keep]
 
 
 def replace_patterns(buf: np.ndarray, patterns: Sequence[tuple[bytes, bytes]]) -> np.ndarray:
@@ -109,3 +139,73 @@ def remove_stopwords(buf: np.ndarray, stopwords: frozenset[bytes]) -> np.ndarray
     """Drop words in ``stopwords`` (``bytesops.py:422``; a byte-word set
     matches exactly what the reference's packed ``WordSet`` matches)."""
     return remove_words(buf, stopwords.__contains__)
+
+
+# ---------------------------------------------------------------------------
+# Op descriptors: the compiled form of a col() chain
+# (``repro/core/bytesops.py:432-521``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class Op:
+    """One byte op of a compiled chain. Copy of ``repro/core/bytesops.py:432
+    Op`` without its regex kind; ``pred`` takes one word's bytes (the
+    reference's takes a packed ``WordView`` of all words at once)."""
+
+    kind: str  # "lut" | "span" | "replace" | "collapse" | "wordpred"
+    lut: np.ndarray | None = None
+    span: tuple[int, int] | None = None
+    patterns: tuple[tuple[bytes, bytes], ...] | None = None
+    pred: Callable[[bytes], bool] | None = None
+
+
+# Module-level predicates (picklable, as the reference's are).
+
+
+def pred_short(word: bytes, threshold: int) -> bool:
+    return len(word) <= threshold
+
+
+def pred_stopword(word: bytes, words: frozenset[bytes]) -> bool:
+    return word in words
+
+
+def lut_op(lut: np.ndarray) -> Op:
+    return Op("lut", lut=lut)
+
+
+def span_op(open_c: str, close_c: str) -> Op:
+    return Op("span", span=(ord(open_c), ord(close_c)))
+
+
+def replace_op(patterns: Sequence[tuple[bytes, bytes]]) -> Op:
+    return Op("replace", patterns=tuple(patterns))
+
+
+def collapse_op() -> Op:
+    return Op("collapse")
+
+
+def wordpred_op(pred: Callable[[bytes], bool]) -> Op:
+    return Op("wordpred", pred=pred)
+
+
+def apply_op(buf: np.ndarray, op: Op) -> np.ndarray:
+    if op.kind == "lut":
+        return apply_lut(buf, op.lut)
+    if op.kind == "span":
+        return span_strip(buf, *op.span)
+    if op.kind == "replace":
+        return replace_patterns(buf, op.patterns)
+    if op.kind == "collapse":
+        return collapse_spaces(buf)
+    if op.kind == "wordpred":
+        return remove_words(buf, op.pred)
+    raise ValueError(f"unknown op {op.kind}")
+
+
+def apply_ops(buf: np.ndarray, ops: Sequence[Op]) -> np.ndarray:
+    for op in ops:
+        buf = apply_op(buf, op)
+    return buf

@@ -16,22 +16,8 @@ from typing import Sequence
 
 from ..kernels.text_clean.ops import scan_flat
 from . import bytesops as B
+from .expr import STOPSET
 
-# Copy of ``repro/core/expr.py:42 ENGLISH_STOPWORDS``.
-ENGLISH_STOPWORDS: tuple[str, ...] = tuple(
-    (
-        "i me my myself we our ours ourselves you your yours yourself yourselves "
-        "he him his himself she her hers herself it its itself they them their "
-        "theirs themselves what which who whom this that these those am is are "
-        "was were be been being have has had having do does did doing a an the "
-        "and but if or because as until while of at by for with about against "
-        "between into through during before after above below to from up down in "
-        "out on off over under again further then once here there when where why "
-        "how all any both each few more most other some such no nor not only own "
-        "same so than too very s t can will just don should now"
-    ).split()
-)
-_STOPSET = frozenset(w.encode() for w in ENGLISH_STOPWORDS)
 _SHORT = 1  # min_word_len(2): words of at most one byte go
 
 
@@ -41,7 +27,7 @@ def _clean(rows: Sequence[str], device, *, stopwords: bool) -> list[str]:
     buf = B.replace_patterns(buf, B.CONTRACTIONS)
     buf = B.collapse_spaces(B.UNWANTED_LUT[buf])
     if stopwords:
-        buf = B.remove_stopwords(buf, _STOPSET)
+        buf = B.remove_stopwords(buf, STOPSET)
     buf = B.remove_short_words(buf, _SHORT)
     return B.unflatten(buf)
 

@@ -1,6 +1,7 @@
 """Synthetic CORE-dataset records with the dirt the cleaning chain removes.
 
-Copy of ``repro/data/synthetic.py:38-154`` (``CorpusGenerator``): HTML tags
+Copy of ``repro/data/synthetic.py:38-154`` (``CorpusGenerator``) and
+``:157`` (``write_corpus``, with the standard library's ``json``): HTML tags
 around random spans, parenthetical asides, digits, punctuation,
 contractions, mixed case and stopwords, ~4% null titles/abstracts and ~3%
 exact duplicates. Tags and parentheses are balanced and non-nested per
@@ -10,7 +11,9 @@ field. Deterministic for a given seed.
 from __future__ import annotations
 
 import itertools
+import json
 import random
+from pathlib import Path
 from typing import Iterator
 
 _SYLLABLES = (
@@ -128,6 +131,35 @@ class CorpusGenerator:
             if len(recent) > 500:
                 recent.pop(0)
             yield rec
+
+
+def write_corpus(
+    out_dir: str | Path,
+    total_bytes: int,
+    n_files: int = 8,
+    seed: int = 0,
+) -> list[Path]:
+    """Write ~total_bytes of JSONL across n_files of deliberately unequal size
+    (the paper's shards range KB..GB)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    gen = CorpusGenerator(seed)
+    it = gen.records()
+    rng = random.Random(seed + 1)
+    # Unequal byte budgets per file.
+    raw = [rng.uniform(0.3, 1.7) for _ in range(n_files)]
+    budgets = [int(total_bytes * w / sum(raw)) for w in raw]
+    paths = []
+    for i, budget in enumerate(budgets):
+        p = out_dir / f"shard_{i:04d}.jsonl"
+        written = 0
+        with open(p, "wb") as fh:
+            while written < budget:
+                line = json.dumps(next(it), separators=(",", ":")).encode() + b"\n"
+                fh.write(line)
+                written += len(line)
+        paths.append(p)
+    return paths
 
 
 def abstracts_and_titles(n: int, seed: int = 0) -> tuple[list[str], list[str]]:

@@ -43,6 +43,8 @@ SIGNATURES = {
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lstm_cell_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "text_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # in, out, offsets (or null); n_rows, width (rows of null offsets); strip_html; stream
+    "text_clean": (_P, _P, _P, _I, _L, _I, _P),
     # q, k, v, out; b, sq, skv, nq, nkv, hd; (batch, seq, head) strides of
     # q, k and v in elements; causal, window, q_offset, kv_len; scale; stream
     "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),

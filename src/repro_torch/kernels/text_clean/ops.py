@@ -1,13 +1,16 @@
-"""Public wrappers of the cleaning scan-pass kernel (``csrc/text_scan.cu``).
+"""Public wrappers of the two text kernels (``csrc/text_scan.cu``,
+``csrc/text_clean.cu``).
 
-Counterpart of ``repro/kernels/text_clean/ops.py:39 text_scan_op`` and
-``:90 scan_flat``. CPU tensors go to the plain version in ``ref.py``; CUDA
-tensors go to the hand-written kernel or raise. ``LAUNCHES["text_scan"]``
-counts kernel launches and nothing else.
+Counterparts of ``repro/kernels/text_clean/ops.py``: ``text_scan_op``
+(``:39``) and ``scan_flat`` (``:90``) for the serving chain's scan pass;
+``text_clean_op`` (``:30``), ``unpack_rows`` (``:57``) and ``clean_rows``
+(``:65``) for the character cleaning of ``DeviceCleaner``. CPU tensors go
+to the plain versions in ``ref.py``; CUDA tensors go to the hand-written
+kernels or raise. ``LAUNCHES[name]`` counts each kernel's launches and
+nothing else.
 
-Unlike the TPU bridge, ``scan_flat`` pads nothing to 128 lanes and never
-declines: the kernel walks the flat ``\\x00``-separated buffer by row
-offsets, whatever the row lengths.
+Unlike the TPU bridge, nothing is padded to 128 lanes or declined: the
+kernels walk flat buffers by row offsets, whatever the row lengths.
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ...core.bytesops import collapse_spaces, unflatten
 from ...device import resolve
-from .ref import text_scan_ref
+from .ref import text_clean_flat_ref, text_clean_ref, text_scan_ref
 
-LAUNCHES = {"text_scan": 0}
+LAUNCHES = {"text_scan": 0, "text_clean": 0}
 
 
 def text_scan_op(buf, offsets, *, lower: bool = True, strip_html: bool = False,
@@ -28,13 +32,7 @@ def text_scan_op(buf, offsets, *, lower: bool = True, strip_html: bool = False,
     ``buf[offsets[r]:offsets[r + 1]]``; ``offsets`` is int64 ``(rows + 1,)``,
     non-decreasing, from 0 to N. Returns a fresh uint8 ``(N,)`` buffer in
     which removed bytes are 0."""
-    if buf.dim() != 1 or buf.dtype != torch.uint8:
-        raise TypeError(f"buf must be 1-D uint8, got {buf.dtype} {tuple(buf.shape)}")
-    if offsets.dim() != 1 or offsets.dtype != torch.int64 or offsets.numel() < 1:
-        raise TypeError(f"offsets must be 1-D int64 with rows + 1 entries, got "
-                        f"{offsets.dtype} {tuple(offsets.shape)}")
-    if offsets.device != buf.device:
-        raise ValueError(f"offsets are on {offsets.device}, buf on {buf.device}")
+    _check_flat("text_scan_op", buf, offsets)
     flags = dict(lower=lower, strip_html=strip_html, strip_parens=strip_parens)
     if buf.device.type == "cpu":
         return text_scan_ref(buf, offsets, **flags)
@@ -85,3 +83,93 @@ def pack_rows(rows: list[str], width: int | None = None) -> np.ndarray:
     for i, e in enumerate(enc):
         out[i, : min(len(e), width)] = np.frombuffer(e[:width], dtype=np.uint8)
     return out
+
+
+def _check_flat(name: str, buf, offsets) -> None:
+    if buf.dim() != 1 or buf.dtype != torch.uint8:
+        raise TypeError(f"buf must be 1-D uint8, got {buf.dtype} {tuple(buf.shape)}")
+    if offsets.dim() != 1 or offsets.dtype != torch.int64 or offsets.numel() < 1:
+        raise TypeError(f"offsets must be 1-D int64 with rows + 1 entries, got "
+                        f"{offsets.dtype} {tuple(offsets.shape)}")
+    if offsets.device != buf.device:
+        raise ValueError(f"{name}: offsets are on {offsets.device}, buf on {buf.device}")
+
+
+def _launch_clean(buf, offsets, n_rows: int, width: int, strip_html: bool) -> torch.Tensor:
+    """The CUDA kernel over ``n_rows`` rows of ``buf``: by ``offsets``, or
+    of ``width`` bytes each when ``offsets`` is None."""
+    if not buf.is_contiguous() or (offsets is not None and not offsets.is_contiguous()):
+        raise ValueError("text_clean: buf and offsets must be contiguous")
+    out = torch.empty_like(buf)
+    if n_rows == 0 or buf.numel() == 0:
+        return out
+    lib = _build.library()
+    err = lib.text_clean(buf.data_ptr(), out.data_ptr(),
+                         None if offsets is None else offsets.data_ptr(), n_rows, width,
+                         int(strip_html), _build.current_stream(buf.device))
+    _build.check(err, "text_clean")
+    LAUNCHES["text_clean"] += 1
+    return out
+
+
+def text_clean_flat(buf, offsets, *, strip_html: bool = True) -> torch.Tensor:
+    """Character cleaning over a flat uint8 buffer ``buf`` ``(N,)`` whose row
+    ``r`` is ``buf[offsets[r]:offsets[r + 1]]``; ``offsets`` is int64
+    ``(rows + 1,)``, non-decreasing, from 0 to N. Returns a fresh uint8
+    ``(N,)`` buffer of a-z and spaces."""
+    _check_flat("text_clean_flat", buf, offsets)
+    if buf.device.type == "cpu":
+        return text_clean_flat_ref(buf, offsets, strip_html=strip_html)
+    if buf.device.type != "cuda":
+        raise ValueError(f"text_clean_flat: unsupported device {buf.device}")
+    return _launch_clean(buf, offsets, offsets.numel() - 1, 0, strip_html)
+
+
+def text_clean_op(rows, *, strip_html: bool = True) -> torch.Tensor:
+    """The cleaning kernel over a ``(n, width)`` uint8 matrix of padded rows
+    (``repro/kernels/text_clean/ops.py:30``). Returns a fresh matrix."""
+    if rows.dim() != 2 or rows.dtype != torch.uint8:
+        raise TypeError(f"rows must be a 2-D uint8 matrix, got {rows.dtype} {tuple(rows.shape)}")
+    n, width = rows.shape
+    if rows.device.type == "cpu":
+        return text_clean_ref(rows, strip_html=strip_html)
+    if rows.device.type != "cuda":
+        raise ValueError(f"text_clean_op: unsupported device {rows.device}")
+    return _launch_clean(rows.contiguous().view(-1), None, n, width, strip_html).view(n, width)
+
+
+def unpack_rows(mat) -> list[str]:
+    """Cleaned matrix rows -> strings with whitespace runs collapsed.
+    Copy of ``repro/kernels/text_clean/ops.py:57 unpack_rows``."""
+    out = []
+    for row in np.asarray(mat):
+        s = row.tobytes().decode("utf-8", errors="ignore")
+        out.append(" ".join(s.split()))
+    return out
+
+
+def clean_flat(rows: list[str], *, strip_html: bool = True, device=None) -> np.ndarray:
+    """:func:`clean_rows` as one flat ``\\x00``-terminated row buffer
+    (``repro_torch.core.bytesops.flatten`` of its strings), the form the
+    host word tail of ``DeviceCleaner`` takes. Each row goes to the kernel
+    with its terminator, which becomes a space there and is put back after;
+    nothing is padded."""
+    enc = [r.encode("utf-8", errors="ignore") for r in rows]
+    if not enc:
+        return np.zeros(0, dtype=np.uint8)
+    ends = np.cumsum([len(e) + 1 for e in enc], dtype=np.int64)
+    dev = resolve(device)
+    buf = torch.frombuffer(bytearray(b"\x00".join(enc) + b"\x00"), dtype=torch.uint8).to(dev)
+    offsets = torch.from_numpy(np.concatenate([[0], ends])).to(dev)
+    out = text_clean_flat(buf, offsets, strip_html=strip_html)
+    out[offsets[1:] - 1] = 0
+    return collapse_spaces(out.cpu().numpy())
+
+
+def clean_rows(rows: list[str], *, strip_html: bool = True, device=None) -> list[str]:
+    """Clean a list of rows on ``device`` (the card unless the caller names
+    another): lowercase, HTML span, letters only, whitespace collapsed.
+    ``repro/kernels/text_clean/ops.py:65``, except that a column of empty
+    rows gives empty rows: the reference's ``pack_rows`` makes a matrix of
+    width 0 there, and its Pallas grid divides by it."""
+    return unflatten(clean_flat(rows, strip_html=strip_html, device=device))

@@ -80,13 +80,15 @@ def test_cpu_tensor_leaves_the_launch_counters_at_zero():
     from repro_torch.kernels.rg_lru import ops as rg_ops
     from repro_torch.kernels.text_clean import ops as scan_ops
 
-    counters = [(lstm_ops, "lstm_cell"), (scan_ops, "text_scan"),
+    counters = [(lstm_ops, "lstm_cell"), (scan_ops, "text_scan"), (scan_ops, "text_clean"),
                 (flash_ops, "flash_attention"), (rg_ops, "rg_lru"), (mlstm_ops, "mlstm_chunk")]
     before = [mod.LAUNCHES[name] for mod, name in counters]
     x, h = torch.ones(2, 3), torch.zeros(2, 4)
     lstm_ops.lstm_cell_op(x, h, h, torch.ones(3, 16), torch.ones(4, 16), torch.zeros(16))
     buf = np.frombuffer(b"A <b>x</b>\x00", dtype=np.uint8)
     assert scan_ops.scan_flat(buf, strip_html=True, device="cpu").tobytes() == b"a x\x00"
+    assert scan_ops.clean_rows(["A <b>x</b>"], device="cpu") == ["a x"]
+    scan_ops.text_clean_op(torch.zeros(2, 3, dtype=torch.uint8))
     q = torch.ones(1, 3, 2, 8)
     flash_ops.flash_attention_op(q, q, q)
     rg_ops.rg_lru_op(torch.ones(1, 3, 4), torch.ones(1, 3, 4), torch.zeros(1, 4))
