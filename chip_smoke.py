@@ -10,10 +10,15 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 at 1e-5, bf16 at 2e-2, bytes
-   identical);
+   identical); ``lstm_cell`` also at its tiling's edges and unaligned
+   inputs, ``mlstm_chunk`` over a grid of lengths (the decode path at 1),
+   head widths and (batch, head) counts, each launched twice and the two
+   results held equal bit for bit;
 4. time every kernel, its plain version and a library yardstick with CUDA
    events (median of 60 calls queued behind a spin kernel, so the host's
-   launch cost is hidden), beside the least time the card could take;
+   launch cost is hidden), beside the least time the card could take and
+   each kernel's time before the redesign of ``lstm_cell`` and
+   ``mlstm_chunk``; and the host's cost of one ``lstm_cell_op`` call;
 5. serve 512 raw abstracts at the published width (``CONFIG``) in batches
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
@@ -85,6 +90,16 @@ ADVERSARIAL = [
     "nested ((deep (er))) out", "<<< (((", ")))) >>>>", "naïve café 漢字 🙂 (ñé) <Ω>", "",
     "Giant <b>Row</b> " + "Lorem IPSUM (drop me) " * 200, "<" + "x" * 3000 + ">tail",
 ]
+# Per-launch times before the redesign of lstm_cell and mlstm_chunk (the
+# kernel table of PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's: (kernel, timed row) -> ms.
+BEFORE_MS = {("lstm_cell", None): 0.08890, ("text_scan", None): 0.006816,
+           ("flash_attention", "decode"): 0.01395, ("flash_attention", "prefill"): 0.01411,
+           ("flash_attention", "decode_hd256"): 0.02643,
+           ("flash_attention", "prefill_hd256"): 0.02603, ("rg_lru", "decode"): 0.005248,
+           ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.04544,
+           ("mlstm_chunk", "prefill"): 0.06925, ("text_clean", "matrix"): 0.01133,
+           ("text_clean", "abstracts"): 0.10571}
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -133,27 +148,55 @@ def lstm_inputs(B, d_in, H, dtype, gen):
             rnd(H, 4 * H, scale=0.05), rnd(4 * H, scale=0.1))
 
 
+# The tiling's edges (clusters of 8 hidden units x 64 rows, the contraction
+# split four ways in tiles of 32): batch, hidden and input widths on both
+# sides of each boundary.
+LSTM_EDGE_B, LSTM_EDGE_H, LSTM_EDGE_D = (1, 5, 64, 65, 130), (8, 48, 256, 264), \
+    (1, 24, 128, 256, 2048)
+# Shapes the 16-byte copies cannot take (H not a multiple of 8, d_in not of
+# the vector width) and d_in + H at the old limit of 7,264.
+LSTM_PLAIN_LOADS = [(3, 7, 13), (2, 9, 250), (66, 130, 36), (2, 7000, 264)]
+
+
 def check_lstm_cell(gen) -> float:
-    """Kernel vs plain version at the served shapes; returns the fp32 max
-    abs error."""
+    """Kernel vs plain version at the served shapes, the JAX suite's, the
+    tiling's edges and the unaligned shapes, fp32 and bf16; inputs that are
+    not 16-byte aligned; two launches on the same inputs bit for bit.
+    Returns the fp32 max abs error at the served shapes."""
+    import itertools
+
     from repro_torch.kernels.lstm_cell.ops import lstm_cell_op
     from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
     err = 0.0
     served = [(BATCH, 128, 256), (BATCH, 256, 256)]
-    # ragged tiles (the JAX suite's shapes) and > 48 KB of shared memory
+    # ragged tiles (the JAX suite's shapes) and a long contraction
     edges = [(5, 24, 48), (4, 16, 32), (3, 2048, 256)]
+    grid = list(itertools.product(LSTM_EDGE_B, LSTM_EDGE_D, LSTM_EDGE_H))
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for B, d_in, H in served + edges:
+        for B, d_in, H in served + edges + grid + LSTM_PLAIN_LOADS:
             args = lstm_inputs(B, d_in, H, dtype, gen)
             got = lstm_cell_op(*args)
+            again = lstm_cell_op(*args)
             torch.cuda.synchronize()
             want = lstm_cell_ref(*args)
-            for g, w in zip(got, want):
+            for g, a, w in zip(got, again, want):
                 torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+                if not torch.equal(g, a):
+                    fail(f"lstm_cell {dtype} B={B} d_in={d_in} H={H}: two launches differ")
                 if dtype == torch.float32 and (B, d_in, H) in served:
                     err = max(err, (g - w).abs().max().item())
-            print(f"lstm_cell {dtype} B={B} d_in={d_in} H={H}: matches plain (tol {tol})")
+            if (B, d_in, H) in served + edges:
+                print(f"lstm_cell {dtype} B={B} d_in={d_in} H={H}: matches plain (tol {tol})")
+        # every input one element past a 16-byte boundary
+        B, d_in, H = 5, 24, 48
+        shifted = [torch.empty(t.numel() + 1, dtype=dtype, device="cuda")[1:].view(t.shape)
+                   .copy_(t) for t in lstm_inputs(B, d_in, H, dtype, gen)]
+        for g, w in zip(lstm_cell_op(*shifted), lstm_cell_ref(*shifted)):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        print(f"lstm_cell {dtype}: matches plain at {len(grid)} edge shapes (B {LSTM_EDGE_B}, "
+              f"d_in {LSTM_EDGE_D}, H {LSTM_EDGE_H}), {len(LSTM_PLAIN_LOADS)} shapes of plain "
+              f"loads and unaligned inputs (tol {tol}); two launches identical bit for bit")
     return err
 
 
@@ -194,7 +237,59 @@ def time_lstm_cell(gen, bw: float, flops: float) -> dict:
     bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
     return {"ms": mean("ms"), "plain_ms": mean("plain_ms"), "library_ms": mean("library_ms"),
             "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "by_d_in": rows, **host_cost_lstm_cell(gen)}
+
+
+def host_cost_lstm_cell(gen, n: int = 200, n_loop: int = 2000) -> dict:
+    """The host's cost of one ``lstm_cell_op`` call at the served shape
+    (B=64, d_in=256, H=256, fp32): the wall clock of ``n`` calls queued
+    behind a spin kernel, so that only the host's work is timed; and of
+    ``n_loop`` calls back to back, synchronised at the end, the rate at
+    which a loop of cell steps runs when nothing else is in the way. Then
+    the issue cost of the library's entry point alone (pointers and stream
+    ready: ctypes and the launch, without the wrapper's Python) and of one
+    ``torch.lstm_cell`` call, as yardsticks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_op
+
+    args = lstm_inputs(BATCH, 256, 256, torch.float32, gen)
+    x, h, c, wx, wh, b = args
+    entry = _build.library().lstm_cell_f32
+    outs = torch.empty_like(h), torch.empty_like(c)
+    ptrs = [t.data_ptr() for t in (x, h, c, wx, wh, b, *outs)]
+    stream = _build.current_stream(x.device)
+    _build.check(entry(*ptrs, BATCH, 256, 256, stream), "lstm_cell")
+    w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
+    for _ in range(10):
+        lstm_cell_op(*args)
+    torch.cuda.synchronize()
+
+    def issue_cost(call) -> float:
+        """µs a call takes to issue, ``n`` calls queued behind a spin kernel
+        (~0.1 s)."""
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return seconds / n * 1e6
+
+    issue_us = issue_cost(lambda: lstm_cell_op(*args))
+    t0 = time.perf_counter()
+    for _ in range(n_loop):
+        lstm_cell_op(*args)
+    torch.cuda.synchronize()
+    loop_us = (time.perf_counter() - t0) / n_loop * 1e6
+    entry_us = issue_cost(lambda: entry(*ptrs, BATCH, 256, 256, stream))
+    library_us = issue_cost(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b))
+    print(f"lstm_cell_op host cost: {issue_us:.2f} us a call to issue ({n} calls behind a spin "
+          f"kernel; the library entry alone {entry_us:.2f} us; torch.lstm_cell "
+          f"{library_us:.2f} us); {loop_us:.2f} us a call back to back ({n_loop} calls, "
+          f"synchronised)")
+    return {"host_issue_us": issue_us, "back_to_back_us": loop_us,
+            "entry_host_issue_us": entry_us, "library_host_issue_us": library_us}
 
 
 def flat_rows(rows):
@@ -691,13 +786,24 @@ MLSTM_SERVED = [(1, s, 4, 512) for s in (1, 7, 15, 64, 200)]
 MLSTM_EDGES = [(2, 65, 2, 16), (1, 130, 4, 64), (3, 1, 2, 64), (2, 15, 4, 16)]
 
 
+# The decode path (L = 1) and the prefill's chunk edges, at head widths
+# from 64 to the kernel's limit, for 1, 4 and 8 (batch, head) pairs.
+MLSTM_EDGE_L, MLSTM_EDGE_DH, MLSTM_EDGE_BH = (1, 2, 10, 63, 64, 65, 130), (64, 128, 512, 1024), \
+    {1: (1, 1), 4: (1, 4), 8: (2, 4)}
+
+
 def check_mlstm_chunk(gen) -> tuple[float, float]:
     """Kernel vs plain version from a carried state, output and returned
     state (C, n, m) at fp32 2e-5; returns the max abs error of the output
     and the max relative error of the state (C grows to hundreds) at the
-    serving shapes."""
+    serving shapes. Then the grid of lengths, head widths and (batch, head)
+    counts at the CPU tests' tolerances (output 2e-5, state 1e-4 relative
+    and 1e-6 absolute), a decode step also against ``mlstm_step_ref``, and
+    two launches from the same state bit for bit."""
+    import itertools
+
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_op
-    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref, mlstm_step_ref
 
     err = state_err = 0.0
     for case in MLSTM_SERVED + MLSTM_EDGES:
@@ -719,7 +825,58 @@ def check_mlstm_chunk(gen) -> tuple[float, float]:
     print(f"mlstm_chunk fp32: output and state match plain at "
           f"{len(MLSTM_SERVED + MLSTM_EDGES)} shapes from a carried state (tol 2e-5); at the "
           f"serving shapes output max abs err {err:.3e}, state max rel err {state_err:.3e}")
+
+    grid = list(itertools.product(MLSTM_EDGE_L, MLSTM_EDGE_DH, MLSTM_EDGE_BH))
+    by_fp64, n_held = [], 0
+    for s, dh, bh in grid:
+        b, H = MLSTM_EDGE_BH[bh]
+        args = mlstm_inputs(b, s, H, dh, gen)
+        c, n, m = mlstm_state(b, H, dh, gen)
+        wants = [mlstm_chunk_ref(*args, c, n, m)]
+        if s == 1:
+            wants.append(mlstm_step_ref(*args, c, n, m))
+        exact = mlstm_chunk_ref(*args, c, n, m, dtype=torch.float64)
+        runs = [mlstm_chunk_op(*args, c.clone(), n, m) for _ in range(2)]
+        torch.cuda.synchronize()
+        for want in wants:
+            for name, g, w, x, tol in zip("hCnm", runs[0], want, exact,
+                                          ((2e-5, 2e-5),) + ((1e-4, 1e-6),) * 3):
+                ratio = held_to_plain(g, w, x, *tol, f"mlstm_chunk L={s} dh={dh} b*H={bh} {name}")
+                n_held += 1
+                if ratio is not None:
+                    by_fp64.append((s, dh, bh, name, *ratio))
+        if not all(torch.equal(g, a) for g, a in zip(*runs)):
+            fail(f"mlstm_chunk L={s} dh={dh} b*H={bh}: two launches differ")
+    print(f"mlstm_chunk fp32: output (tol 2e-5) and state (rtol 1e-4, atol 1e-6) match plain "
+          f"at {len(grid)} shapes (L {MLSTM_EDGE_L}, dh {MLSTM_EDGE_DH}, b*H "
+          f"{tuple(MLSTM_EDGE_BH)}) from a carried state, decode steps also against "
+          f"mlstm_step_ref; two launches identical bit for bit")
+    print(f"mlstm_chunk: {len(by_fp64)} of {n_held} tensor comparisons decided through fp64 "
+          f"(L, dh, b*H, tensor, kernel err / plain err against fp64, plain version itself "
+          f"beyond the tolerance): {by_fp64}")
     return err, state_err
+
+
+def held_to_plain(got, plain, exact, rtol: float, atol: float, what: str):
+    """``got`` (a kernel's fp32 result) against ``plain`` (the fp32 plain
+    version's) at rtol/atol. Where an element misses that, both are held
+    against ``exact``, the plain version's algebra in fp64, at the same
+    rtol/atol: the kernel must meet it there, or, only where the fp32 plain
+    version itself misses it, miss by no more than the plain version does.
+    Returns None, or (the kernel's max abs error against fp64 over the
+    plain version's, whether the plain version missed) when fp64 decided."""
+    if torch.allclose(got, plain, rtol=rtol, atol=atol):
+        return None
+    limit = atol + rtol * exact.abs()
+    over_kernel = ((got.double() - exact).abs() - limit).max().item()
+    over_plain = ((plain.double() - exact).abs() - limit).max().item()
+    if over_kernel > max(over_plain, 0.0):
+        fail(f"{what}: differs from the plain version beyond rtol {rtol}, atol {atol} (max abs "
+             f"{(got - plain).abs().max().item():.3e}), and misses them against fp64 by "
+             f"{over_kernel:.3e}, where the plain version misses by {max(over_plain, 0.0):.3e}")
+    e_kernel = (got.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    return e_kernel / e_plain, over_plain > 0
 
 
 def mlstm_work(b, s, H, dh) -> tuple[int, int]:
@@ -1102,6 +1259,11 @@ def main() -> int:
          **{k: clean_t["matrix"][k] for k in
             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
     ]
+    for (kernel, row), before in BEFORE_MS.items():
+        entry = next(k for k in kernels if k["name"] == kernel)
+        now = entry[row]["ms"] if row else entry["ms"]
+        print(f"{kernel}{' ' + row if row else ''}: {now:.5f} ms a launch (before: {before} ms, "
+              f"{before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))

@@ -28,49 +28,195 @@
 // contiguous fp32; C (b, H, dh, dh) with C[v][k] as the reference keeps it,
 // n (b, H, dh), m (b, H).
 //
-// Design (right before fast). C is dh x dh fp32 per (batch, head): 1 MB at
-// xLSTM-1.3B's dh = 512, far more than the 227 KB of shared memory a block
-// may hold (the TPU kernel keeps the whole C in VMEM). So the grid is
-// (b * H) x (dh / 32): each block owns 32 value rows of C (64 KB at
-// dh = 512, kept in shared memory from the first chunk to the last), walks
-// the chunks in order, and recomputes the chunk's gates, the L x L scores
-// q_t . k_j and q_t . n_in itself; those are cheap next to its slice of C.
-// q and k are staged in tiles of 64 key columns. The gate recurrences (a
-// cumulative sum and a running max over <= 64 steps) run on one thread.
-// No tensor cores and no TF32: the checks hold it to fp32 tolerances.
+// Two paths, one launch each.
+//
+// Decode (s = 1, every step after a prompt): a rank-1 update that reads C
+// once and writes it once, so it is bound by the card's memory. Each warp
+// owns 2 value rows of C; a lane reads its share of a row with 16-byte loads
+// into registers (all of the warp's rows in flight at once) and in the same
+// pass computes C_in[r] . q and writes C_out[r] = s * C_in[r] + w v[r] k.
+// The scalars (the gates, q . k and q . n_in) come from L2: every warp
+// computes them itself with shuffles, so the block never synchronises.
+// Blocks of 16 rows: xLSTM-1.3B's 4 heads of 512 rows are 128 blocks.
+// Each warp also writes its rows' entries of n_out; a head's first block
+// writes m_out. C and n are rounded as the plain version's three operations.
+//
+// Chunked pass (s > 1: a prompt, or any longer call): the grid is
+// (b * H) x (dh / 16), and half-warp r of a block owns value row r of the
+// block's 16 rows of C in registers (dh / 16 floats a lane) from the first
+// chunk to the last, so C is read once and written once and 128 blocks
+// cover xLSTM-1.3B's 4 heads of 512. Per chunk of L <= 64 steps:
+// - the gate recurrences (a cumulative sum and a running max) are a scan
+//   across warp 0, two steps a lane, the sum in fp64;
+// - q_t . C_in[r] for every t is the half-warp's registers against q_t;
+//   the scores q_t . k_j (j <= t) and q_t . n_in are spread over all the
+//   half-warps; each dot product is 16 lanes and a shuffle sum, with q and
+//   k read from L2 and L1, never staged;
+// - the outputs of the block's 16 rows, then C[r] updated in registers
+//   and n in shared memory, each k_j read once a lane.
+// Every block recomputes the chunk's gates and L x L scores; those are
+// cheap next to its rows of C. No tensor cores and no TF32: the checks hold
+// it to fp32 tolerances.
 //
 // What bounds it: at decode (one step, dh = 512) the state dominates: C
 // read and written, 2 MB per head, about 0.0025 ms for xLSTM-1.3B's 4 heads
 // at 3.35 TB/s, against about 2 * dh^2 operations per head. A long prefill
 // does about 4 * s * 64 * dh operations per head for the scores, repeated in
-// each of the dh / 32 blocks, and 4 * s * dh^2 for C: bound by arithmetic.
+// each of the dh / 16 blocks, and 4 * s * dh^2 for C: bound by arithmetic.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 64;  // time steps per chunk
-constexpr int kTV = 32;     // value rows of C per block
-constexpr int kTK = 64;     // key columns per staged q / k tile
-constexpr int kTS = kTK + 1;  // odd row stride of the staged tiles
+constexpr int kTV = 16;     // chunked pass: value rows of C per block, one a half-warp
+constexpr int kSS = kChunk + 1;  // odd row stride of the scores
+
+constexpr int kRowsPerWarp = 2;                            // decode: value rows per warp
+constexpr int kDecodeRows = kThreads / 32 * kRowsPerWarp;  // decode: value rows per block
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
-size_t smem_floats(int dh) {
-  return static_cast<size_t>(kTV) * (dh + 1)  // C slice
-         + dh                                 // n
-         + 2 * kChunk * kTS                   // q and k tiles
-         + kChunk * kTV                       // v tile
-         + kChunk * kChunk                    // scores, then W
-         + kChunk * kTV                       // q . C
-         + 8 * kChunk                         // per-step gate values
-         + 2;                                 // m, s_out
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
 }
 
+__host__ __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// V consecutive floats of global memory (16-byte loads when V = 4), or
+// zeros. C goes through plain loads, since the kernel writes it.
+template <int V>
+__device__ __forceinline__ void load_vec(float (&dst)[V], const float* src, bool ok) {
+  if constexpr (V == 4) {
+    const float4 t = ok ? *reinterpret_cast<const float4*>(src) : make_float4(0, 0, 0, 0);
+    dst[0] = t.x, dst[1] = t.y, dst[2] = t.z, dst[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[i] = ok ? src[i] : 0.0f;
+  }
+}
+
+// One decode step (s = 1) of head bh = blockIdx.x for value rows
+// blockIdx.y * kDecodeRows ..: lane l of a warp holds elements
+// (c * 32 + l) * V .. + V - 1 of a row, c < NC, so NC * 32 * V >= dh.
+template <int V, int NC>
+__global__ void __launch_bounds__(kThreads)
+mlstm_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ ig,
+                    const float* __restrict__ fg, float* __restrict__ C,
+                    const float* __restrict__ n_in, const float* __restrict__ m_in,
+                    float* __restrict__ n_out, float* __restrict__ m_out,
+                    float* __restrict__ out, int dh) {
+  const int bh = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.y * kDecodeRows + (threadIdx.x >> 5) * kRowsPerWarp;
+  const size_t base = static_cast<size_t>(bh) * dh;  // q, k, v, out and n of the head
+  float* Cb = C + base * dh;
+
+  // The warp's rows of C first, all in flight at once; then q, k and n.
+  float cv[kRowsPerWarp][NC][V], qv[NC][V], kv[NC][V];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int e = (c * 32 + lane) * V;
+      load_vec<V>(cv[rr][c], Cb + static_cast<size_t>(r0 + rr) * dh + e, r0 + rr < dh && e < dh);
+    }
+  }
+  float qk = 0.0f, qn = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int e = (c * 32 + lane) * V;
+    float nv[V];
+    load_vec<V>(qv[c], q + base + e, e < dh);
+    load_vec<V>(kv[c], k + base + e, e < dh);
+    load_vec<V>(nv, n_in + base + e, e < dh);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      qk += qv[c][i] * kv[c][i];
+      qn += qv[c][i] * nv[i];
+    }
+  }
+  qk = warp_sum(qk);
+  qn = warp_sum(qn);
+
+  // The chunk algebra at L = 1: b_1 = log sigmoid(f), x_1 = i - b_1.
+  const float it = ig[bh], m0 = m_in[bh];
+  const float b1 = log_sigmoid(fg[bh]);
+  const float x1 = it - b1;
+  const float m_new = fmaxf(b1 + m0, x1 + b1);
+  const float decay = expf(b1 + m0 - m_new);   // e^{b_1 + m_in - m_1}, the state's too
+  const float w = expf(it - m_new);            // the step's weight in the new state
+  const float W = expf(b1 - m_new + x1) * qk;  // D_11 (q . k)
+  const float den = fmaxf(fabsf(decay * qn + W), 1.0f);
+
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = r0 + rr;
+    if (r >= dh) break;  // the same for the whole warp
+    float dot = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) dot += cv[rr][c][i] * qv[c][i];
+    }
+    dot = warp_sum(dot);
+    const float vr = v[base + r];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int e = (c * 32 + lane) * V;
+      if (e >= dh) continue;
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {  // rounded as the plain version's three operations
+        o[i] = __fadd_rn(__fmul_rn(decay, cv[rr][c][i]), __fmul_rn(vr, __fmul_rn(w, kv[c][i])));
+      }
+      float* dst = Cb + static_cast<size_t>(r) * dh + e;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) dst[i] = o[i];
+      }
+    }
+    if (lane == 0) {
+      out[base + r] = (decay * dot + W * vr) / den;
+      n_out[base + r] = __fadd_rn(__fmul_rn(decay, n_in[base + r]), __fmul_rn(w, k[base + r]));
+    }
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0) m_out[bh] = m_new;
+}
+
+size_t smem_floats(int dh) {
+  return static_cast<size_t>(dh)  // n, first so that it is 16-byte aligned
+         + kChunk * kSS           // scores, then W
+         + 2 * kChunk * kTV       // q . C and the block's v rows
+         + 8 * kChunk             // per-step gate values
+         + 4;                     // m, s_out
+}
+
+// Steps unrolled in the chunked pass's loops over t and j: 4 while a lane's
+// row of C (NC * V floats) leaves the registers for it, else 1.
+template <int kRowFloats> constexpr int kUnrollSteps = kRowFloats <= 32 ? 4 : 1;
+
+// Sum over the 16 lanes of a half-warp (fixed tree), every lane gets it.
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int d = 8; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// A chunked pass over s steps (s > 1). Half-warp r of the block owns value
+// row blockIdx.y * kTV + r of C in registers: lane l of it holds elements
+// (i * 16 + l) * V .. + V - 1, i < NC, so NC * 16 * V >= dh.
+template <int V, int NC>
 __global__ void __launch_bounds__(kThreads)
 mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ ig,
@@ -78,16 +224,12 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ n_in, const float* __restrict__ m_in,
                    float* __restrict__ n_out, float* __restrict__ m_out,
                    float* __restrict__ out, int s, int H, int dh) {
-  extern __shared__ float smem[];
-  const int cs = dh + 1;  // odd row stride of the C slice
-  float* Cs = smem;                  // kTV x cs
-  float* ns = Cs + kTV * cs;         // dh
-  float* qs = ns + dh;               // kChunk x kTS
-  float* ks = qs + kChunk * kTS;     // kChunk x kTS (k, then w_j * k in the update)
-  float* vs = ks + kChunk * kTS;     // kChunk x kTV
-  float* S = vs + kChunk * kTV;      // kChunk x kChunk
-  float* qC = S + kChunk * kChunk;   // kChunk x kTV
-  float* ig_s = qC + kChunk * kTV;   // kChunk each:
+  extern __shared__ __align__(16) float smem[];
+  float* ns = smem;                  // dh: n, updated chunk by chunk
+  float* S = ns + dh;                // kChunk x kSS: scores q_t . k_j, then W
+  float* qC = S + kChunk * kSS;      // kChunk x kTV: q_t . C_in rows
+  float* vs = qC + kChunk * kTV;     // kChunk x kTV: the block's v rows
+  float* ig_s = vs + kChunk * kTV;   // kChunk each:
   float* bc = ig_s + kChunk;         //   cumulative log forget gate b_t
   float* xs = bc + kChunk;           //   x_t = i_t - b_t
   float* mt = xs + kChunk;           //   stabiliser m_t
@@ -98,19 +240,21 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* m_sh = den + kChunk;        // running m
   float* s_out = m_sh + 1;           // e^{b_L + m_in - m_out}
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, side = (tid / 16) & 1;
+  const int r = tid / 16, ks = tid % 16;  // this half-warp's row of the block, lane in it
   const int bh = blockIdx.x;
   const int bi = bh / H, hh = bh - bi * H;
-  const int v0 = blockIdx.y * kTV;
-  const int nv = min(kTV, dh - v0);
+  const int v0 = blockIdx.y * kTV, row = v0 + r;
   const long long t_stride = static_cast<long long>(H) * dh;  // one step of q, k, v, out
   const long long qkv0 = static_cast<long long>(bi) * s * t_stride + static_cast<long long>(hh) * dh;
   const long long g0 = static_cast<long long>(bi) * s * H + hh;
   float* Cb = C + static_cast<long long>(bh) * dh * dh;
 
-  for (int i = tid; i < nv * dh; i += kThreads) {
-    const int r = i / dh, c = i - r * dh;
-    Cs[r * cs + c] = Cb[static_cast<long long>(v0 + r) * dh + c];
+  float cr[NC][V];  // C[row] in registers from the first chunk to the last
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int e = (i * 16 + ks) * V;
+    load_vec<V>(cr[i], Cb + static_cast<long long>(row) * dh + e, row < dh && e < dh);
   }
   for (int i = tid; i < dh; i += kThreads) ns[i] = n_in[static_cast<long long>(bh) * dh + i];
   if (tid == 0) *m_sh = m_in[bh];
@@ -119,123 +263,244 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int c0 = 0; c0 < s; c0 += kChunk) {
     const int L = min(kChunk, s - c0);
 
-    // Gates: a cumulative sum and a running max over the chunk's real steps.
-    if (tid == 0) {
+    // Gates: a cumulative sum and a running max over the chunk's real steps,
+    // scanned across warp 0, which holds steps lane and lane + 32.
+    if (tid < 32) {
       const float m0 = *m_sh;
-      float cum = 0.0f, run = 0.0f;
-      for (int t = 0; t < L; ++t) {
+      float it[2], cum[2], run[2];
+      double sum[2];  // the cumulative sum in fp64, so b_t is its fp32 rounding
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = tid + 32 * half;
         const long long g = g0 + static_cast<long long>(c0 + t) * H;
-        const float it = ig[g];
-        cum += log_sigmoid(fg[g]);
-        const float x = it - cum;
-        run = t == 0 ? x : fmaxf(run, x);
-        const float m = fmaxf(cum + m0, run + cum);
-        ig_s[t] = it;
-        bc[t] = cum;
-        xs[t] = x;
-        mt[t] = m;
-        inter[t] = expf(cum + m0 - m);
+        it[half] = t < L ? ig[g] : 0.0f;
+        sum[half] = t < L ? log_sigmoid(fg[g]) : 0.0;
       }
-      const float m_new = fmaxf(cum + m0, run + cum);
-      *s_out = expf(cum + m0 - m_new);
-      for (int j = 0; j < L; ++j) wj[j] = expf(cum - bc[j] + ig_s[j] - m_new);
-      *m_sh = m_new;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        for (int d = 1; d < 32; d *= 2) {
+          const double up = __shfl_up_sync(0xffffffffu, sum[half], d);
+          if (tid >= d) sum[half] += up;
+        }
+      }
+      sum[1] += __shfl_sync(0xffffffffu, sum[0], 31);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = tid + 32 * half;
+        cum[half] = static_cast<float>(sum[half]);
+        run[half] = t < L ? it[half] - cum[half] : -INFINITY;
+        for (int d = 1; d < 32; d *= 2) {
+          const float up = __shfl_up_sync(0xffffffffu, run[half], d);
+          if (tid >= d) run[half] = fmaxf(run[half], up);
+        }
+      }
+      run[1] = fmaxf(run[1], __shfl_sync(0xffffffffu, run[0], 31));
+      const int last = L - 1;  // the chunk's last real step
+      const float b_last = __shfl_sync(0xffffffffu, last < 32 ? cum[0] : cum[1], last % 32);
+      const float run_last = __shfl_sync(0xffffffffu, last < 32 ? run[0] : run[1], last % 32);
+      const float m_new = fmaxf(b_last + m0, run_last + b_last);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = tid + 32 * half;
+        if (t < L) {
+          const float m = fmaxf(cum[half] + m0, run[half] + cum[half]);
+          ig_s[t] = it[half];
+          bc[t] = cum[half];
+          xs[t] = it[half] - cum[half];
+          mt[t] = m;
+          inter[t] = expf(cum[half] + m0 - m);
+          wj[t] = expf(b_last - cum[half] + it[half] - m_new);
+        }
+      }
+      __syncwarp();
+      if (tid == 0) {
+        *s_out = expf(b_last + m0 - m_new);
+        *m_sh = m_new;
+      }
     }
-    for (int i = tid; i < L * L; i += kThreads) S[i] = 0.0f;
-    for (int i = tid; i < L * kTV; i += kThreads) qC[i] = 0.0f;
-    for (int i = tid; i < L; i += kThreads) qn[i] = 0.0f;
+    const float* qc = q + qkv0 + c0 * t_stride;  // step t of the chunk at + t * t_stride
+    const float* kc = k + qkv0 + c0 * t_stride;
+    __syncthreads();  // the gates are written
 
-    // Scores q_t . k_j (j <= t), q_t . C_in rows and q_t . n_in, by key tiles.
-    for (int k0 = 0; k0 < dh; k0 += kTK) {
-      const int nk = min(kTK, dh - k0);
-      __syncthreads();  // the previous tile consumed; accumulators zeroed
-      for (int i = tid; i < L * nk; i += kThreads) {
-        const int t = i / nk, c = i - t * nk;
-        const long long g = qkv0 + static_cast<long long>(c0 + t) * t_stride + k0 + c;
-        qs[t * kTS + c] = q[g];
-        ks[t * kTS + c] = k[g];
+    // q_t . C_in[row] for every step: the half-warp's registers against q_t.
+#pragma unroll(kUnrollSteps<NC * V>)
+    for (int t = 0; t < L; ++t) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = (i * 16 + ks) * V;
+        float qv[V];
+        load_vec<V>(qv, qc + t * t_stride + e, e < dh);
+#pragma unroll
+        for (int x = 0; x < V; ++x) acc += cr[i][x] * qv[x];
       }
-      __syncthreads();
-      for (int i = tid; i < L * L; i += kThreads) {
-        const int t = i / L, j = i - t * L;
-        if (j > t) continue;
-        float acc = S[i];
-        for (int c = 0; c < nk; ++c) acc += qs[t * kTS + c] * ks[j * kTS + c];
-        S[i] = acc;
+      acc = half_sum(acc);
+      if (ks == 0) qC[t * kTV + r] = acc;
+    }
+    // Scores q_t . k_j (j <= t), then q_t . n: one item per half-warp, the
+    // two halves of a warp side by side so that both run every shuffle.
+    const int n_pairs = L * (L + 1) / 2, n_items = n_pairs + L;
+    for (int base = 2 * warp; base < n_items; base += kThreads / 16) {
+      const int item = base + side;
+      int t = item - n_pairs, j = -1;  // an item past the pairs: q_t . n
+      if (item < n_pairs) {
+        t = static_cast<int>((sqrtf(8.0f * item + 1.0f) - 1.0f) * 0.5f);
+        while (t * (t + 1) / 2 > item) --t;
+        while ((t + 1) * (t + 2) / 2 <= item) ++t;
+        j = item - t * (t + 1) / 2;
       }
-      for (int i = tid; i < L * nv; i += kThreads) {
-        const int t = i / nv, r = i - t * nv;
-        float acc = qC[t * kTV + r];
-        const float* crow = Cs + r * cs + k0;
-        for (int c = 0; c < nk; ++c) acc += qs[t * kTS + c] * crow[c];
-        qC[t * kTV + r] = acc;
+      const bool live = item < n_items;
+      const float* other = j >= 0 ? kc + j * t_stride : ns;
+      float acc = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = (i * 16 + ks) * V;
+        float qv[V], ov[V];
+        load_vec<V>(qv, qc + t * t_stride + e, live && e < dh);
+        load_vec<V>(ov, other + e, live && e < dh);
+#pragma unroll
+        for (int x = 0; x < V; ++x) acc += qv[x] * ov[x];
       }
-      for (int t = tid; t < L; t += kThreads) {
-        float acc = qn[t];
-        for (int c = 0; c < nk; ++c) acc += qs[t * kTS + c] * ns[k0 + c];
-        qn[t] = acc;
+      acc = half_sum(acc);
+      if (live && ks == 0) {
+        if (j >= 0) {
+          S[t * kSS + j] = acc;
+        } else {
+          qn[t] = acc;
+        }
       }
     }
     __syncthreads();
 
-    // W = D * scores; the denominators; the chunk's v rows of this block.
+    // W = D * scores; the block's v rows; the denominators; the outputs.
     for (int i = tid; i < L * L; i += kThreads) {
       const int t = i / L, j = i - t * L;
-      S[i] = j <= t ? expf(bc[t] - mt[t] + xs[j]) * S[i] : 0.0f;
+      S[t * kSS + j] = j <= t ? expf(bc[t] - mt[t] + xs[j]) * S[t * kSS + j] : 0.0f;
     }
-    for (int i = tid; i < L * nv; i += kThreads) {
-      const int j = i / nv, r = i - j * nv;
-      vs[j * kTV + r] = v[qkv0 + static_cast<long long>(c0 + j) * t_stride + v0 + r];
+    for (int i = tid; i < L * kTV; i += kThreads) {
+      const int j = i / kTV, rr = i - j * kTV;
+      vs[i] = v0 + rr < dh ? v[qkv0 + (c0 + j) * t_stride + v0 + rr] : 0.0f;
     }
     __syncthreads();
     for (int t = tid; t < L; t += kThreads) {
       float d = inter[t] * qn[t];
-      for (int j = 0; j <= t; ++j) d += S[t * L + j];
+      for (int j = 0; j <= t; ++j) d += S[t * kSS + j];
       den[t] = fmaxf(fabsf(d), 1.0f);
     }
     __syncthreads();
-    for (int i = tid; i < L * nv; i += kThreads) {
-      const int t = i / nv, r = i - t * nv;
+    for (int i = tid; i < L * kTV; i += kThreads) {
+      const int t = i / kTV, rr = i - t * kTV;
+      if (v0 + rr >= dh) continue;
       float acc = 0.0f;
-      for (int j = 0; j <= t; ++j) acc += S[t * L + j] * vs[j * kTV + r];
-      acc += inter[t] * qC[t * kTV + r];
-      out[qkv0 + static_cast<long long>(c0 + t) * t_stride + v0 + r] = acc / den[t];
+      for (int j = 0; j <= t; ++j) acc += S[t * kSS + j] * vs[j * kTV + rr];
+      acc += inter[t] * qC[t * kTV + rr];
+      out[qkv0 + (c0 + t) * t_stride + v0 + rr] = acc / den[t];
     }
 
-    // State update: C rows and n, by key tiles.
+    // State update: C[row] in registers, n in shared memory; both read each
+    // k_j once per element and weight it by w_j as the plain version does.
     const float so = *s_out;
-    for (int k0 = 0; k0 < dh; k0 += kTK) {
-      const int nk = min(kTK, dh - k0);
-      __syncthreads();  // ks free again
-      for (int i = tid; i < L * nk; i += kThreads) {
-        const int j = i / nk, c = i - j * nk;
-        ks[j * kTS + c] = wj[j] * k[qkv0 + static_cast<long long>(c0 + j) * t_stride + k0 + c];
+    float acc[NC][V];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int x = 0; x < V; ++x) acc[i][x] = 0.0f;
+    }
+#pragma unroll(kUnrollSteps<NC * V>)
+    for (int j = 0; j < L; ++j) {
+      const float vj = vs[j * kTV + r], w = wj[j];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = (i * 16 + ks) * V;
+        float kv[V];
+        load_vec<V>(kv, kc + j * t_stride + e, e < dh);
+#pragma unroll
+        for (int x = 0; x < V; ++x) acc[i][x] += vj * (w * kv[x]);
       }
-      __syncthreads();
-      for (int i = tid; i < nv * nk; i += kThreads) {
-        const int r = i / nk, c = i - r * nk;
-        float acc = 0.0f;
-        for (int j = 0; j < L; ++j) acc += vs[j * kTV + r] * ks[j * kTS + c];
-        float* cell = Cs + r * cs + k0 + c;
-        *cell = so * *cell + acc;
-      }
-      for (int c = tid; c < nk; c += kThreads) {
-        float acc = 0.0f;
-        for (int j = 0; j < L; ++j) acc += ks[j * kTS + c];
-        ns[k0 + c] = so * ns[k0 + c] + acc;
-      }
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int x = 0; x < V; ++x) cr[i][x] = so * cr[i][x] + acc[i][x];
+    }
+    for (int e = tid; e < dh; e += kThreads) {
+      float a = 0.0f;
+      for (int j = 0; j < L; ++j) a += wj[j] * kc[j * t_stride + e];
+      ns[e] = so * ns[e] + a;
     }
     __syncthreads();  // the next chunk's gates overwrite s_out, wj and friends
   }
 
-  for (int i = tid; i < nv * dh; i += kThreads) {
-    const int r = i / dh, c = i - r * dh;
-    Cb[static_cast<long long>(v0 + r) * dh + c] = Cs[r * cs + c];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int e = (i * 16 + ks) * V;
+    if (row >= dh || e >= dh) continue;
+    float* dst = Cb + static_cast<long long>(row) * dh + e;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(cr[i][0], cr[i][1], cr[i][2], cr[i][3]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < V; ++x) dst[x] = cr[i][x];
+    }
   }
   if (blockIdx.y == 0) {
     for (int i = tid; i < dh; i += kThreads) n_out[static_cast<long long>(bh) * dh + i] = ns[i];
     if (tid == 0) m_out[bh] = *m_sh;
   }
+}
+
+struct Args {
+  const float *q, *k, *v, *ig, *fg;
+  float* C;
+  const float *n_in, *m_in;
+  float *n_out, *m_out, *out;
+};
+
+template <int V, int NC>
+int chunked_as(const Args& a, int b, int s, int H, int dh, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(dh);  // under 48 KB for dh <= 1024
+  const dim3 grid(b * H, (dh + kTV - 1) / kTV);
+  mlstm_chunk_kernel<V, NC><<<grid, kThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.ig, a.fg, a.C, a.n_in, a.m_in, a.n_out, a.m_out, a.out, s, H, dh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked kernel instantiated for the fewest registers that hold a row.
+template <int V>
+int chunked(const Args& a, int b, int s, int H, int dh, cudaStream_t stream) {
+  const int n = (dh + 16 * V - 1) / (16 * V);
+  if constexpr (V == 4) {
+    if (n <= 4) return chunked_as<V, 4>(a, b, s, H, dh, stream);
+    if (n <= 8) return chunked_as<V, 8>(a, b, s, H, dh, stream);
+    if (n <= 16) return chunked_as<V, 16>(a, b, s, H, dh, stream);
+  } else {
+    if (n <= 16) return chunked_as<V, 16>(a, b, s, H, dh, stream);
+    if (n <= 64) return chunked_as<V, 64>(a, b, s, H, dh, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int V, int NC>
+int decode_as(const Args& a, int bH, int dh, cudaStream_t stream) {
+  const dim3 grid(bH, (dh + kDecodeRows - 1) / kDecodeRows);
+  mlstm_decode_kernel<V, NC><<<grid, kThreads, 0, stream>>>(
+      a.q, a.k, a.v, a.ig, a.fg, a.C, a.n_in, a.m_in, a.n_out, a.m_out, a.out, dh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode kernel instantiated for the fewest loads a lane that cover dh.
+template <int V>
+int decode(const Args& a, int bH, int dh, cudaStream_t stream) {
+  const int n = (dh + 32 * V - 1) / (32 * V);
+  if (n <= 1) return decode_as<V, 1>(a, bH, dh, stream);
+  if (n <= 2) return decode_as<V, 2>(a, bH, dh, stream);
+  if (n <= 4) return decode_as<V, 4>(a, bH, dh, stream);
+  if (n <= 8) return decode_as<V, 8>(a, bH, dh, stream);
+  if constexpr (V == 1) {
+    if (n <= 16) return decode_as<V, 16>(a, bH, dh, stream);
+    if (n <= 32) return decode_as<V, 32>(a, bH, dh, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -245,20 +510,18 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v, cons
                                const void* fg, void* C, const void* n_in, const void* m_in,
                                void* n_out, void* m_out, void* out, int b, int s, int H,
                                int dh, void* stream) {
-  if (b < 0 || s < 1 || H < 0 || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = sizeof(float) * smem_floats(dh);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mlstm_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (b < 0 || s < 1 || H < 0 || dh < 1 || dh > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(b * H, (dh + kTV - 1) / kTV);
-  mlstm_chunk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(ig), static_cast<const float*>(fg), static_cast<float*>(C),
-      static_cast<const float*>(n_in), static_cast<const float*>(m_in),
-      static_cast<float*>(n_out), static_cast<float*>(m_out), static_cast<float*>(out), s, H,
-      dh);
-  return static_cast<int>(cudaGetLastError());
+  if (b == 0 || H == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const float*>(ig),
+               static_cast<const float*>(fg), static_cast<float*>(C),
+               static_cast<const float*>(n_in), static_cast<const float*>(m_in),
+               static_cast<float*>(n_out), static_cast<float*>(m_out), static_cast<float*>(out)};
+  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(C) &&
+                   aligned16(n_in);
+  if (s == 1) return vec ? decode<4>(a, b * H, dh, st) : decode<1>(a, b * H, dh, st);
+  return vec ? chunked<4>(a, b, s, H, dh, st) : chunked<1>(a, b, s, H, dh, st);
 }

@@ -18,7 +18,7 @@ from .. import _build
 from .ref import mlstm_chunk_ref
 
 LAUNCHES = {"mlstm_chunk": 0}
-MAX_HEAD_DIM = 1024  # 32 rows of C per block in shared memory: 33·dh floats
+MAX_HEAD_DIM = 1024  # a row of C in a half-warp's registers: dh/16 floats a lane
 
 
 def _check(q, k, v, i_gate, f_gate, c, n, m) -> None:

@@ -146,7 +146,7 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 
 # kernel names of csrc/*.cu, as the profiler lists them
 HAND_WRITTEN = ("lstm_cell_kernel", "text_scan_kernel", "flash_attention_kernel",
-                "rg_lru_kernel", "mlstm_chunk_kernel")
+                "rg_lru_kernel", "mlstm_chunk_kernel", "mlstm_decode_kernel")
 
 
 def _where(device: torch.device) -> str:

@@ -85,3 +85,55 @@ def test_plain_version_is_the_wrapper_on_cpu():
     args = [inp[k] for k in ("x", "h", "c", "wx", "wh", "b")]
     for got, want in zip(ops.lstm_cell_op(*args), lstm_cell_ref(*args)):
         assert torch.equal(got, want)
+
+
+# The CUDA kernel's tiling edges (clusters of 8 hidden units x 64 batch
+# rows, the contraction split four ways in tiles of 32): the plain version
+# the card is held to, against the JAX oracle and model cell at fp32 2e-5.
+EDGE_B, EDGE_H, EDGE_D = (1, 5, 64, 65, 130), (8, 48, 256, 264), (1, 24, 128, 256, 2048)
+
+
+@pytest.mark.parametrize("H", EDGE_H)
+@pytest.mark.parametrize("b", EDGE_B)
+def test_plain_version_matches_jax_at_the_tiling_edges(b, H):
+    for d_in in EDGE_D:
+        inp = make_inputs(b, d_in, H, seed=b * 1000 + H + d_in)
+        t = {k: torch.from_numpy(v) for k, v in inp.items()}
+        j = {k: jnp.asarray(v) for k, v in inp.items()}
+        ho, co = ops.lstm_cell_op(t["x"], t["h"], t["c"], t["wx"], t["wh"], t["b"])
+        oracle = jax_lstm_cell_ref(j["x"], j["h"], j["c"], j["wx"].reshape(d_in, 4, H),
+                                   j["wh"].reshape(H, 4, H), j["b"].reshape(4, H))
+        model = jax_model_cell({"wx": j["wx"], "wh": j["wh"], "b": j["b"]}, j["x"],
+                               LSTMState(j["h"], j["c"]))
+        for want_h, want_c in (oracle, (model.h, model.c)):
+            np.testing.assert_allclose(ho.numpy(), np.asarray(want_h), rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(co.numpy(), np.asarray(want_c), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b, d_in, H", [(3, 7008, 256), (2, 7000, 264), (1, 1, 7263),
+                                        (524_280, 32, 8)])
+def test_wrapper_takes_every_shape_it_took_before(b, d_in, H):
+    """The kernel before this tiling staged 8 rows of [x | h] in shared
+    memory, so it took d_in + H up to 7,264 and (grid y of 65,535 tiles of 8
+    rows) a batch up to 524,280. The card path's checks still accept all of
+    those (on meta tensors: shapes without memory); the CPU path at the
+    contraction's old limit matches the JAX oracle."""
+    meta = [torch.empty(shape, device="meta") for shape in
+            ((b, d_in), (b, H), (b, H), (d_in, 4 * H), (H, 4 * H), (4 * H,))]
+    assert ops._check(*meta) == (b, d_in, H)
+    ops._card_check(*meta)
+    if b * (d_in + H) <= 30_000 and (d_in + H) * 4 * H <= 8_000_000:
+        inp = make_inputs(b, d_in, H, seed=d_in)
+        t = {k: torch.from_numpy(v) for k, v in inp.items()}
+        j = {k: jnp.asarray(v) for k, v in inp.items()}
+        ho, co = ops.lstm_cell_op(t["x"], t["h"], t["c"], t["wx"], t["wh"], t["b"])
+        oracle = jax_lstm_cell_ref(j["x"], j["h"], j["c"], j["wx"].reshape(d_in, 4, H),
+                                   j["wh"].reshape(H, 4, H), j["b"].reshape(4, H))
+        np.testing.assert_allclose(ho.numpy(), np.asarray(oracle[0]), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(co.numpy(), np.asarray(oracle[1]), rtol=2e-5, atol=2e-5)
+    too_many = [torch.empty((ops.MAX_BATCH + 1,) + tuple(t.shape[1:]), device="meta")
+                if t.dim() == 2 and t.shape[0] == b else t for t in meta]
+    with pytest.raises(ValueError, match="batch"):
+        ops._card_check(*too_many)
+    with pytest.raises(ValueError, match="wh must be contiguous"):
+        ops._card_check(*meta[:4], torch.empty((H, 8 * H), device="meta")[:, ::2], meta[5])

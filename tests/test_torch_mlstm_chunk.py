@@ -29,7 +29,7 @@ from repro.models import xlstm as JXL
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_smoke
 from repro_torch.kernels.mlstm_chunk import ops
-from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref, mlstm_step_ref
 from repro_torch.models import xlstm as XL
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -146,6 +146,56 @@ def test_no_padding_decays_the_returned_state():
         return np.asarray(state.n, np.float64) * np.exp(np.asarray(state.m, np.float64))[..., None]
 
     assert np.abs(memory(pad_final)).max() < 1e-6 * np.abs(memory(final)).max()
+
+
+def carried(arrays, prefix, b, H, dh):
+    """The state after ``prefix`` steps of the plain chunkwise version."""
+    if prefix == 0:
+        return zero_state(b, H, dh)
+    return mlstm_chunk_ref(*(torch.from_numpy(a[:, :prefix]) for a in arrays),
+                           *zero_state(b, H, dh))[1:]
+
+
+@pytest.mark.parametrize("b, H, dh", [(1, 1, 64), (1, 4, 16), (2, 4, 32), (3, 2, 8)])
+def test_step_ref_is_the_chunk_ref_at_one_step(b, H, dh):
+    """``mlstm_step_ref``, the plain version of the kernel's decode path,
+    against ``mlstm_chunk_ref`` at L = 1 from a zero state and from states
+    carried over 1, 20 and 70 steps (C grown to tens); the CPU wrapper
+    still takes ``mlstm_chunk_ref`` for one step."""
+    arrays = inputs(b, 71, H, dh, seed=dh + H)
+    for prefix in (0, 1, 20, 70):
+        state = carried(arrays, prefix, b, H, dh)
+        step = [torch.from_numpy(a[:, prefix : prefix + 1]) for a in arrays]
+        want = mlstm_chunk_ref(*step, *state)
+        for g, w in zip(mlstm_step_ref(*step, *state), want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+        c = state[0].clone()
+        wrapped = ops.mlstm_chunk_op(*step, c, *state[1:])
+        for g, w in zip(wrapped, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="one time step"):
+        mlstm_step_ref(*(torch.from_numpy(a[:, :2]) for a in arrays), *zero_state(b, H, dh))
+
+
+@pytest.fixture(scope="module")
+def pallas_run():
+    """The JAX kernel in interpret mode over 71 steps from a zero state."""
+    b, s, H, dh = 1, 71, 2, 32
+    arrays = inputs(b, s, H, dh, seed=11)
+    out = jax_mlstm_chunk_op(*(jnp.asarray(a) for a in arrays), chunk=32, interpret=True)
+    return arrays, np.asarray(out)
+
+
+@pytest.mark.parametrize("t", [0, 1, 6, 31, 32, 63, 64, 70])
+def test_step_ref_matches_pallas_kernel_from_carried_states(pallas_run, t):
+    """Step t of the JAX kernel's output (chunks of 32) against one
+    ``mlstm_step_ref`` from the state the plain version carried over the
+    first t steps."""
+    arrays, want = pallas_run
+    b, _, H, dh = arrays[0].shape
+    state = carried(arrays, t, b, H, dh)
+    h, *_ = mlstm_step_ref(*(torch.from_numpy(a[:, t : t + 1]) for a in arrays), *state)
+    np.testing.assert_allclose(h.numpy()[:, 0], want[:, t], **TOL)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

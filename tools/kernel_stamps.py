@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Where a launch of a hand-written kernel spends its time, phase by phase.
+
+    python3 tools/kernel_stamps.py            # on a machine with an H100
+
+Builds instrumented copies of ``csrc/lstm_cell.cu`` and
+``csrc/mlstm_chunk.cu`` with nvcc into ``build/kernel_stamps/``: thread 0
+of every block writes the card's ``%globaltimer`` (ns) at the start of the
+kernel and after each phase. It runs each kernel at the served shapes
+(``lstm_cell`` at B=64, H=256, d_in 128 and 256; the chunked mLSTM pass
+on a 10-step prompt at 4 heads of 512), after three warm-up launches, and
+prints for every phase the min, median and max over blocks of its time in
+µs after the earliest block's start, and ``lstm_cell``'s median launch
+time by CUDA events. The sources in the checkout stay as they are; the
+stamps go in before or after anchor lines of them, which
+``tests/test_torch_kernel_stamps.py`` checks are there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (inputs and timing of the smoke script)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref  # noqa: E402
+
+OUT = ROOT / "build" / "kernel_stamps"
+SLOTS = 16  # stamps a block may write
+STAMP = r'''
+__device__ unsigned long long g_stamps[1 << 16];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP(i) do { if (threadIdx.x == 0) \
+  g_stamps[(blockIdx.x + blockIdx.y * gridDim.x) * 16 + (i)] = global_ns(); } while (0)
+extern "C" int read_stamps(void* dst, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_stamps, n * 8));
+}
+'''
+# (anchor in the source, stamp inserted before it or after it, condition)
+LSTM_STAMPS = [
+    ("  cluster_arrive_relaxed();  // waited for", "before", ""),
+    ("    const T* st = stages + (t % kStages) * L::kStageElems;", "before", "t == 0"),
+    ('  asm volatile("cp.async.wait_all;\\n" ::);', "before", ""),
+    ("  cluster_wait();  // every partial of this block's rows has landed\n", "after", ""),
+    ("      h_out[o] = from_f32<T>(h_new);\n    }\n  }\n", "after", ""),
+]
+LSTM_PHASES = ["start", "first tile staged", "K loop done", "partials landed", "rows finished"]
+MLSTM_STAMPS = [
+    ("  const int tid = threadIdx.x, warp = tid / 32, side", "before", ""),
+    ("  for (int c0 = 0; c0 < s; c0 += kChunk) {\n", "before", ""),
+    ("    __syncthreads();  // the gates are written\n", "after", ""),
+    ("    // Scores q_t . k_j (j <= t)", "before", ""),
+    ("    // W = D * scores; the block's v rows;", "before", ""),
+    ("    // State update: C[row] in registers", "before", ""),
+    ("    __syncthreads();  // the next chunk's gates overwrite s_out, wj and friends\n", "after", ""),
+]
+MLSTM_PHASES = ["start", "C rows loaded", "gates", "q . C", "scores", "outputs", "state updated"]
+LSTM_BLOCKS = 4 * (256 // 8)  # clusters of kSplit = 4 blocks over kUnits = 8 of H = 256
+
+
+def instrument(src: str, stamps) -> str:
+    head = src.index("namespace {")
+    src = src[:head] + STAMP + src[head:]
+    for i, (anchor, where, condition) in enumerate(stamps):
+        if anchor not in src:
+            raise SystemExit(f"kernel_stamps: anchor {anchor!r} not in the source")
+        at = src.index(anchor) + (len(anchor) if where == "after" else 0)
+        stamp = f"if ({condition}) STAMP({i});" if condition else f"STAMP({i});"
+        src = src[:at] + f"  {stamp}\n" + src[at:]
+    return src
+
+
+def build(name: str, src: str) -> ctypes.CDLL:
+    OUT.mkdir(parents=True, exist_ok=True)
+    cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+    cu.write_text(src)
+    p = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", str(cu), "-o", str(so)],
+                       capture_output=True, text=True)
+    if p.returncode:
+        raise SystemExit(f"kernel_stamps: nvcc failed for {name}:\n{p.stderr[-4000:]}")
+    return ctypes.CDLL(str(so))
+
+
+def report(lib, n_blocks: int, names: list[str], label: str) -> dict:
+    buf = (ctypes.c_ulonglong * (1 << 16))()
+    if lib.read_stamps(buf, 1 << 16):
+        raise SystemExit("kernel_stamps: reading the stamps failed")
+    rows = [[buf[b * SLOTS + i] for i in range(len(names))] for b in range(n_blocks)]
+    t0 = min(r[0] for r in rows)
+    out = {}
+    for i, name in enumerate(names):
+        us = [(r[i] - t0) / 1e3 for r in rows]
+        out[name] = [round(min(us), 3), round(statistics.median(us), 3), round(max(us), 3)]
+    print(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_stamps: needs a CUDA card")
+    from repro_torch.device import card
+
+    print(f"card: {card()}; phases as [min, median, max] us over blocks after the first start")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    gen = torch.Generator().manual_seed(cs.SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    lib = build("lstm_cell", instrument((_build.CSRC / "lstm_cell.cu").read_text(), LSTM_STAMPS))
+    fn = lib.lstm_cell_f32
+    fn.argtypes, fn.restype = (P,) * 8 + (I,) * 3 + (P,), I
+    for d_in in (128, 256):
+        args = cs.lstm_inputs(cs.BATCH, d_in, 256, torch.float32, gen)
+        x, h, c, wx, wh, b = args
+        h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+
+        def run():
+            err = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+                     b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), cs.BATCH, d_in, 256, stream)
+            if err:
+                raise SystemExit(f"kernel_stamps: lstm_cell launch failed ({err})")
+
+        for _ in range(4):
+            run()
+        torch.cuda.synchronize()
+        for got, want in zip((h_out, c_out), lstm_cell_ref(*args)):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        label = f"lstm_cell d_in={d_in}"
+        report(lib, LSTM_BLOCKS, LSTM_PHASES, label)
+        print(f"{label}: {LSTM_BLOCKS} blocks, {cs.device_ms(run):.5f} ms a launch (CUDA events)")
+
+    src = instrument((_build.CSRC / "mlstm_chunk.cu").read_text(), MLSTM_STAMPS)
+    lib = build("mlstm_chunk", src)
+    fn = lib.mlstm_chunk_f32
+    fn.argtypes, fn.restype = (P,) * 11 + (I,) * 4 + (P,), I
+    b, s, H, dh = 1, 10, 4, 512
+    args = cs.mlstm_inputs(b, s, H, dh, gen)
+    c, n, m = cs.mlstm_state(b, H, dh, gen)
+    want = mlstm_chunk_ref(*args, c, n, m)
+    out, n_out, m_out = torch.empty_like(args[0]), torch.empty_like(n), torch.empty_like(m)
+    for i in range(4):
+        c_run = c.clone()
+        err = fn(*(t.data_ptr() for t in args), c_run.data_ptr(), n.data_ptr(), m.data_ptr(),
+                 n_out.data_ptr(), m_out.data_ptr(), out.data_ptr(), b, s, H, dh, stream)
+        if err:
+            raise SystemExit(f"kernel_stamps: mlstm_chunk launch failed ({err})")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want[0], rtol=2e-5, atol=2e-5)
+    report(lib, b * H * (dh // 16), MLSTM_PHASES,
+           f"mlstm_chunk chunked pass, {s} steps at {H} heads of {dh}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
