@@ -11,14 +11,22 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 at 1e-5, bf16 at 2e-2, bytes
    identical); ``lstm_cell`` also at its tiling's edges and unaligned
-   inputs, ``mlstm_chunk`` over a grid of lengths (the decode path at 1),
-   head widths and (batch, head) counts, each launched twice and the two
-   results held equal bit for bit;
+   inputs; ``flash_attention`` also at long caches split over a cluster,
+   prefills whose planned splits leave ranges empty or fully masked for
+   some rows, and strided K/V; ``rg_lru`` in fp32 and bf16; ``mlstm_chunk``
+   over three draws of a grid of lengths (the decode path at 1), head
+   widths and (batch, head) counts, and pinned draws (generator states in
+   ``chip_smoke_pins/``) that an earlier design failed or that hold the
+   kernel and the plain version against fp64;
+   ``lstm_cell``, ``flash_attention`` and ``mlstm_chunk`` launched twice and
+   the two results held equal bit for bit;
 4. time every kernel, its plain version and a library yardstick with CUDA
    events (median of 60 calls queued behind a spin kernel, so the host's
    launch cost is hidden), beside the least time the card could take and
-   each kernel's time before the redesign of ``lstm_cell`` and
-   ``mlstm_chunk``; and the host's cost of one ``lstm_cell_op`` call;
+   each kernel's time before its last redesign; the LM kernels and their
+   yardsticks also by a second timer that resolves launches below the
+   events' floor of about 5 us (200 calls back to back between two
+   events); and the host's cost of one ``lstm_cell_op`` call;
 5. serve 512 raw abstracts at the published width (``CONFIG``) in batches
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
@@ -90,16 +98,17 @@ ADVERSARIAL = [
     "nested ((deep (er))) out", "<<< (((", ")))) >>>>", "naïve café 漢字 🙂 (ñé) <Ω>", "",
     "Giant <b>Row</b> " + "Lorem IPSUM (drop me) " * 200, "<" + "x" * 3000 + ">tail",
 ]
-# Per-launch times before the redesign of lstm_cell and mlstm_chunk (the
-# kernel table of PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), printed
-# beside this run's: (kernel, timed row) -> ms.
-BEFORE_MS = {("lstm_cell", None): 0.08890, ("text_scan", None): 0.006816,
-           ("flash_attention", "decode"): 0.01395, ("flash_attention", "prefill"): 0.01411,
-           ("flash_attention", "decode_hd256"): 0.02643,
-           ("flash_attention", "prefill_hd256"): 0.02603, ("rg_lru", "decode"): 0.005248,
-           ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.04544,
-           ("mlstm_chunk", "prefill"): 0.06925, ("text_clean", "matrix"): 0.01133,
-           ("text_clean", "abstracts"): 0.10571}
+# Per-launch times before the current designs of flash_attention and
+# rg_lru and the fp64 state sum of mlstm_chunk's chunked pass (PERF.md §6
+# lists them; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
+# (kernel, timed row) -> ms.
+BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
+             ("flash_attention", "decode"): 0.01395, ("flash_attention", "prefill"): 0.01411,
+             ("flash_attention", "decode_hd256"): 0.02643,
+             ("flash_attention", "prefill_hd256"): 0.02603, ("rg_lru", "decode"): 0.005248,
+             ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.007040,
+             ("mlstm_chunk", "prefill"): 0.02070, ("text_clean", "matrix"): 0.01133,
+             ("text_clean", "abstracts"): 0.10571}
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -138,6 +147,32 @@ def device_ms(fn, n: int = 60) -> float:
     events[n].record()
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(n))
+
+
+def device_ms_burst(fn, n: int = 200) -> float:
+    """Device time of one call of ``fn`` below the events' floor: ``n``
+    calls back to back between two CUDA events, divided by ``n``. The calls
+    are queued behind a spin kernel, lengthened until it outlasts the
+    host's queueing, so the host's launch cost is hidden."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000
+    for _ in range(4):
+        spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if queued_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    fail(f"the host took {queued_ms:.1f} ms to queue {n} calls: longer than any spin tried")
 
 
 def lstm_inputs(B, d_in, H, dtype, gen):
@@ -584,6 +619,30 @@ FLASH_EDGES = [
     (1, 64, 2048, 8, 2, 128, True, 0, 1200, 1264),
     (1, 3, 600, 4, 2, 64, True, 100, 450, 453),  # a windowed block deep in a cache
 ]
+# Shapes at which flash_attention/ops.py:plan splits each tile's keys over a
+# cluster (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len)
+FLASH_SPLITS = [
+    # long caches, 8 blocks a tile: decode at both head widths,
+    # RecurrentGemma-9B's 16 heads x a 15-row prefill deep in its window,
+    # and a 100-row prefill at hd 80 over 8 heads
+    (1, 1, 2048, 32, 32, 80, True, 0, 1900, 1901),
+    (1, 1, 2048, 16, 1, 256, True, 2048, 1800, 1801),
+    (1, 15, 2048, 16, 1, 256, True, 2048, 1700, 1715),
+    (1, 100, 1024, 8, 8, 80, True, 0, 600, 700),
+    # causal MQA and GQA prefills from position 0 past 64 keys, 3 blocks a
+    # tile: tile 0's 4 keys cut into [0, 2), [2, 4), [4, 4), an empty range
+    # and one wholly masked for the rows at positions 0 and 1
+    (1, 130, 256, 4, 1, 64, True, 0, 0, 130),
+    (1, 130, 256, 8, 2, 80, True, 0, 0, 130),
+    # a window over such a prefill, and a narrow non-causal window whose
+    # early blocks lie wholly before the window of a tile's later rows
+    (1, 130, 256, 4, 1, 64, True, 72, 0, 130),
+    (2, 130, 256, 4, 2, 80, False, 3, 0, 130),
+    # a wrapped ring (no mask), and a ragged head (the plain-load path,
+    # zero-padded to 32 in shared memory) with a partial last tile
+    (1, 1, 2048, 16, 1, 256, False, 0, 0, 2048),
+    (1, 7, 512, 6, 2, 30, True, 0, 400, 407),
+]
 # timed shapes: StableLM-3B's heads (hd 80), then RecurrentGemma-9B's (MQA, hd 256)
 FLASH_TIMED = {
     "decode": (1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, 15, 16),
@@ -613,24 +672,37 @@ def flash_kwargs(case) -> dict:
 
 
 def check_flash_attention(gen) -> float:
-    """Kernel vs plain version at every listed shape; returns the fp32 max
-    abs error at the serving shapes."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    """Kernel vs plain version at every listed shape, each launched twice
+    and the two results held equal bit for bit; the split shapes must be
+    planned over a cluster. Returns the fp32 max abs error at the serving
+    shapes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op, plan
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     err = 0.0
-    cases = [(c, False) for c in FLASH_SERVED + FLASH_EDGES] + [(FLASH_SERVED[-1], True),
-                                                                 (FLASH_EDGES[1], True)]
+    cases = [(c, False) for c in FLASH_SERVED + FLASH_EDGES + FLASH_SPLITS] + \
+        [(FLASH_SERVED[-1], True), (FLASH_EDGES[1], True), (FLASH_SPLITS[1], True)]
+    for case in FLASH_SPLITS:
+        b, sq, skv, nq, nkv = case[:5]
+        launch = plan(b, sq, nq, nkv, causal=case[6], window=case[7], q_offset=case[8],
+                      n_keys=case[9])
+        if launch.split < 2:
+            fail(f"flash_attention {case}: the plan does not split its keys over a cluster")
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case, strided in cases:
             q, k, v = flash_inputs(case, dtype, gen, strided)
             got = flash_attention_op(q, k, v, **flash_kwargs(case))
+            again = flash_attention_op(q, k, v, **flash_kwargs(case))
             torch.cuda.synchronize()
             want = flash_attention_ref(q, k, v, **flash_kwargs(case))
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            if not torch.equal(got, again):
+                fail(f"flash_attention {dtype} {case} strided {strided}: two launches differ")
             if dtype == torch.float32 and case in FLASH_SERVED:
                 err = max(err, (got - want).abs().max().item())
-        print(f"flash_attention {dtype}: matches plain at {len(cases)} shapes (tol {tol})")
+        print(f"flash_attention {dtype}: matches plain at {len(cases)} shapes (tol {tol}), "
+              f"{len(FLASH_SPLITS) + 1} of them at a cluster split; two launches identical "
+              f"bit for bit")
     return err
 
 
@@ -686,6 +758,8 @@ def time_flash_attention(gen, bw: float, flops: float) -> dict:
             "ms": device_ms(lambda: flash_attention_op(q, k, v, **kw)),
             "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, **kw)),
             "library_ms": device_ms(library),
+            "ms_burst": device_ms_burst(lambda: flash_attention_op(q, k, v, **kw)),
+            "library_ms_burst": device_ms_burst(library),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "shape": list(case),
@@ -705,16 +779,23 @@ def rg_inputs(b, s, d, gen):
 # (b, s, d): RecurrentGemma-9B's d_rnn at batch 1, a decode step and prompts
 RG_SERVED = [(1, s, 4096) for s in (1, 4, 9, 15)]
 RG_EDGES = [(3, 7, 33), (2, 1000, 300), (4, 1, 4096)]  # ragged d, a long sequence, batch
+# d % 4 != 0 on the scalar path, a row's tail, steps past the kernel's
+# 8-step register chunk and a seq of exactly two chunks
+RG_MORE = [(2, 17, 4098), (1, 16, 4096), (2, 9, 7), (1, 3, 1)]
 
 
 def check_rg_lru(gen) -> float:
-    """Kernel vs plain version, with and without h0, at fp32 1e-5; returns
+    """Kernel vs plain version, with and without h0: fp32 in at 1e-5; bf16
+    in (read and written in bf16 by the kernel) with h_last, fp32, at 1e-5
+    and h, bf16, within one bf16 rounding of the plain version's fp32 h
+    (1e-2 relative); inputs one element past a 16-byte boundary. Returns
     the max abs error at the serving shapes."""
     from repro_torch.kernels.rg_lru.ops import rg_lru_op
     from repro_torch.kernels.rg_lru.ref import rg_lru_ref
 
     err = 0.0
-    for case in RG_SERVED + RG_EDGES:
+    cases = RG_SERVED + RG_EDGES + RG_MORE
+    for case in cases:
         a, b, h0 = rg_inputs(*case, gen)
         for init in (None, h0):
             got = rg_lru_op(a, b, init)
@@ -724,8 +805,33 @@ def check_rg_lru(gen) -> float:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
                 if case in RG_SERVED:
                     err = max(err, (g - w).abs().max().item())
-    print(f"rg_lru fp32: matches plain at {len(RG_SERVED + RG_EDGES)} shapes with and "
-          f"without h0 (tol 1e-5)")
+            a16, b16 = a.bfloat16(), b.bfloat16()
+            h16, last16 = rg_lru_op(a16, b16, init)
+            torch.cuda.synchronize()
+            want, want_last = rg_lru_ref(a16, b16, init)
+            if h16.dtype != torch.bfloat16 or last16.dtype != torch.float32:
+                fail(f"rg_lru bf16 {case}: outputs are {h16.dtype} and {last16.dtype}")
+            torch.testing.assert_close(last16, want_last, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(h16.float(), want, rtol=1e-2, atol=1e-5)
+    a, b, h0 = rg_inputs(2, 9, 4096, gen)
+    shifted = [torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape).copy_(t)
+               for t in (a, b, h0)]
+    for g, w in zip(rg_lru_op(*shifted), rg_lru_ref(*shifted)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    # other dtypes, and a and b of two dtypes, go through the fp32 kernel
+    # (cast around it, as the JAX op casts); h comes back in a's dtype
+    others = ((torch.float16, torch.float16, 1e-3), (torch.float32, torch.bfloat16, 1e-5),
+              (torch.float64, torch.float64, 1e-5))
+    for da, db, tol in others:
+        h, last = rg_lru_op(a.to(da), b.to(db), h0)
+        want, want_last = rg_lru_ref(a.to(da), b.to(db), h0)
+        if h.dtype != da or last.dtype != torch.float32:
+            fail(f"rg_lru {da}/{db}: outputs are {h.dtype} and {last.dtype}")
+        torch.testing.assert_close(last, want_last, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h.float(), want, rtol=tol, atol=1e-5)
+    print(f"rg_lru: matches plain at {len(cases)} shapes with and without h0, fp32 (tol "
+          f"1e-5) and bf16 (h_last 1e-5, h within one bf16 rounding), on unaligned inputs, "
+          f"and in fp16, fp64 and fp32 with bf16 b through the fp32 kernel")
     return err
 
 
@@ -740,12 +846,13 @@ def time_rg_lru(gen, bw: float, flops: float) -> dict:
     rows = {}
     for label, (b_, s, d) in (("decode", (1, 1, 4096)), ("prefill", (1, 10, 4096))):
         a, b, h0 = rg_inputs(b_, s, d, gen)
-        library = None
+        library = library_burst = None
         if s == 1:
             a0, b0 = a[:, 0], b[:, 0]
             torch.testing.assert_close(torch.addcmul(b0, a0, h0), rg_lru_ref(a, b, h0)[1],
                                        rtol=1e-5, atol=1e-5)
             library = device_ms(lambda: torch.addcmul(b0, a0, h0))
+            library_burst = device_ms_burst(lambda: torch.addcmul(b0, a0, h0))
         # a and b read, h0 read, every h written and the last one again
         bytes_ms = 4 * (3 * b_ * s * d + 2 * b_ * d) / bw * 1e3
         ops_ms = 2 * b_ * s * d / flops * 1e3
@@ -753,6 +860,8 @@ def time_rg_lru(gen, bw: float, flops: float) -> dict:
             "ms": device_ms(lambda: rg_lru_op(a, b, h0)),
             "plain_ms": device_ms(lambda: rg_lru_ref(a, b, h0)),
             "library_ms": library,
+            "ms_burst": device_ms_burst(lambda: rg_lru_op(a, b, h0)),
+            "library_ms_burst": library_burst,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "shape": [b_, s, d],
@@ -792,14 +901,49 @@ MLSTM_EDGE_L, MLSTM_EDGE_DH, MLSTM_EDGE_BH = (1, 2, 10, 63, 64, 65, 130), (64, 1
     {1: (1, 1), 4: (1, 4), 8: (2, 4)}
 
 
+# The grid runs over this many draws from the one generator.
+MLSTM_DRAWS = 3
+PINS = ROOT / "chip_smoke_pins"  # CPU generator states, each just before a pinned draw
+# Pinned draws: (b, s, H, dh), the q sum that the restored generator must
+# give, and what the draw is. Each state was recorded by replaying, on the
+# CPU generator, every draw that came before the case in the run that met it.
+MLSTM_PINNED = {
+    "mlstm_grid_l65_dh512_bh8": (
+        (2, 65, 4, 512), 64.95704051039377,
+        "the grid's second draw, where an earlier chunked pass missed C's tolerance against "
+        "fp64 (kernel 1.97e-6 from fp64, plain 1.64e-6)"),
+    "mlstm_served_l200_dh512_bh4": (
+        (1, 200, 4, 512), 244.28161654489077,
+        "a 200-step draw of the serving shapes, where the kernel's h differed from the plain "
+        "version's by 2.28e-5 relative, over the first loop's 2e-5"),
+}
+
+
+def pinned_mlstm_inputs(name: str):
+    """The pinned draw's inputs and carried state, from its recorded
+    generator state; fails if the restored generator does not give the
+    recorded draw."""
+    (b, s, H, dh), q_sum, _ = MLSTM_PINNED[name]
+    gen = torch.Generator()
+    gen.set_state(torch.frombuffer(bytearray((PINS / f"{name}.state").read_bytes()),
+                                   dtype=torch.uint8))
+    args = mlstm_inputs(b, s, H, dh, gen)
+    got = args[0].double().sum().item()
+    if abs(got - q_sum) > 1e-9 * abs(q_sum):
+        fail(f"the pinned mlstm_chunk draw {name} changed: q sums to {got!r}, not {q_sum!r}")
+    return args, mlstm_state(b, H, dh, gen)
+
+
 def check_mlstm_chunk(gen) -> tuple[float, float]:
     """Kernel vs plain version from a carried state, output and returned
     state (C, n, m) at fp32 2e-5; returns the max abs error of the output
     and the max relative error of the state (C grows to hundreds) at the
-    serving shapes. Then the grid of lengths, head widths and (batch, head)
-    counts at the CPU tests' tolerances (output 2e-5, state 1e-4 relative
-    and 1e-6 absolute), a decode step also against ``mlstm_step_ref``, and
-    two launches from the same state bit for bit."""
+    serving shapes. Then ``MLSTM_DRAWS`` draws of the grid of lengths, head
+    widths and (batch, head) counts, and the pinned draws (``MLSTM_PINNED``,
+    each also against fp64 in a printed line), at the CPU tests'
+    tolerances (output 2e-5, state 1e-4 relative and 1e-6 absolute), a
+    decode step also against ``mlstm_step_ref``, and two launches from the
+    same state bit for bit."""
     import itertools
 
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_op
@@ -826,34 +970,57 @@ def check_mlstm_chunk(gen) -> tuple[float, float]:
           f"{len(MLSTM_SERVED + MLSTM_EDGES)} shapes from a carried state (tol 2e-5); at the "
           f"serving shapes output max abs err {err:.3e}, state max rel err {state_err:.3e}")
 
-    grid = list(itertools.product(MLSTM_EDGE_L, MLSTM_EDGE_DH, MLSTM_EDGE_BH))
-    by_fp64, n_held = [], 0
-    for s, dh, bh in grid:
-        b, H = MLSTM_EDGE_BH[bh]
-        args = mlstm_inputs(b, s, H, dh, gen)
-        c, n, m = mlstm_state(b, H, dh, gen)
+    def held(s, dh, bh, args, state, label):
+        """Returns the comparisons made and those decided through fp64."""
+        c, n, m = state
         wants = [mlstm_chunk_ref(*args, c, n, m)]
         if s == 1:
             wants.append(mlstm_step_ref(*args, c, n, m))
         exact = mlstm_chunk_ref(*args, c, n, m, dtype=torch.float64)
         runs = [mlstm_chunk_op(*args, c.clone(), n, m) for _ in range(2)]
         torch.cuda.synchronize()
+        decided = []
         for want in wants:
             for name, g, w, x, tol in zip("hCnm", runs[0], want, exact,
                                           ((2e-5, 2e-5),) + ((1e-4, 1e-6),) * 3):
-                ratio = held_to_plain(g, w, x, *tol, f"mlstm_chunk L={s} dh={dh} b*H={bh} {name}")
-                n_held += 1
+                ratio = held_to_plain(g, w, x, *tol,
+                                      f"mlstm_chunk {label}L={s} dh={dh} b*H={bh} {name}")
                 if ratio is not None:
-                    by_fp64.append((s, dh, bh, name, *ratio))
+                    decided.append((label + str(s), dh, bh, name, *ratio))
         if not all(torch.equal(g, a) for g, a in zip(*runs)):
-            fail(f"mlstm_chunk L={s} dh={dh} b*H={bh}: two launches differ")
+            fail(f"mlstm_chunk {label}L={s} dh={dh} b*H={bh}: two launches differ")
+        return 4 * len(wants), decided
+
+    grid = list(itertools.product(MLSTM_EDGE_L, MLSTM_EDGE_DH, MLSTM_EDGE_BH))
+    by_fp64, n_held = [], 0
+    for draw in range(MLSTM_DRAWS):
+        for s, dh, bh in grid:
+            b, H = MLSTM_EDGE_BH[bh]
+            args = mlstm_inputs(b, s, H, dh, gen)
+            made, decided = held(s, dh, bh, args, mlstm_state(b, H, dh, gen), f"draw {draw} ")
+            n_held += made
+            by_fp64 += decided
+    for name, ((b, s, H, dh), _, what) in MLSTM_PINNED.items():
+        args, state = pinned_mlstm_inputs(name)
+        made, decided = held(s, dh, b * H, args, state, f"pinned {name} ")
+        n_held += made
+        by_fp64 += decided
+        exact = mlstm_chunk_ref(*args, *state, dtype=torch.float64)
+        kernel = mlstm_chunk_op(*args, state[0].clone(), *state[1:])
+        plain = mlstm_chunk_ref(*args, *state)
+        errs = {label: [(g.double() - x).abs().max().item() for g, x in zip(got, ref)]
+                for label, got, ref in (("kernel", kernel, exact), ("plain", plain, exact),
+                                        ("kernel_vs_plain", kernel, plain))}
+        print(f"mlstm_chunk pinned {name} ({what}): max abs err of h, C, n, m: "
+              f"{json.dumps(errs)}")
     print(f"mlstm_chunk fp32: output (tol 2e-5) and state (rtol 1e-4, atol 1e-6) match plain "
-          f"at {len(grid)} shapes (L {MLSTM_EDGE_L}, dh {MLSTM_EDGE_DH}, b*H "
-          f"{tuple(MLSTM_EDGE_BH)}) from a carried state, decode steps also against "
-          f"mlstm_step_ref; two launches identical bit for bit")
+          f"at {MLSTM_DRAWS} draws of {len(grid)} shapes (L {MLSTM_EDGE_L}, dh {MLSTM_EDGE_DH}, "
+          f"b*H {tuple(MLSTM_EDGE_BH)}) and {len(MLSTM_PINNED)} pinned draws from a "
+          f"carried state, decode steps also against mlstm_step_ref; two launches identical "
+          f"bit for bit")
     print(f"mlstm_chunk: {len(by_fp64)} of {n_held} tensor comparisons decided through fp64 "
-          f"(L, dh, b*H, tensor, kernel err / plain err against fp64, plain version itself "
-          f"beyond the tolerance): {by_fp64}")
+          f"(draw and L, dh, b*H, tensor, kernel err / plain err against fp64, plain version "
+          f"itself beyond the tolerance): {by_fp64}")
     return err, state_err
 
 
@@ -909,6 +1076,8 @@ def time_mlstm_chunk(gen, bw: float, flops: float) -> dict:
             "ms": device_ms(lambda: mlstm_chunk_op(*args, c, n, m)),  # C evolves in place
             "plain_ms": device_ms(lambda: mlstm_chunk_ref(*args, c, n, m)),
             "library_ms": None,
+            "ms_burst": device_ms_burst(lambda: mlstm_chunk_op(*args, c, n, m)),
+            "library_ms_burst": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "shape": list(case),
@@ -1233,8 +1402,9 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(lm_launches[name].values()),
                 "launches_by_arch": lm_launches[name], "max_abs_err": err,
-                **{k: rows["decode"][k] for k in
-                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **rows}
+                **{k: rows["decode"][k] for k in ("ms", "plain_ms", "library_ms", "ms_burst",
+                                                  "library_ms_burst", "bound_ms", "bound_by")},
+                **rows}
 
     kernels = [
         {"name": "lstm_cell", "route": "cuda",

@@ -46,11 +46,12 @@ SIGNATURES = {
     # in, out, offsets (or null); n_rows, width (rows of null offsets); strip_html; stream
     "text_clean": (_P, _P, _P, _I, _L, _I, _P),
     # q, k, v, out; b, sq, skv, nq, nkv, hd; (batch, seq, head) strides of
-    # q, k and v in elements; causal, window, q_offset, kv_len; scale; stream
-    "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
-    "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 4 + (_F, _P),
-    # a, b, h0 (or null), out, h_last; batch, seq, d; stream
-    "rg_lru_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # q, k and v in elements; causal, window, q_offset, kv_len; rows a block,
+    # blocks of a cluster; scale; stream
+    "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
+    "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
+    # a, b, h0 (or null), out, h_last; dtype (0 fp32, 1 bf16), batch, seq, d; stream
+    "rg_lru": (_P,) * 5 + (_I,) * 4 + (_P,),
     # q, k, v, i, f, C (in place), n_in, m_in, n_out, m_out, out; b, s, H, dh; stream
     "mlstm_chunk_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
 }

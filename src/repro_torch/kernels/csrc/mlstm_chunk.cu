@@ -53,7 +53,7 @@
 //   half-warps; each dot product is 16 lanes and a shuffle sum, with q and
 //   k read from L2 and L1, never staged;
 // - the outputs of the block's 16 rows, then C[r] updated in registers
-//   and n in shared memory, each k_j read once a lane.
+//   and n in shared memory: weights, decay and sums in fp64, rounded once.
 // Every block recomputes the chunk's gates and L x L scores; those are
 // cheap next to its rows of C. No tensor cores and no TF32: the checks hold
 // it to fp32 tolerances.
@@ -80,6 +80,9 @@ constexpr int kDecodeRows = kThreads / 32 * kRowsPerWarp;  // decode: value rows
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
+}
+__device__ __forceinline__ double log_sigmoid(double x) {
+  return fmin(x, 0.0) - log1p(exp(-fabs(x)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -194,16 +197,17 @@ mlstm_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (blockIdx.y == 0 && threadIdx.x == 0) m_out[bh] = m_new;
 }
 
-size_t smem_floats(int dh) {
-  return static_cast<size_t>(dh)  // n, first so that it is 16-byte aligned
-         + kChunk * kSS           // scores, then W
-         + 2 * kChunk * kTV       // q . C and the block's v rows
-         + 8 * kChunk             // per-step gate values
-         + 4;                     // m, s_out
+size_t smem_bytes(int dh) {
+  return sizeof(double) * (kChunk + 2)     // the state's weights in fp64, first: 16-byte aligned
+         + sizeof(float) * (dh             // n, so also 16-byte aligned
+                            + kChunk * kSS        // scores, then W
+                            + 2 * kChunk * kTV    // q . C and the block's v rows
+                            + 7 * kChunk          // per-step gate values
+                            + 1);                 // m
 }
 
-// Steps unrolled in the chunked pass's loops over t and j: 4 while a lane's
-// row of C (NC * V floats) leaves the registers for it, else 1.
+// Steps unrolled in the chunked pass's loop over t for q . C: 4 while a
+// lane's row of C (NC * V floats) leaves the registers for it, else 1.
 template <int kRowFloats> constexpr int kUnrollSteps = kRowFloats <= 32 ? 4 : 1;
 
 // Sum over the 16 lanes of a half-warp (fixed tree), every lane gets it.
@@ -224,8 +228,10 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ n_in, const float* __restrict__ m_in,
                    float* __restrict__ n_out, float* __restrict__ m_out,
                    float* __restrict__ out, int s, int H, int dh) {
-  extern __shared__ __align__(16) float smem[];
-  float* ns = smem;                  // dh: n, updated chunk by chunk
+  extern __shared__ __align__(16) double smem[];
+  double* wj = smem;                 // kChunk: e^{b_L - b_j + i_j - m_out}, fp64
+  double* s_out = wj + kChunk;       // e^{b_L + m_in - m_out}, fp64 (then a double of padding)
+  float* ns = reinterpret_cast<float*>(s_out + 2);  // dh: n, updated chunk by chunk
   float* S = ns + dh;                // kChunk x kSS: scores q_t . k_j, then W
   float* qC = S + kChunk * kSS;      // kChunk x kTV: q_t . C_in rows
   float* vs = qC + kChunk * kTV;     // kChunk x kTV: the block's v rows
@@ -234,11 +240,9 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* xs = bc + kChunk;           //   x_t = i_t - b_t
   float* mt = xs + kChunk;           //   stabiliser m_t
   float* inter = mt + kChunk;        //   e^{b_t + m_in - m_t}
-  float* wj = inter + kChunk;        //   e^{b_L - b_j + i_j - m_out}
-  float* qn = wj + kChunk;           //   q_t . n_in
+  float* qn = inter + kChunk;        //   q_t . n_in
   float* den = qn + kChunk;          //   max(|den_t|, 1)
   float* m_sh = den + kChunk;        // running m
-  float* s_out = m_sh + 1;           // e^{b_L + m_in - m_out}
 
   const int tid = threadIdx.x, warp = tid / 32, side = (tid / 16) & 1;
   const int r = tid / 16, ks = tid % 16;  // this half-warp's row of the block, lane in it
@@ -268,13 +272,15 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < 32) {
       const float m0 = *m_sh;
       float it[2], cum[2], run[2];
-      double sum[2];  // the cumulative sum in fp64, so b_t is its fp32 rounding
+      // b_t in fp64: the state's weights take it as it is, the outputs its
+      // fp32 rounding
+      double sum[2];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int t = tid + 32 * half;
         const long long g = g0 + static_cast<long long>(c0 + t) * H;
         it[half] = t < L ? ig[g] : 0.0f;
-        sum[half] = t < L ? log_sigmoid(fg[g]) : 0.0;
+        sum[half] = t < L ? log_sigmoid(static_cast<double>(fg[g])) : 0.0;
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -296,7 +302,8 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       run[1] = fmaxf(run[1], __shfl_sync(0xffffffffu, run[0], 31));
       const int last = L - 1;  // the chunk's last real step
-      const float b_last = __shfl_sync(0xffffffffu, last < 32 ? cum[0] : cum[1], last % 32);
+      const double b_last64 = __shfl_sync(0xffffffffu, last < 32 ? sum[0] : sum[1], last % 32);
+      const float b_last = static_cast<float>(b_last64);
       const float run_last = __shfl_sync(0xffffffffu, last < 32 ? run[0] : run[1], last % 32);
       const float m_new = fmaxf(b_last + m0, run_last + b_last);
 #pragma unroll
@@ -309,12 +316,12 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
           xs[t] = it[half] - cum[half];
           mt[t] = m;
           inter[t] = expf(cum[half] + m0 - m);
-          wj[t] = expf(b_last - cum[half] + it[half] - m_new);
+          wj[t] = exp(b_last64 - sum[half] + it[half] - static_cast<double>(m_new));
         }
       }
       __syncwarp();
       if (tid == 0) {
-        *s_out = expf(b_last + m0 - m_new);
+        *s_out = exp(b_last64 + m0 - static_cast<double>(m_new));
         *m_sh = m_new;
       }
     }
@@ -397,36 +404,48 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
       out[qkv0 + (c0 + t) * t_stride + v0 + rr] = acc / den[t];
     }
 
-    // State update: C[row] in registers, n in shared memory; both read each
-    // k_j once per element and weight it by w_j as the plain version does.
-    const float so = *s_out;
-    float acc[NC][V];
+    // State update: C[row] in registers, n in shared memory. An element of
+    // C can be a near cancellation of its decayed self and the chunk's sum.
+    // Taken in fp32 (the decay and the weights as fp32 exponentials of
+    // rounded gate sums, then an L-long fp32 sum) it missed the state's
+    // atol (1e-6) against the fp64 algebra where the plain version met it.
+    // So the gates' log-sigmoid sums, the decay and the weights are fp64,
+    // and C's and n's updates are taken in fp64, in step order, and rounded
+    // once. A pass holds at most 32 fp64 sums a lane, all of a step's loads
+    // in flight together.
+    const double so = *s_out;
+    constexpr int kG = NC * V <= 32 ? NC : 32 / V;  // row chunks summed in one pass
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    for (int i0 = 0; i0 < NC; i0 += kG) {
+      double acc[kG][V];
 #pragma unroll
-      for (int x = 0; x < V; ++x) acc[i][x] = 0.0f;
-    }
-#pragma unroll(kUnrollSteps<NC * V>)
-    for (int j = 0; j < L; ++j) {
-      const float vj = vs[j * kTV + r], w = wj[j];
+      for (int i = 0; i < kG; ++i) {
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int e = (i * 16 + ks) * V;
-        float kv[V];
-        load_vec<V>(kv, kc + j * t_stride + e, e < dh);
+        for (int x = 0; x < V; ++x) acc[i][x] = so * cr[i0 + i][x];
+      }
+#pragma unroll 2
+      for (int j = 0; j < L; ++j) {
+        const double vw = vs[j * kTV + r] * wj[j];
 #pragma unroll
-        for (int x = 0; x < V; ++x) acc[i][x] += vj * (w * kv[x]);
+        for (int i = 0; i < kG; ++i) {
+          const int e = ((i0 + i) * 16 + ks) * V;
+          float kv[V];
+          load_vec<V>(kv, kc + j * t_stride + e, e < dh);
+#pragma unroll
+          for (int x = 0; x < V; ++x) acc[i][x] = fma(vw, static_cast<double>(kv[x]), acc[i][x]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+#pragma unroll
+        for (int x = 0; x < V; ++x) cr[i0 + i][x] = static_cast<float>(acc[i][x]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-#pragma unroll
-      for (int x = 0; x < V; ++x) cr[i][x] = so * cr[i][x] + acc[i][x];
-    }
     for (int e = tid; e < dh; e += kThreads) {
-      float a = 0.0f;
-      for (int j = 0; j < L; ++j) a += wj[j] * kc[j * t_stride + e];
-      ns[e] = so * ns[e] + a;
+      double a = so * ns[e];
+#pragma unroll 8
+      for (int j = 0; j < L; ++j) a = fma(wj[j], static_cast<double>(kc[j * t_stride + e]), a);
+      ns[e] = static_cast<float>(a);
     }
     __syncthreads();  // the next chunk's gates overwrite s_out, wj and friends
   }
@@ -458,7 +477,7 @@ struct Args {
 
 template <int V, int NC>
 int chunked_as(const Args& a, int b, int s, int H, int dh, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(dh);  // under 48 KB for dh <= 1024
+  const size_t smem = smem_bytes(dh);  // under 48 KB for dh <= 1024
   const dim3 grid(b * H, (dh + kTV - 1) / kTV);
   mlstm_chunk_kernel<V, NC><<<grid, kThreads, smem, stream>>>(
       a.q, a.k, a.v, a.ig, a.fg, a.C, a.n_in, a.m_in, a.n_out, a.m_out, a.out, s, H, dh);

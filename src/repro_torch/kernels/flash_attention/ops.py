@@ -8,10 +8,19 @@ a KV cache and a one-token decode step. Tensors stay in the model layout
 KV cache is read in place. CPU tensors go to the plain version in
 ``ref.py``; CUDA tensors go to the kernel or raise.
 ``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
+
+``plan`` decides the launch from the shapes alone: how many query rows a
+block owns and over how many blocks of a cluster each tile's keys are
+split. ``tile_keys`` and ``split_keys`` specify which keys a tile, a block
+of the cluster and a warp of the block walk, as the kernel computes them
+on the card; the CPU tests hold the specification to covering every
+visible key exactly once, and ``chip_smoke.py`` holds the kernel to the
+plain version at planned splits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -22,8 +31,62 @@ from .ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-MAX_HEAD_DIM = 256  # eight 32-lane slots of the accumulator in the kernel
-_ROWS = 16  # query rows per block (csrc/flash_attention.cu kRows)
+MAX_HEAD_DIM = 256  # two 4-wide chunks of the head a lane in the kernel's p . v
+# csrc/flash_attention.cu's constants: the rows a block may own (kR), its
+# warps and the blocks of a cluster (the portable limit).
+ROW_TILES = (1, 2, 4, 8, 16)
+WARPS, MAX_SPLIT = 4, 8
+KEYS_PER_SPLIT = 64  # a tile's key range longer than this is split over a cluster
+SMS = 132  # an H100's SMs: a launch with this many blocks is not split further
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    rows: int  # query rows (one position of one head of the group) per block
+    tiles: int  # tiles of rows per (batch, kv head)
+    split: int  # blocks of a cluster over each tile's keys
+
+
+def tile_keys(tile: int, rows: int, sq: int, group: int, *, causal: bool, window: int,
+              q_offset: int, n_keys: int) -> tuple[int, int]:
+    """[lo, hi): the keys any row of ``tile`` can see. Rows are ordered
+    position-major, ``group`` heads per position."""
+    first = tile * rows
+    last = min(first + rows, sq * group) - 1
+    lo = max(0, q_offset + first // group - window + 1) if window > 0 else 0
+    hi = min(n_keys, q_offset + last // group + 1) if causal else n_keys
+    return lo, hi
+
+
+def split_keys(lo: int, hi: int, parts: int, index: int) -> tuple[int, int]:
+    """Part ``index`` of [lo, hi) cut into ``parts`` contiguous ranges of
+    ceil(len / parts) keys (the last ones shorter or empty)."""
+    per = -(-max(hi - lo, 0) // parts)
+    start = min(hi, lo + index * per)
+    return start, min(hi, start + per)
+
+
+def plan(b: int, sq: int, nq: int, nkv: int, *, causal: bool,
+         window: int, q_offset: int, n_keys: int) -> FlashPlan:
+    """The launch for these shapes: rows a block, the largest of
+    ``ROW_TILES`` that divides the call's rows when they are at most 16 (so
+    every tile is full), else 16; and a cluster of ceil(keys /
+    KEYS_PER_SPLIT) blocks (at most 8) over a tile's keys, the longer of
+    the first and the last tile's, when the launch has fewer blocks than
+    the card has SMs."""
+    group = nq // nkv
+    n_rows = sq * group
+    rows = ROW_TILES[-1]
+    if n_rows <= rows:
+        rows = max(r for r in ROW_TILES if n_rows % r == 0)
+    tiles = -(-n_rows // rows)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, n_keys=n_keys)
+    longest = max(hi - lo for lo, hi in (tile_keys(t, rows, sq, group, **kw)
+                                         for t in {0, tiles - 1}))
+    split = 1
+    if b * nkv * tiles < SMS:
+        split = max(1, min(MAX_SPLIT, -(-longest // KEYS_PER_SPLIT)))
+    return FlashPlan(rows, tiles, split)
 
 
 def _check(q, k, v, q_offset, kv_len) -> None:
@@ -88,16 +151,19 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention_op: {name}'s head_dim must be contiguous")
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
-    if -(-sq // _ROWS) > 65535:
-        raise ValueError(f"flash_attention_op: {sq} query rows exceed the grid")
+    n_keys = skv if kv_len is None else min(kv_len, skv)
     out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    launch = plan(b, sq, nq, nkv, causal=causal, window=window, q_offset=q_offset,
+                  n_keys=n_keys)
+    if launch.tiles > 65535:
+        raise ValueError(f"flash_attention_op: {sq} query rows exceed the grid")
     fn = getattr(_build.library(), _ENTRY[q.dtype])
     stream = _build.current_stream(q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, sq, skv, nq, nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             int(causal), window, q_offset, skv if kv_len is None else min(kv_len, skv),
+             int(causal), window, q_offset, n_keys, launch.rows, launch.split,
              1.0 / math.sqrt(hd), stream)
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1

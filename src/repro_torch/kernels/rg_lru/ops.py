@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/rg_lru/ops.py:14 rg_lru_op``: the
 recurrence runs in fp32 and the outputs come back in the input's dtype.
 It also returns the last h in fp32, the Griffin block's recurrent state,
 so the block needs no slice and copy of its own. CPU tensors go to the
-plain version in ``ref.py``; CUDA tensors go to the kernel or raise.
+plain version in ``ref.py``; CUDA tensors go to the kernel or raise. The
+kernel reads fp32 or bf16 a and b and writes h in their dtype, so either is
+one launch; other dtypes are cast to fp32 around it, as the JAX op casts.
 ``LAUNCHES["rg_lru"]`` counts kernel launches and nothing else.
 """
 
@@ -16,6 +18,7 @@ from .. import _build
 from .ref import rg_lru_ref
 
 LAUNCHES = {"rg_lru": 0}
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/rg_lru.cu's codes
 
 
 def _check(a, b, h0) -> None:
@@ -49,15 +52,19 @@ def rg_lru_op(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     batch, seq, d = a.shape
     if batch > 65535:
         raise ValueError(f"rg_lru_op: batch {batch} exceeds the grid")
-    af, bf = a.float().contiguous(), b.float().contiguous()
+    if a.dtype == b.dtype == torch.bfloat16:
+        ac, bc = a.contiguous(), b.contiguous()
+    else:
+        ac, bc = a.float().contiguous(), b.float().contiguous()
     hf = None if h0 is None else h0.float().contiguous()
-    out = torch.empty_like(af)
+    out = torch.empty_like(ac)
     last = torch.empty((batch, d), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out.to(a.dtype), last
-    err = _build.library().rg_lru_f32(
-        af.data_ptr(), bf.data_ptr(), None if hf is None else hf.data_ptr(),
-        out.data_ptr(), last.data_ptr(), batch, seq, d, _build.current_stream(a.device))
+    err = _build.library().rg_lru(
+        ac.data_ptr(), bc.data_ptr(), None if hf is None else hf.data_ptr(),
+        out.data_ptr(), last.data_ptr(), _DTYPE[ac.dtype], batch, seq, d,
+        _build.current_stream(a.device))
     _build.check(err, "rg_lru")
     LAUNCHES["rg_lru"] += 1
     return out.to(a.dtype), last

@@ -21,6 +21,7 @@ def load_tool():
 @pytest.mark.parametrize("source, stamps, phases", [
     ("lstm_cell.cu", "LSTM_STAMPS", "LSTM_PHASES"),
     ("mlstm_chunk.cu", "MLSTM_STAMPS", "MLSTM_PHASES"),
+    ("flash_attention.cu", "FLASH_STAMPS", "FLASH_PHASES"),
 ])
 def test_every_anchor_is_in_the_source(source, stamps, phases):
     tool = load_tool()

@@ -155,3 +155,38 @@ def test_block_runs_one_recurrence_per_call(block, monkeypatch):
     _, state = RG.apply_rglru_mix(tp, x, cfg, state=state)
     RG.apply_rglru_mix(tp, x[:, :1], cfg, state=state)
     assert calls == [(5, False), (5, True), (1, True)]
+
+
+@pytest.mark.parametrize("case", RG_CASES, ids=[str(c) for c in RG_CASES])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_bf16_in_gives_bf16_h_and_fp32_last_like_the_pallas_kernel(case, with_h0):
+    """The dtype contract the CUDA kernel keeps in one launch: a and b in
+    bf16 give h in bf16 and the last h in fp32. h is the JAX op's own
+    result (the Pallas kernel in interpret mode on the bf16 inputs, which
+    runs in fp32 and rounds back to bf16) within one bf16 rounding; the
+    last h equals, at 1e-5, the fp32 kernel's last step on the same
+    (bf16-representable) inputs."""
+    b, s, d, blk_s, blk_d = case
+    a, bb, h0 = inputs(b, s, d, seed=7)
+    h0 = h0 if with_h0 else None
+    a16, b16 = (torch.from_numpy(x).bfloat16() for x in (a, bb))
+    got, last = ops.rg_lru_op(a16, b16, None if h0 is None else torch.from_numpy(h0))
+    assert got.dtype == torch.bfloat16 and last.dtype == torch.float32
+    ja = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (a16, b16)]
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    want = jax_rg_lru_op(*ja, jh0, blk_s=blk_s, blk_d=blk_d, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-5)
+    want32 = jax_rg_lru_op(*(x.astype(jnp.float32) for x in ja), jh0, blk_s=blk_s,
+                           blk_d=blk_d, interpret=True)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want32)[:, -1], **TOL)
+
+
+def test_wrapper_dtype_rules_on_cpu():
+    """The CPU path takes any float dtypes like the JAX op; h follows a's
+    dtype and the last h is fp32 whatever the inputs."""
+    a, bb, h0 = (torch.from_numpy(x) for x in inputs(1, 3, 8, seed=2))
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        h, last = ops.rg_lru_op(a.to(dt), bb.to(dt), h0.to(dt))
+        assert h.dtype == dt and last.dtype == torch.float32

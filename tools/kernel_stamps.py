@@ -3,15 +3,17 @@
 
     python3 tools/kernel_stamps.py            # on a machine with an H100
 
-Builds instrumented copies of ``csrc/lstm_cell.cu`` and
-``csrc/mlstm_chunk.cu`` with nvcc into ``build/kernel_stamps/``: thread 0
-of every block writes the card's ``%globaltimer`` (ns) at the start of the
-kernel and after each phase. It runs each kernel at the served shapes
-(``lstm_cell`` at B=64, H=256, d_in 128 and 256; the chunked mLSTM pass
-on a 10-step prompt at 4 heads of 512), after three warm-up launches, and
-prints for every phase the min, median and max over blocks of its time in
-µs after the earliest block's start, and ``lstm_cell``'s median launch
-time by CUDA events. The sources in the checkout stay as they are; the
+Builds instrumented copies of ``csrc/lstm_cell.cu``,
+``csrc/mlstm_chunk.cu`` and ``csrc/flash_attention.cu`` with nvcc into
+``build/kernel_stamps/``: thread 0 of every block writes the card's
+``%globaltimer`` (ns) at the start of the kernel and after each phase. It
+runs each kernel at the served shapes (``lstm_cell`` at B=64, H=256, d_in
+128 and 256; the chunked mLSTM pass on a 10-step prompt at 4 heads of 512;
+flash decode steps at StableLM-3B's and RecurrentGemma-9B's heads over 16
+keys, and over 1,901 keys split over a cluster), after three warm-up
+launches, and prints for every phase the min, median and max over blocks
+of its time in µs after the earliest block's start, and the median launch
+time of ``lstm_cell`` and flash by CUDA events. The sources in the checkout stay as they are; the
 stamps go in before or after anchor lines of them, which
 ``tests/test_torch_kernel_stamps.py`` checks are there.
 """
@@ -34,6 +36,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (inputs and timing of the smoke script)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import plan  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_stamps"
@@ -70,6 +74,26 @@ MLSTM_STAMPS = [
     ("    __syncthreads();  // the next chunk's gates overwrite s_out, wj and friends\n", "after", ""),
 ]
 MLSTM_PHASES = ["start", "C rows loaded", "gates", "q . C", "scores", "outputs", "state updated"]
+FLASH_STAMPS = [
+    ("  // Which rows and keys: the positions are read once, here.", "before", ""),
+    ("  // Lane r keeps row r's running max and sum;", "before", ""),
+    ("    __syncwarp();  // every lane's copies (or stores) of this round are in\n", "after",
+     "rnd == 0"),
+    ("    __syncwarp();  // the round's scores are in sc\n", "after", "rnd == 0"),
+    ("    __syncwarp();  // the ring slot and sc are consumed", "before", "rnd == 0"),
+    ("  // The warp's partial over the ring's bytes", "before", ""),
+    ("  // Rows rank, rank + split, .. of the tile", "before", ""),
+    ("  float4 o[kRW][kC];", "before", ""),
+    ("  T* ob = static_cast<T*>(p.out);", "before", ""),
+    ("  if (split > 1) cluster_sync();  // no block leaves", "before", ""),
+]
+FLASH_PHASES = ["start", "q staged", "first round landed (warp 0)", "its scores in (warp 0)",
+                "its rows updated (warp 0)", "walk done (warp 0)", "partials in",
+                "weights (warp 0)", "sums (warp 0)", "rows written"]
+# decode steps (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len)
+FLASH_CASES = {"decode hd 80": (1, 1, 128, 32, 32, 80, True, 0, 15, 16),
+               "decode hd 256": (1, 1, 128, 16, 1, 256, True, 2048, 15, 16),
+               "decode hd 80 over 1,901 keys": (1, 1, 2048, 32, 32, 80, True, 0, 1900, 1901)}
 LSTM_BLOCKS = 4 * (256 // 8)  # clusters of kSplit = 4 blocks over kUnits = 8 of H = 256
 
 
@@ -162,6 +186,34 @@ def main() -> int:
     torch.testing.assert_close(out, want[0], rtol=2e-5, atol=2e-5)
     report(lib, b * H * (dh // 16), MLSTM_PHASES,
            f"mlstm_chunk chunked pass, {s} steps at {H} heads of {dh}")
+
+    lib = build("flash_attention", instrument((_build.CSRC / "flash_attention.cu").read_text(),
+                                              FLASH_STAMPS))
+    fn = lib.flash_attention_f32
+    fn.argtypes, fn.restype = _build.SIGNATURES["flash_attention_f32"], I
+    for label, case in FLASH_CASES.items():
+        b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len = case
+        q, k, v = cs.flash_inputs(case, torch.float32, gen)
+        out = torch.empty_like(q)
+        launch = plan(b, sq, nq, nkv, causal=causal, window=window, q_offset=q_offset,
+                      n_keys=kv_len)
+
+        def run():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, nq,
+                     nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+                     window, q_offset, kv_len, launch.rows, launch.split, hd ** -0.5, stream)
+            if err:
+                raise SystemExit(f"kernel_stamps: flash_attention launch failed ({err})")
+
+        for _ in range(4):
+            run()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, flash_attention_ref(q, k, v, **cs.flash_kwargs(case)),
+                                   rtol=2e-5, atol=2e-5)
+        n_blocks = b * nkv * launch.split * launch.tiles
+        report(lib, n_blocks, FLASH_PHASES, f"flash_attention {label}")
+        print(f"flash_attention {label}: {n_blocks} blocks ({launch}), {cs.device_ms(run):.5f} "
+              f"ms a launch (CUDA events), {cs.device_ms_burst(run):.5f} back to back")
     return 0
 
 
