@@ -17,16 +17,19 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    over three draws of a grid of lengths (the decode path at 1), head
    widths and (batch, head) counts, and pinned draws (generator states in
    ``chip_smoke_pins/``) that an earlier design failed or that hold the
-   kernel and the plain version against fp64;
-   ``lstm_cell``, ``flash_attention`` and ``mlstm_chunk`` launched twice and
-   the two results held equal bit for bit;
+   kernel and the plain version against fp64; the byte kernels also at the
+   row layouts chosen against their work split (``tiles.layouts``), on a
+   buffer at an odd address and on one 8 MB row;
+   ``lstm_cell``, ``flash_attention``, ``mlstm_chunk``, ``text_scan`` and
+   ``text_clean`` launched twice and the two results held equal bit for bit;
 4. time every kernel, its plain version and a library yardstick with CUDA
    events (median of 60 calls queued behind a spin kernel, so the host's
    launch cost is hidden), beside the least time the card could take and
-   each kernel's time before its last redesign; the LM kernels and their
-   yardsticks also by a second timer that resolves launches below the
-   events' floor of about 5 us (200 calls back to back between two
-   events); and the host's cost of one ``lstm_cell_op`` call;
+   each kernel's time before its last redesign; the LM kernels, the byte
+   kernels and the LM kernels' yardsticks also by a second timer that
+   resolves launches below the events' floor of about 5 us (200 calls back
+   to back between two events); and the host's cost of one ``lstm_cell_op``
+   call;
 5. serve 512 raw abstracts at the published width (``CONFIG``) in batches
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
@@ -109,6 +112,11 @@ BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
              ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.007040,
              ("mlstm_chunk", "prefill"): 0.02070, ("text_clean", "matrix"): 0.01133,
              ("text_clean", "abstracts"): 0.10571}
+# The byte kernels before their current designs by the back-to-back timer
+# (tools/byte_kernel_times.py against a git archive of the tree before
+# them; PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W): (kernel, row) -> ms.
+BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.008276,
+                   ("text_clean", "abstracts"): 0.103428}
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -335,6 +343,53 @@ def flat_rows(rows):
     return buf, torch.cat([ends.new_zeros(1), ends])
 
 
+def flat_column(values):
+    """A column of strings as one flat buffer and its row offsets on the
+    card, without terminators."""
+    enc = [v.encode() for v in values]
+    lens = torch.tensor([len(e) for e in enc])
+    return (torch.frombuffer(bytearray(b"".join(enc)), dtype=torch.uint8).cuda(),
+            torch.cat([lens.new_zeros(1), lens.cumsum(0)]).cuda())
+
+
+def at_odd_address(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the card that starts 1 byte past an aligned one,
+    so the kernels take their instance for unaligned buffers."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 1
+    return out
+
+
+def byte_layouts() -> dict:
+    """The row layouts chosen against the byte kernels' work split
+    (``tiles.layouts``), the 300 ragged rows again at an odd address, and
+    one 8 MB row of nested '<'/'>' noise, which one block walks."""
+    from repro_torch.kernels.text_clean.tiles import layouts
+
+    cases = {name: (torch.from_numpy(b).cuda(), torch.from_numpy(o).cuda())
+             for name, (b, o) in layouts(SEED).items()}
+    buf, offsets = cases["ragged_300_rows"]
+    cases["ragged_300_rows_at_odd_address"] = (at_odd_address(buf), offsets)
+    gen = torch.Generator().manual_seed(SEED)
+    alphabet = torch.tensor(list(b"<<<>>>aZ( ).\x00"), dtype=torch.uint8)
+    giant = alphabet[torch.randint(0, alphabet.numel(), (8 << 20,), generator=gen)].cuda()
+    cases["giant_row_8mb"] = (giant, torch.tensor([0, giant.numel()], device="cuda"))
+    return cases
+
+
+def print_resources(source: str) -> None:
+    """ptxas's registers and shared memory of each kernel of ``source``,
+    where this process built the library."""
+    from repro_torch.kernels import _build
+
+    kernels = _build.build_report.get(source, {}).get("kernels", {})
+    for kernel, resources in kernels.items():
+        print(f"  {source} {kernel}: {resources}")
+    if not kernels:
+        print(f"  {source}: no ptxas report (the library was built by another process)")
+
+
 def check_text_scan(abstracts, titles) -> float:
     import itertools
 
@@ -361,13 +416,26 @@ def check_text_scan(abstracts, titles) -> float:
         if scan_flat(np_buf, device="cuda", **flags).tobytes() != \
                 scan_flat(np_buf, device="cpu", **flags).tobytes():
             fail(f"scan_flat on the card differs from the CPU with {flags}")
+    cases = {"served_rows_at_odd_address": (at_odd_address(buf), offsets), **byte_layouts()}
+    for name, (b, o) in cases.items():
+        for lower, html, parens in itertools.product((False, True), repeat=3):
+            flags = dict(lower=lower, strip_html=html, strip_parens=parens)
+            got, again = text_scan_op(b, o, **flags), text_scan_op(b, o, **flags)
+            torch.cuda.synchronize()
+            if not torch.equal(got, text_scan_ref(b, o, **flags)):
+                fail(f"text_scan differs from its plain version on {name} with {flags}")
+            if not torch.equal(got, again):
+                fail(f"two text_scan launches differ on {name} with {flags}")
     print(f"text_scan: bytes identical to plain for all 8 flag sets "
-          f"({buf.numel()} + {noise.numel()} bytes)")
+          f"({buf.numel()} + {noise.numel()} bytes), and at {len(cases)} layouts "
+          f"({', '.join(cases)}); two launches identical")
+    print_resources("text_scan.cu")
     return float(err)
 
 
 def time_text_scan(abstracts, bw: float) -> dict:
-    """One served batch: 64 raw abstracts, all three flags on."""
+    """One served batch: 64 raw abstracts, all three flags on; by both
+    timers."""
     from repro_torch.kernels.text_clean.ops import text_scan_op
     from repro_torch.kernels.text_clean.ref import text_scan_ref
 
@@ -375,9 +443,14 @@ def time_text_scan(abstracts, bw: float) -> dict:
     flags = dict(lower=True, strip_html=True, strip_parens=True)
     n_bytes = 2 * buf.numel() + 8 * offsets.numel()
     print(f"text_scan timed on one batch: {offsets.numel() - 1} rows, {buf.numel()} bytes")
-    return {"ms": device_ms(lambda: text_scan_op(buf, offsets, **flags)),
-            "plain_ms": device_ms(lambda: text_scan_ref(buf, offsets, **flags)),
-            "library_ms": None, "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
+    def kernel():
+        return text_scan_op(buf, offsets, **flags)
+
+    row = {"ms": device_ms(kernel), "ms_burst": device_ms_burst(kernel),
+           "plain_ms": device_ms(lambda: text_scan_ref(buf, offsets, **flags)),
+           "library_ms": None, "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
+    print(f"text_scan batch: {json.dumps(row)}")
+    return row
 
 
 def clean_noise(gen, n: int, width: int) -> torch.Tensor:
@@ -424,16 +497,34 @@ def check_text_clean(gen) -> float:
         if clean_rows(rows, strip_html=html, device="cuda") != \
                 clean_rows(rows, strip_html=html, device="cpu"):
             fail(f"clean_rows on the card differs from the CPU, strip_html={html}")
+    mat = mats[1]
+    cases = {"matrix_4096x512_at_odd_address": (at_odd_address(mat), None), **byte_layouts()}
+    for name, (b, o) in cases.items():
+        for html in (True, False):
+            if o is None:
+                got, again = text_clean_op(b, strip_html=html), text_clean_op(b, strip_html=html)
+                want = text_clean_ref(b, strip_html=html)
+            else:
+                got = text_clean_flat(b, o, strip_html=html)
+                again = text_clean_flat(b, o, strip_html=html)
+                want = text_clean_flat_ref(b, o, strip_html=html)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"text_clean differs from its plain version on {name}, strip_html={html}")
+            if not torch.equal(got, again):
+                fail(f"two text_clean launches differ on {name}, strip_html={html}")
     print(f"text_clean: bytes identical to plain with and without strip_html at "
           f"{len(mats)} matrices ({n_bytes // 2} bytes) and {lens.numel()} ragged rows of "
-          f"0-5000 bytes; clean_rows on the card equals the CPU")
+          f"0-5000 bytes, and at {len(cases)} layouts ({', '.join(cases)}); two launches "
+          f"identical; clean_rows on the card equals the CPU")
+    print_resources("text_clean.cu")
     return 0.0
 
 
 def time_text_clean(gen, abstracts_flat, bw: float) -> dict:
     """The kernel at 4,096 x 512 (``benchmarks/bench_kernels.py:111``) and
-    over the preprocessing phase's abstract column (flat, by offsets): each
-    byte read once and written once, plus the offsets."""
+    over the preprocessing phase's abstract column (flat, by offsets), by
+    both timers: each byte read once and written once, plus the offsets."""
     from repro_torch.kernels.text_clean.ops import text_clean_flat, text_clean_op
     from repro_torch.kernels.text_clean.ref import text_clean_flat_ref, text_clean_ref
 
@@ -446,7 +537,8 @@ def time_text_clean(gen, abstracts_flat, bw: float) -> dict:
             ("abstracts", lambda: text_clean_flat(buf, offsets),
              lambda: text_clean_flat_ref(buf, offsets), 2 * buf.numel() + 8 * offsets.numel(),
              [offsets.numel() - 1, buf.numel()])):
-        rows[label] = {"ms": device_ms(fn), "plain_ms": device_ms(plain), "library_ms": None,
+        rows[label] = {"ms": device_ms(fn), "ms_burst": device_ms_burst(fn),
+                       "plain_ms": device_ms(plain), "library_ms": None,
                        "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes", "shape": shape}
         print(f"text_clean {label}: {json.dumps(rows[label])}")
     return rows
@@ -504,10 +596,7 @@ def preprocess(workdir: Path):
           f"({launches} text_clean launches)")
     print(f"preprocess: word tail {times['word_tail_s']:.3f} s; cleaned values equal to the CPU "
           f"path: {same} of {n_values}")
-    enc = [v.encode() for v in clean["abstract"]]
-    lens = torch.tensor([len(e) for e in enc])
-    abstracts_flat = (torch.frombuffer(bytearray(b"".join(enc)), dtype=torch.uint8).cuda(),
-                      torch.cat([lens.new_zeros(1), lens.cumsum(0)]).cuda())
+    abstracts_flat = flat_column(clean["abstract"])
     line = {"corpus_bytes": corpus_bytes, "shards": len(paths), "records": len(frame),
             "records_clean": len(clean), **times, "text_clean_launches": launches,
             "equal_to_cpu": same / n_values}
@@ -1427,13 +1516,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/text_clean/text_clean.py:34",
          "launches": clean_launches, "max_abs_err": clean_err,
          **{k: clean_t["matrix"][k] for k in
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
+            ("ms", "ms_burst", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
     ]
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
         now = entry[row]["ms"] if row else entry["ms"]
         print(f"{kernel}{' ' + row if row else ''}: {now:.5f} ms a launch (before: {before} ms, "
               f"{before / now:.2f}x)")
+    for (kernel, row), before in BEFORE_BURST_MS.items():
+        entry = next(k for k in kernels if k["name"] == kernel)
+        now = entry[row]["ms_burst"] if row else entry["ms_burst"]
+        print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
+              f"(before: {before} ms, {before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))

@@ -14,66 +14,82 @@
 // The TPU kernel takes a (rows, width) matrix padded with spaces. Here a row
 // is bytes [offsets[r], offsets[r + 1]) of a flat buffer, so a column of
 // strings is cleaned without padding; with offsets == nullptr row r is bytes
-// [r * width, (r + 1) * width), the matrix case. Row boundaries never come
-// from the bytes: a NUL inside a row is a byte like any other.
+// [r * width, (r + 1) * width), the matrix case.
 //
 // What bounds it: each byte is read once and written once (4 MB for a
-// 4096 x 512 matrix, ~100 MB for a 64 MB corpus's abstract column), so the
-// bound is memory; at these sizes launch latency and the walk along a row
-// come first.
+// 4096 x 512 matrix, ~88 MB for a 64 MB corpus's abstract column), so the
+// bound is memory: 26 us for the abstract column on an H100. At that rate
+// the SMs' integer units leave about ten operations a byte.
 //
-// Design: one block of 256 threads per row walks the row in tiles of 1024
-// bytes (4 consecutive bytes per thread). In each tile one block-wide
-// inclusive prefix sum (cub::BlockScan) of the <,> deltas plus the carry of
-// earlier tiles gives the depth. Bytes past the row end add 0 to the sum.
+// Design (byte_scan.cuh): blocks split the buffer by bytes at row starts
+// and walk their share in tiles of 8,192 bytes, 32 a thread in two
+// 16-byte accesses. Per word of four bytes, by lane arithmetic: '<' and
+// '>' are one masked test and the running depth inside the word one
+// multiply; w | 0x20 lowers A-Z and leaves bit 5 set in every byte, so a
+// letter test on it finds a-z and A-Z at once and a space is what remains
+// of a non-letter after an and. One segmented block scan a tile carries
+// the depth across threads, rows and tiles. Without strip_html there is
+// no scan.
 
-#include <cstdint>
-#include <cub/block/block_scan.cuh>
-#include <cuda_runtime.h>
+#include "byte_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
+using namespace byte_scan;
 
-__global__ void __launch_bounds__(kThreads)
-text_clean_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                  const int64_t* __restrict__ offsets, int64_t width, int strip_html) {
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage scratch;
-  const int64_t row = blockIdx.x;
-  const int64_t begin = offsets ? offsets[row] : row * width;
-  const int64_t end = offsets ? offsets[row + 1] : begin + width;
-  int carry = 0;
-  for (int64_t base = begin; base < end; base += kTile) {
-    int v[kItems];
-    int d[kItems];
-    bool keep[kItems];
+constexpr int kVecs = 2;  // 16-byte words a thread holds in a tile
+constexpr int kWords = 4 * kVecs;
+
+template <bool kHtml>
+struct CleanTile {
+  int* warp_total;
+  int carry = 0;  // the depth at the end of the previous tile
+
+  __device__ void operator()(uint32_t (&w)[kWords], uint64_t starts, bool active) {
+    uint32_t v[kWords];
+    int depth = 0;
+    if (kHtml) {
+      int pair = 0;
+      if (active) {
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int64_t pos = base + threadIdx.x * kItems + i;
-      int byte = pos < end ? in[pos] : 0;
-      if (byte >= 'A' && byte <= 'Z') byte += 32;
-      v[i] = byte;
-      d[i] = (byte == '<') - (byte == '>');
-      keep[i] = true;
-    }
-    if (strip_html) {  // uniform across the block: every thread reaches the scan
+        for (int k = 0; k < kWords; ++k) {  // on the raw bytes: 0x1c | 0x20 would pass for '<'
+          const uint32_t angle = lanes_pair(w[k], 0x7d, 0x3c);
+          v[k] = lane_sums(angle, angle & (w[k] << 6));  // bit 1 tells '>' from '<'
+        }
+        pair = thread_pair(v, starts);
+      }
       int total;
-      Scan(scratch).InclusiveSum(d, d, total);
-#pragma unroll
-      for (int i = 0; i < kItems; ++i) keep[i] = carry + d[i] == 0 && v[i] != '>';
-      carry += total;
-      __syncthreads();  // scratch is reused by the next tile's scan
+      depth = depth_from(seg_exclusive(pair, warp_total, total), carry);
+      carry = depth_from(total, carry);
     }
+    if (!active) return;
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int64_t pos = base + threadIdx.x * kItems + i;
-      if (pos < end)
-        out[pos] = keep[i] && v[i] >= 'a' && v[i] <= 'z' ? static_cast<uint8_t>(v[i]) : ' ';
+    for (int k = 0; k < kWords; ++k) {
+      const uint32_t y = w[k] | 0x20202020u;
+      uint32_t keep = lanes_in(y, 'a', 'z');
+      // a letter is neither '<' nor '>', so its depth is the depth before it
+      if (kHtml) keep &= lanes_depth<true>(v[k], word_bits(starts, k), depth);
+      w[k] = y & ((keep >> 7) * 0xdfu | 0x20202020u);
     }
   }
+};
+
+template <bool kAligned, bool kHtml>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+text_clean_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                  const int64_t* __restrict__ offsets, int64_t n_rows, int64_t width, Div div) {
+  __shared__ int warp_total[kWarps];
+  CleanTile<kHtml> tile{warp_total};
+  walk<kVecs, kAligned, kHtml>(in, out, offsets, n_rows, width, div, tile);
+}
+
+template <bool kAligned, bool kHtml>
+void launch(const void* in, void* out, const void* offsets, int n_rows, int64_t width,
+            cudaStream_t stream) {
+  const int blocks = grid_blocks(n_rows);
+  text_clean_kernel<kAligned, kHtml><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const int64_t*>(offsets), n_rows, width, reciprocals(blocks, width));
 }
 
 }  // namespace
@@ -81,8 +97,11 @@ text_clean_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 // offsets: int64 (n_rows + 1) row bounds, or null for rows of `width` bytes.
 extern "C" int text_clean(const void* in, void* out, const void* offsets, int n_rows,
                           long long width, int strip_html, void* stream) {
-  text_clean_kernel<<<n_rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<const int64_t*>(offsets), static_cast<int64_t>(width), strip_html);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16(in, out);
+  if (aligned && strip_html) launch<true, true>(in, out, offsets, n_rows, width, s);
+  else if (aligned) launch<true, false>(in, out, offsets, n_rows, width, s);
+  else if (strip_html) launch<false, true>(in, out, offsets, n_rows, width, s);
+  else launch<false, false>(in, out, offsets, n_rows, width, s);
   return static_cast<int>(cudaGetLastError());
 }

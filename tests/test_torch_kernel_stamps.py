@@ -1,5 +1,5 @@
 """``tools/kernel_stamps.py`` puts its timer stamps before or after anchor
-lines of the CUDA sources. An edit of a kernel that drops an anchor would
+lines of the CUDA sources (with their local headers inlined). An edit of a kernel that drops an anchor would
 only show on the card; here every anchor is looked up in the current
 sources, on the CPU, with nothing built."""
 
@@ -22,12 +22,14 @@ def load_tool():
     ("lstm_cell.cu", "LSTM_STAMPS", "LSTM_PHASES"),
     ("mlstm_chunk.cu", "MLSTM_STAMPS", "MLSTM_PHASES"),
     ("flash_attention.cu", "FLASH_STAMPS", "FLASH_PHASES"),
+    ("text_clean.cu", "CLEAN_STAMPS", "CLEAN_PHASES"),
+    ("text_scan.cu", "SCAN_STAMPS", "SCAN_PHASES"),
 ])
 def test_every_anchor_is_in_the_source(source, stamps, phases):
     tool = load_tool()
     stamps, phases = getattr(tool, stamps), getattr(tool, phases)
     assert len(stamps) == len(phases) <= tool.SLOTS
-    src = (tool._build.CSRC / source).read_text()
+    src = tool.source_text(source)
     for anchor, where, _ in stamps:
         assert src.count(anchor) == 1, anchor
         assert where in ("before", "after")

@@ -4,17 +4,25 @@
     python3 tools/kernel_stamps.py            # on a machine with an H100
 
 Builds instrumented copies of ``csrc/lstm_cell.cu``,
-``csrc/mlstm_chunk.cu`` and ``csrc/flash_attention.cu`` with nvcc into
+``csrc/mlstm_chunk.cu``, ``csrc/flash_attention.cu`` and
+``csrc/text_clean.cu`` and ``csrc/text_scan.cu`` (with ``byte_scan.cuh``
+inlined) with nvcc into
 ``build/kernel_stamps/``: thread 0 of every block writes the card's
 ``%globaltimer`` (ns) at the start of the kernel and after each phase. It
 runs each kernel at the served shapes (``lstm_cell`` at B=64, H=256, d_in
 128 and 256; the chunked mLSTM pass on a 10-step prompt at 4 heads of 512;
 flash decode steps at StableLM-3B's and RecurrentGemma-9B's heads over 16
-keys, and over 1,901 keys split over a cluster), after three warm-up
-launches, and prints for every phase the min, median and max over blocks
-of its time in µs after the earliest block's start, and the median launch
-time of ``lstm_cell`` and flash by CUDA events. The sources in the checkout stay as they are; the
-stamps go in before or after anchor lines of them, which
+keys, and over 1,901 keys split over a cluster; ``text_clean`` over a
+4,096 x 512 matrix and over an abstract column of the corpus that
+``chip_smoke.py`` cleans; ``text_scan`` over one served batch of 64
+abstracts with all three flags), after three warm-up launches, and prints for
+every phase the min, median and max over blocks of its time in µs after
+the earliest block's start, and the median launch time of ``lstm_cell``,
+flash and the byte kernels by CUDA events; every block's stamps and the
+SM it ran on go to ``build/kernel_stamps/<label>.json``. The byte kernels' stamps of
+their first tile are written once a launch (``unset``): their stamps are
+cleared before the launch that is read. The sources in the checkout stay as they
+are; the stamps go in before or after anchor lines of them, which
 ``tests/test_torch_kernel_stamps.py`` checks are there.
 """
 
@@ -41,7 +49,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa:
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_stamps"
-SLOTS = 16  # stamps a block may write
+SLOTS = 16  # stamps a block may write; the last holds its SM
 STAMP = r'''
 __device__ unsigned long long g_stamps[1 << 16];
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -49,10 +57,25 @@ __device__ __forceinline__ unsigned long long global_ns() {
   asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
   return t;
 }
-#define STAMP(i) do { if (threadIdx.x == 0) \
-  g_stamps[(blockIdx.x + blockIdx.y * gridDim.x) * 16 + (i)] = global_ns(); } while (0)
+__device__ __forceinline__ unsigned long long sm_id() {
+  unsigned int id;
+  asm volatile("mov.u32 %0, %smid;" : "=r"(id));
+  return id;
+}
+// slot 15 of a block holds the SM it ran on
+#define STAMP(i) do { if (threadIdx.x == 0) { \
+  g_stamps[(blockIdx.x + blockIdx.y * gridDim.x) * 16 + (i)] = global_ns(); \
+  if ((i) == 0) g_stamps[(blockIdx.x + blockIdx.y * gridDim.x) * 16 + 15] = sm_id(); } } while (0)
 extern "C" int read_stamps(void* dst, int n) {
   return static_cast<int>(cudaMemcpyFromSymbol(dst, g_stamps, n * 8));
+}
+// slot i of this block not yet written since the last clear_stamps()
+__device__ __forceinline__ bool unset(int i) {
+  return g_stamps[(blockIdx.x + blockIdx.y * gridDim.x) * 16 + i] == 0;
+}
+extern "C" int clear_stamps() {
+  static unsigned long long zero[1 << 16];
+  return static_cast<int>(cudaMemcpyToSymbol(g_stamps, zero, sizeof zero));
 }
 '''
 # (anchor in the source, stamp inserted before it or after it, condition)
@@ -94,11 +117,39 @@ FLASH_PHASES = ["start", "q staged", "first round landed (warp 0)", "its scores 
 FLASH_CASES = {"decode hd 80": (1, 1, 128, 32, 32, 80, True, 0, 15, 16),
                "decode hd 256": (1, 1, 128, 16, 1, 256, True, 2048, 15, 16),
                "decode hd 80 over 1,901 keys": (1, 1, 2048, 32, 32, 80, True, 0, 1900, 1901)}
+CLEAN_STAMPS = [
+    ("  uint4* const my_map = reinterpret_cast<uint4*>(map) + threadIdx.x * kVecs;", "before",
+     ""),
+    ("  if (r.begin >= r.end) return;  // uniform: no row starts in this block's share\n",
+     "after", ""),
+    ("        pair = thread_pair(v, starts);\n", "after",
+     "unset(2) && pair != 0x7fffffff"),  # waits for the tile's bytes
+    ("      carry = depth_from(total, carry);\n", "after",
+     "unset(3) && depth != 0x7fffffff"),  # waits for the scan
+    ("    store_bytes<kAligned, kVecs>(out, pos, w, r);\n  }\n", "after", ""),
+]
+CLEAN_PHASES = ["start", "split found", "first tile loaded", "first tile scanned",
+                "last tile stored"]
+SCAN_STAMPS = [CLEAN_STAMPS[0], CLEAN_STAMPS[1],
+               ("      starts.mark(base, map);\n", "after", "unset(2)"),
+               ("      span(delim, closer, starts, warp_total, html_carry, alive);\n    }\n", "after",
+                "unset(3) && alive[0] != 1u"),  # waits for the HTML span's scan
+               CLEAN_STAMPS[4]]
+SCAN_PHASES = ["start", "split found", "first tile's row starts marked", "HTML span done",
+               "last tile stored"]
 LSTM_BLOCKS = 4 * (256 // 8)  # clusters of kSplit = 4 blocks over kUnits = 8 of H = 256
 
 
+def source_text(name: str) -> str:
+    """A source of ``csrc/`` with its local headers inlined."""
+    src = (_build.CSRC / name).read_text()
+    for header in sorted(_build.CSRC.glob("*.cuh")):
+        src = src.replace(f'#include "{header.name}"', header.read_text())
+    return src
+
+
 def instrument(src: str, stamps) -> str:
-    head = src.index("namespace {")
+    head = min(i for i in (src.find("namespace {"), src.find("namespace byte_scan {")) if i >= 0)
     src = src[:head] + STAMP + src[head:]
     for i, (anchor, where, condition) in enumerate(stamps):
         if anchor not in src:
@@ -125,10 +176,17 @@ def report(lib, n_blocks: int, names: list[str], label: str) -> dict:
     if lib.read_stamps(buf, 1 << 16):
         raise SystemExit("kernel_stamps: reading the stamps failed")
     rows = [[buf[b * SLOTS + i] for i in range(len(names))] for b in range(n_blocks)]
+    # every block's stamps (ns after the first start) and its SM, for a closer look
+    t0 = min(r[0] for r in rows)
+    name = "".join(c if c.isalnum() else "_" for c in label)
+    (OUT / f"{name}.json").write_text(json.dumps(
+        {"phases": names, "blocks": [{"sm": buf[b * SLOTS + SLOTS - 1],
+                                      "ns": [x - t0 if x else None for x in r]}
+                                     for b, r in enumerate(rows)]}))
     t0 = min(r[0] for r in rows)
     out = {}
-    for i, name in enumerate(names):
-        us = [(r[i] - t0) / 1e3 for r in rows]
+    for i, name in enumerate(names):  # a cleared stamp (0) is a phase the block never reached
+        us = [(r[i] - t0) / 1e3 for r in rows if r[i]]
         out[name] = [round(min(us), 3), round(statistics.median(us), 3), round(max(us), 3)]
     print(f"{label}: {json.dumps(out)}")
     return out
@@ -214,7 +272,91 @@ def main() -> int:
         report(lib, n_blocks, FLASH_PHASES, f"flash_attention {label}")
         print(f"flash_attention {label}: {n_blocks} blocks ({launch}), {cs.device_ms(run):.5f} "
               f"ms a launch (CUDA events), {cs.device_ms_burst(run):.5f} back to back")
+
+    stamp_text_clean(gen, stream)
+    stamp_text_scan(stream)
     return 0
+
+
+def stamp_text_scan(stream) -> None:
+    """``text_scan`` over one served batch of 64 abstracts, all three flags."""
+    from repro_torch.data.synthetic import abstracts_and_titles
+    from repro_torch.kernels.text_clean.ref import text_scan_ref
+    from repro_torch.kernels.text_clean.tiles import grid_blocks
+
+    lib = build("text_scan", instrument(source_text("text_scan.cu"), SCAN_STAMPS))
+    fn = lib.text_scan
+    fn.argtypes, fn.restype = _build.SIGNATURES["text_scan"], ctypes.c_int
+    abstracts, _ = abstracts_and_titles(cs.N_CORPUS, seed=cs.SEED)
+    buf, offsets = cs.flat_rows(abstracts[:cs.BATCH])
+    out = torch.empty_like(buf)
+    n_rows = offsets.numel() - 1
+
+    def run():
+        err = fn(buf.data_ptr(), out.data_ptr(), offsets.data_ptr(), n_rows, 1, 1, 1, stream)
+        if err:
+            raise SystemExit(f"kernel_stamps: text_scan launch failed ({err})")
+
+    for _ in range(3):
+        run()
+    lib.clear_stamps()
+    run()
+    torch.cuda.synchronize()
+    flags = dict(lower=True, strip_html=True, strip_parens=True)
+    if not torch.equal(out, text_scan_ref(buf, offsets, **flags)):
+        raise SystemExit("kernel_stamps: text_scan differs from its plain version")
+    n_blocks = grid_blocks(n_rows, torch.cuda.get_device_properties(0).multi_processor_count)
+    label = f"text_scan batch ({n_rows} rows, {buf.numel()} bytes)"
+    report(lib, n_blocks, SCAN_PHASES, label)
+    print(f"{label}: {n_blocks} blocks, {cs.device_ms(run):.5f} ms a launch (CUDA events), "
+          f"{cs.device_ms_burst(run):.5f} back to back")
+
+
+def stamp_text_clean(gen, stream) -> None:
+    """``text_clean`` with strip_html at the 4,096 x 512 matrix and over an
+    abstract column: the corpus of ``chip_smoke.py``'s preprocessing phase,
+    written, ingested and pre-cleaned as there."""
+    from repro_torch.core.ingest import ingest, pre_clean
+    from repro_torch.data.synthetic import write_corpus
+    from repro_torch.kernels.text_clean.ref import text_clean_flat_ref, text_clean_ref
+    from repro_torch.kernels.text_clean.tiles import grid_blocks
+
+    lib = build("text_clean", instrument(source_text("text_clean.cu"), CLEAN_STAMPS))
+    fn = lib.text_clean
+    fn.argtypes, fn.restype = _build.SIGNATURES["text_clean"], ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mat = torch.randint(32, 127, (4096, 512), generator=gen, dtype=torch.uint8).cuda()
+    corpus = ROOT / "build" / "kernel_stamps_corpus"
+    write_corpus(corpus, cs.CORPUS_BYTES, n_files=cs.CORPUS_FILES, seed=cs.SEED)
+    buf, offsets = cs.flat_column(pre_clean(ingest([corpus], cs.FIELDS),
+                                            list(cs.FIELDS))["abstract"])
+    n_abs = offsets.numel() - 1
+    cases = {"matrix 4,096 x 512": (mat.view(-1), None, 4096, 512,
+                                    lambda out: torch.equal(out.view(4096, 512),
+                                                            text_clean_ref(mat))),
+             f"abstract column ({n_abs} rows, {buf.numel()} bytes)":
+                 (buf, offsets, n_abs, 0,
+                  lambda out: torch.equal(out, text_clean_flat_ref(buf, offsets)))}
+    for label, (src, offs, n_rows, width, same) in cases.items():
+        out = torch.empty_like(src)
+
+        def run():
+            err = fn(src.data_ptr(), out.data_ptr(), None if offs is None else offs.data_ptr(),
+                     n_rows, width, 1, stream)
+            if err:
+                raise SystemExit(f"kernel_stamps: text_clean launch failed ({err})")
+
+        for _ in range(3):
+            run()
+        lib.clear_stamps()
+        run()
+        torch.cuda.synchronize()
+        if not same(out):
+            raise SystemExit(f"kernel_stamps: text_clean differs from its plain version ({label})")
+        n_blocks = grid_blocks(n_rows, sms)
+        report(lib, n_blocks, CLEAN_PHASES, f"text_clean {label}")
+        print(f"text_clean {label}: {n_blocks} blocks, {cs.device_ms(run):.5f} ms a launch "
+              f"(CUDA events), {cs.device_ms_burst(run):.5f} back to back")
 
 
 if __name__ == "__main__":
