@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -56,9 +56,22 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    card and run through ``Seq2Seq.encode`` at CONFIG width inside
    ``feed.step``; the ``OverlapReport`` and the exact ``lstm_cell`` launch
    count (snapped width x 3 encoder layers, summed);
-9. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
-   line per LM, the ``preprocess`` and ``feed`` lines, the card line from
-   nvidia-smi, and the result line.
+9. training (the example's, ``examples/train_summarizer_torch.py``):
+   ``lstm_cell_bwd`` against its plain version at the training shape and
+   its grid's edges, two launches bit for bit, the training entry of
+   ``lstm_cell`` bit-equal to the serving entry, and both timed; one train
+   step at CONFIG width (``init_scale=1``) on the card against the CPU
+   (loss, every gradient present and within 1e-4 of its tensor's largest
+   element, grad norm, updated params); then 40 steps of 32 cleaned
+   records through ``DeviceFeed`` on the 2-D bucket grid under
+   ``TrainController`` (checkpoint at step 20), the counters set to 0 just
+   before and read just after (``lstm_cell`` and ``lstm_cell_bwd`` each
+   exactly the sum of snapped encoder width x 3 + decoder width - 1), the
+   loss falling; a second controller resumes at step 20 with the saved
+   state bit for bit and tracks the first run's losses at 1e-4;
+10. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the ``preprocess``, ``feed`` and ``train`` lines, the card
+   line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -676,6 +689,349 @@ def feed(cleaned):
                       "widths": widths, "lstm_cell_launches": launches,
                       "encoder_max_abs_err": err, **report,
                       "loader": the_feed.loader_stats.as_dict()}
+
+
+# The train phase: the example's training at CONFIG width on the cleaned
+# corpus, batches of 32 on the 2-D bucket grid, 40 steps with a checkpoint at
+# step 20 that a second controller resumes.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_ROWS = 32, 40, 20, 4096
+# lstm_cell_bwd at the training shape (B 32, H 256) and the edges of its
+# grid of one thread per (row, unit): odd H, B x H off a 256-thread block.
+BWD_SHAPES = [(TRAIN_BATCH, 256)] + [(B, H) for B in (1, 5, 64, 65, 130)
+                                     for H in (8, 33, 256, 264)]
+# the training entry of lstm_cell against the serving entry, bit for bit
+TRAIN_ENTRY_SHAPES = [(TRAIN_BATCH, 128, 256), (TRAIN_BATCH, 256, 256), (5, 24, 48),
+                      (3, 7, 13), (130, 256, 264), (65, 9, 33)]
+
+
+def bwd_inputs(B, H, gen, d_in=24):
+    """dh', dc' and what a training forward saves (its activated gates, c
+    and c'), from the plain forward on random inputs on the card."""
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_train_ref
+
+    x, h, c, wx, wh, b = lstm_inputs(B, d_in, H, torch.float32, gen)
+    _, c_new, gates = lstm_cell_train_ref(x, h, c, wx, wh, b)
+    dh, dc = (torch.randn(B, H, generator=gen).to("cuda") for _ in range(2))
+    return dh, dc, gates, c, c_new
+
+
+def check_lstm_cell_bwd(gen) -> float:
+    """``lstm_cell_bwd`` against ``lstm_cell_bwd_ref`` on the card (fp32,
+    1e-5; with dh' or dc' None too), two launches bit for bit; the training
+    entry of ``lstm_cell`` against the serving entry bit for bit; one
+    cell's six gradients through ``LSTMCellFunction`` on the card against
+    the fp64 algebra, the CPU's beside them. Returns the max abs error at
+    the training shape."""
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_train_ref
+
+    err = 0.0
+    for B, H in BWD_SHAPES:
+        dh, dc, gates, c, c_new = bwd_inputs(B, H, gen)
+        for a, b in ((dh, dc), (None, dc), (dh, None)):
+            got = ops.lstm_cell_bwd(a, b, gates, c, c_new)
+            again = ops.lstm_cell_bwd(a, b, gates, c, c_new)
+            torch.cuda.synchronize()
+            for g, r, w in zip(got, again, lstm_cell_bwd_ref(a, b, gates, c, c_new)):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+                if not torch.equal(g, r):
+                    fail(f"lstm_cell_bwd B={B} H={H}: two launches differ")
+                if (B, H) == (TRAIN_BATCH, 256):
+                    err = max(err, (g - w).abs().max().item())
+    print(f"lstm_cell_bwd: matches plain at {len(BWD_SHAPES)} shapes (B 1-130, H 8-264), with "
+          f"dh' or dc' absent too (tol 1e-5); two launches identical bit for bit")
+    for B, d_in, H in TRAIN_ENTRY_SHAPES:
+        args = lstm_inputs(B, d_in, H, torch.float32, gen)
+        h_t, c_t, gates = ops.lstm_cell_train(*args)
+        h_s, c_s = ops.lstm_cell_op(*args)
+        if not (torch.equal(h_t, h_s) and torch.equal(c_t, c_s)):
+            fail(f"lstm_cell B={B} d_in={d_in} H={H}: the training entry's h', c' differ from "
+                 f"the serving entry's")
+        torch.testing.assert_close(gates, lstm_cell_train_ref(*args)[2], rtol=1e-5, atol=1e-5)
+    print(f"lstm_cell training entry: h', c' equal to the serving entry bit for bit and gates "
+          f"match plain (tol 1e-5) at {len(TRAIN_ENTRY_SHAPES)} shapes")
+    args = lstm_inputs(TRAIN_BATCH, 128, 256, torch.float32, gen)
+    cotangents = [torch.randn(TRAIN_BATCH, 256, generator=gen) for _ in range(2)]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in args]
+        torch.autograd.backward(ops.lstm_cell_op(*leaves), [d.to(dev) for d in cotangents])
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    # Held to the fp64 algebra: the host's fp32 CPU result has missed it by
+    # 4.6e-5 in one row of dx in some calls, where the card's was 3.4e-7.
+    # Printed beside each error: the tensor's largest |g| and the worst-case
+    # fp32 rounding of its sum, K * 2^-24 * max (|A| @ |B|).
+    errs = {}
+    for name, g, w, t, bound in zip(("x", "h", "c", "wx", "wh", "b"), grads["cuda"],
+                                    grads["cpu"], *cell_grads_fp64(args, cotangents)):
+        errs[name] = {"card": (g.double() - t).abs().max().item(),
+                      "cpu": (w.double() - t).abs().max().item(),
+                      "max_abs": t.abs().max().item(), "fp32_sum_bound": bound}
+        if not torch.allclose(g.double(), t, rtol=1e-5, atol=1e-5):
+            fail(f"LSTMCellFunction d{name}: the card's gradient misses the fp64 algebra by "
+                 f"{errs[name]['card']:.3e} (tol 1e-5; the CPU's by {errs[name]['cpu']:.3e})")
+    print(f"LSTMCellFunction: one cell's six gradients on the card match the fp64 algebra "
+          f"(tol 1e-5); host CPU {torch.backends.cpu.get_cpu_capability()}, "
+          f"{torch.get_num_threads()} threads; errors against it: {json.dumps(errs)}")
+    return err
+
+
+def cell_grads_fp64(args, cotangents) -> tuple[list[torch.Tensor], list[float | None]]:
+    """The six gradients of one cell in fp64 on the CPU (autograd of the
+    plain algebra), and for each the worst-case rounding of its fp32 sum
+    given dz: ``K * 2^-24 * max (|A| @ |B|)`` over the K terms of each
+    product (None for dc, which is pointwise)."""
+    x, h, c, wx, wh, b = leaves = [t.detach().cpu().double().requires_grad_(True) for t in args]
+    z = x @ wx + h @ wh + b
+    z.retain_grad()
+    i, f, g, o = z.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f + 1) * c + torch.sigmoid(i) * torch.tanh(g)
+    torch.autograd.backward((torch.sigmoid(o) * torch.tanh(c_new), c_new),
+                            [d.double() for d in cotangents])
+    dz = z.grad.abs()
+    u = 2.0 ** -24
+
+    def bound(a, b_):
+        return a.shape[1] * u * (a @ b_).max().item()
+
+    bounds = [bound(dz, wx.detach().abs().t()), bound(dz, wh.detach().abs().t()), None,
+              bound(x.detach().abs().t(), dz), bound(h.detach().abs().t(), dz),
+              dz.shape[0] * u * dz.sum(0).max().item()]
+    return [t.grad for t in leaves], bounds
+
+
+def time_lstm_cell_bwd(gen, bw: float, flops: float) -> dict:
+    """The backward kernel at the training shape, both timers, beside its
+    plain version, its bound and PyTorch's fused LSTM cell backward (given
+    the same activated gates); and the training entry of the forward beside
+    the serving entry at B 32, d_in 256."""
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref
+
+    B, H = TRAIN_BATCH, 256
+    dh, dc, gates, c, c_new = bwd_inputs(B, H, gen)
+
+    def library():
+        return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, c_new, gates, True)
+
+    want = lstm_cell_bwd_ref(dh, dc, gates, c, c_new)
+    for g, w in zip(library()[:2], want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    # reads dh', dc', the gates (4 per unit), c, c'; writes dz (4) and dc_prev
+    n_bytes = 4 * B * H * (2 + 4 + 2 + 4 + 1)
+    n_ops = 24 * B * H  # the kernel's multiplies, adds and one tanh per (row, unit)
+    fwd = lstm_inputs(B, 256, H, torch.float32, gen)
+    row = {"ms": device_ms(lambda: ops.lstm_cell_bwd(dh, dc, gates, c, c_new)),
+           "ms_burst": device_ms_burst(lambda: ops.lstm_cell_bwd(dh, dc, gates, c, c_new)),
+           "plain_ms": device_ms(lambda: lstm_cell_bwd_ref(dh, dc, gates, c, c_new)),
+           "library_ms": device_ms(library), "library_ms_burst": device_ms_burst(library),
+           "bound_ms": max(n_bytes / bw, n_ops / flops) * 1e3,
+           "bound_by": "bytes" if n_bytes / bw >= n_ops / flops else "operations",
+           "shape": [B, H],
+           "train_forward_ms": device_ms(lambda: ops.lstm_cell_train(*fwd)),
+           "serve_forward_ms": device_ms(lambda: ops.lstm_cell_op(*fwd))}
+    print(f"lstm_cell_bwd fp32 B={B} H={H}: {json.dumps(row)}")
+    return row
+
+
+def train_card_vs_cpu(host_batch, grid) -> dict:
+    """One train step at CONFIG width, ``init_scale=1``, the same weights
+    and batch on the card and on the CPU: the loss at 1e-5, every gradient
+    present and non-zero within 1e-4 of its tensor's largest element, the
+    gradient norm and the updated params at 1e-4."""
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.models.seq2seq import Seq2Seq
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
+
+    cfg = dataclasses.replace(CONFIG, init_scale=1.0)
+    snapped = grid.snap(host_batch)
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, TRAIN_STEPS), weight_decay=1e-4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Seq2Seq(cfg, dev, seed=SEED)
+        params = params_of(model)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in snapped.items()}
+        loss, grads = value_and_grad(functional_loss(model))(params, batch)
+        new, _, gnorm = opt.update(grads, opt.init(params), params)
+        out[dev] = {"loss": loss.item(), "grads": {k: g.cpu() for k, g in grads.items()},
+                    "params": {k: p.cpu() for k, p in new.items()}, "gnorm": gnorm.item()}
+    card, cpu = out["cuda"], out["cpu"]
+    if not np.isfinite(card["loss"]) or abs(card["loss"] - cpu["loss"]) > 1e-5 * abs(cpu["loss"]):
+        fail(f"train step loss card {card['loss']} vs CPU {cpu['loss']} (rtol 1e-5)")
+    worst = 0.0
+    for path, w in cpu["grads"].items():
+        g = card["grads"][path]
+        scale = w.abs().max().item()
+        if g.abs().max().item() == 0 or scale == 0:
+            fail(f"train step: the gradient of {path} is zero on the card")
+        ratio = (g - w).abs().max().item() / scale
+        worst = max(worst, ratio)
+        if ratio > 1e-4:
+            fail(f"train step: {path}'s gradient differs from the CPU's by {ratio:.3e} of its "
+                 f"largest element (limit 1e-4)")
+    torch.testing.assert_close(torch.tensor(card["gnorm"]), torch.tensor(cpu["gnorm"]),
+                               rtol=1e-4, atol=0)
+    for path, w in cpu["params"].items():
+        torch.testing.assert_close(card["params"][path], w, rtol=1e-4, atol=1e-4)
+    print(f"train step card vs CPU (CONFIG, init_scale 1, batch {snapped['encoder_tokens'].shape} "
+          f"/ {snapped['decoder_tokens'].shape}): loss {card['loss']:.6f} vs {cpu['loss']:.6f}; "
+          f"all {len(cpu['grads'])} gradients present and non-zero, worst max|dg|/max|g| "
+          f"{worst:.3e} (limit 1e-4); grad_norm and updated params within 1e-4")
+    return {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "grad_worst_rel": worst,
+            "grad_norm_card": card["gnorm"], "grad_norm_cpu": cpu["gnorm"]}
+
+
+def train(cleaned):
+    """The example's training at CONFIG width on the cleaned corpus: 40
+    steps of 32 through ``DeviceFeed`` on the 2-D grid with
+    ``TrainController`` (checkpoint at step 20), launch counters set to 0
+    just before and read just after; then a second controller resumes at
+    step 20 and replays steps 21-40. Returns the ``train`` line."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.tree import flatten_with_paths, map_with_paths
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.core.device_pipeline import BucketGrid, DeviceFeed
+    from repro_torch.data.batching import derive_buckets, seq2seq_arrays, shuffled_batches
+    from repro_torch.data.tokenizer import PAD, WordTokenizer
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models.seq2seq import Seq2Seq
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.fault_tolerance import TrainController
+    from repro_torch.runtime.train_loop import functional_loss, make_train_step, params_of
+
+    rows = [i for i, (t, a) in enumerate(zip(cleaned["title"], cleaned["abstract"])) if t and a]
+    tok = WordTokenizer.fit([cleaned["title"][i] for i in rows]
+                            + [cleaned["abstract"][i] for i in rows], vocab_size=CONFIG.vocab_size)
+    rows = rows[:TRAIN_ROWS]
+    arrays = seq2seq_arrays([cleaned["abstract"][i] for i in rows],
+                            [cleaned["title"][i] for i in rows], tok,
+                            CONFIG.max_abstract_len, CONFIG.max_title_len)
+    hosts = list(itertools.islice(shuffled_batches(arrays, TRAIN_BATCH, seed=SEED), TRAIN_STEPS))
+    grid = BucketGrid(TRAIN_BATCH, {"encoder_tokens": derive_buckets(CONFIG.max_abstract_len),
+                                    "decoder_tokens": derive_buckets(CONFIG.max_title_len)})
+    line = {"card_vs_cpu": train_card_vs_cpu(hosts[0], grid)}
+    torch.cuda.empty_cache()
+
+    model = Seq2Seq(CONFIG, "cuda", seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, TRAIN_STEPS), weight_decay=1e-4)
+    train_step = make_train_step(functional_loss(model), opt)
+
+    def init_state():
+        params = params_of(model)
+        return params, opt.init(params)
+
+    def controller_over(ckpt_dir, batches, saved=None):
+        """A ``TrainController`` on ``ckpt_dir`` whose steps take ``batches``
+        through a fresh feed, each timed by ``feed.step`` and ended by a
+        synchronize; with ``saved``, the state after step 20 is cloned
+        there. Returns the controller, the feed and the snapped widths."""
+        feed = DeviceFeed(iter(batches), grid=grid, prefetch=2)
+        widths = []
+
+        def fed_step(params, opt_state, batch):
+            with feed.step(batch):
+                widths.append((batch["encoder_tokens"].shape[1],
+                               batch["decoder_tokens"].shape[1]))
+                params, opt_state, metrics = train_step(params, opt_state, batch)
+                torch.cuda.synchronize()
+            if saved is not None and len(widths) == TRAIN_SAVE_AT:
+                saved.update(state=map_with_paths(lambda _, t: t.clone(), (params, opt_state)))
+            return params, opt_state, metrics
+
+        controller = TrainController(ckpt_dir, fed_step, init_state, save_every=TRAIN_SAVE_AT)
+        return controller, feed, widths
+
+    def run(controller, feed):
+        """-> (history, the feed's report, seconds)."""
+        t0 = time.perf_counter()
+        try:
+            history = controller.run(iter(feed), n_steps=TRAIN_STEPS)
+        finally:
+            feed.close()
+        return history, feed.report(), time.perf_counter() - t0
+
+    def want_launches(widths):
+        return sum(w_enc * CONFIG.n_encoder_layers + w_dec - 1 for w_enc, w_dec in widths)
+
+    # warm-up: the first step's kernels, cuBLAS handles and allocator
+    warm = {k: torch.from_numpy(v).cuda() for k, v in grid.snap(hosts[0]).items()}
+    params, state = init_state()
+    train_step(params, state, warm)
+    torch.cuda.synchronize()
+    del warm, params, state
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        saved = {}
+        controller, feed, widths = controller_over(ckpt_dir, hosts, saved)
+        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        history, report, seconds = run(controller, feed)
+        launches = dict(lstm_ops.LAUNCHES)
+        want = want_launches(widths)
+        if len(history) != TRAIN_STEPS or launches != {"lstm_cell": want, "lstm_cell_bwd": want}:
+            fail(f"the train run made {len(history)} steps and launches {launches}, expected "
+                 f"{TRAIN_STEPS} steps and {want} of each")
+        losses = [h["loss"] for h in history]
+        if not np.isfinite(losses).all():
+            fail(f"a non-finite training loss: {losses}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            fail(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        # resume: as if the run had died before committing step 40
+        shutil.rmtree(Path(ckpt_dir) / f"step_{TRAIN_STEPS:010d}")
+        resumed, feed2, widths2 = controller_over(ckpt_dir, hosts[TRAIN_SAVE_AT:])
+        if not resumed.resumed or resumed.step != TRAIN_SAVE_AT:
+            fail(f"the second controller resumed at step {resumed.step}, expected "
+                 f"{TRAIN_SAVE_AT}")
+        restored = flatten_with_paths((resumed.params, resumed.opt_state))
+        for (path, got), (_, want_t) in zip(restored, flatten_with_paths(saved["state"]),
+                                            strict=True):
+            if got.dtype != want_t.dtype or not torch.equal(got, want_t):
+                fail(f"the restored {path} differs from the state saved at step {TRAIN_SAVE_AT}")
+        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        history2, _, seconds2 = run(resumed, feed2)
+        resume_launches = dict(lstm_ops.LAUNCHES)
+    if [h["step"] for h in history2] != list(range(TRAIN_SAVE_AT + 1, TRAIN_STEPS + 1)):
+        fail(f"the resumed run took steps {[h['step'] for h in history2]}")
+    want2 = want_launches(widths2)
+    if resume_launches != {"lstm_cell": want2, "lstm_cell_bwd": want2}:
+        fail(f"the resumed run made launches {resume_launches}, expected {want2} of each")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(history2, history[TRAIN_SAVE_AT:]))
+    if rel > 1e-4:
+        fail(f"the resumed steps' losses differ from the uninterrupted run's by {rel:.3e} "
+             f"(rtol 1e-4)")
+    n_tokens = sum(int((h[k] != PAD).sum()) for h in hosts for k in h)
+    line.update({
+        "steps": len(history), "batch": TRAIN_BATCH, "seconds": seconds,
+        "seconds_per_step": seconds / len(history), "train_tokens_per_s": n_tokens / seconds,
+        "train_tokens": n_tokens, "widths": widths,
+        "wall_idle_share": 1 - report.device_s / seconds,
+        **{k: v for k, v in report.as_dict().items() if k != "device_idle_fraction"},
+        "feed_wait_share": report.device_idle_fraction,
+        "lstm_cell_launches": launches["lstm_cell"],
+        "lstm_cell_bwd_launches": launches["lstm_cell_bwd"],
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "resumed_at": TRAIN_SAVE_AT, "resume_max_rel_loss_diff": rel,
+        "resume_seconds": seconds2, "resume_launches": resume_launches,
+        "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+    })
+    print(f"train: {len(history)} steps of {TRAIN_BATCH} at CONFIG width in {seconds:.3f} s "
+          f"({seconds / len(history) * 1e3:.1f} ms a step, {n_tokens / seconds:.0f} training "
+          f"tokens/s); loss {losses[0]:.4f} -> {losses[-1]:.4f}; feed wait "
+          f"{report.device_idle_fraction:.2%} of the steps (the feed's OverlapReport; the "
+          f"card's idle share is traced by examples/train_summarizer_torch.py --profile), "
+          f"{line['wall_idle_share']:.2%} of the wall clock outside the steps")
+    print(f"train: lstm_cell launches {launches['lstm_cell']} and lstm_cell_bwd launches "
+          f"{launches['lstm_cell_bwd']} = sum of snapped (encoder width x "
+          f"{CONFIG.n_encoder_layers} + decoder width - 1) over the steps")
+    print(f"train: resumed at step {TRAIN_SAVE_AT} with params, moments and count equal bit "
+          f"for bit to those saved; steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} track the "
+          f"uninterrupted run's losses within {rel:.3e} relative (rtol 1e-4: the run does not "
+          f"set torch.use_deterministic_algorithms, so no bit equality is asked)")
+    return line
 
 
 # (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len); kv_len None = skv
@@ -1446,6 +1802,8 @@ def main() -> int:
     rg_err = check_rg_lru(gen)
     mlstm_err, mlstm_state_err = check_mlstm_chunk(gen)
     clean_err = check_text_clean(gen)
+    train_gen = torch.Generator().manual_seed(SEED + 1)  # the earlier checks' draws unchanged
+    bwd_err = check_lstm_cell_bwd(train_gen)
 
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
@@ -1453,6 +1811,7 @@ def main() -> int:
     timed = {"flash_attention": time_flash_attention(gen, bw, flops),
              "rg_lru": time_rg_lru(gen, bw, flops),
              "mlstm_chunk": time_mlstm_chunk(gen, bw, flops)}
+    bwd_t = time_lstm_cell_bwd(train_gen, bw, flops)
 
     # 5. the summarizer at CONFIG width
     launches, serve_line = serve(abstracts, titles)
@@ -1482,8 +1841,12 @@ def main() -> int:
 
     # 8. the feed into the summarizer's encoder
     feed_line = feed(cleaned)
+    torch.cuda.empty_cache()
 
-    # 9. report
+    # 9. training: card vs CPU, 40 steps with a checkpoint, resume
+    train_line = train(cleaned)
+
+    # 10. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -1499,7 +1862,8 @@ def main() -> int:
         {"name": "lstm_cell", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
          "replaces": "src/repro/kernels/lstm_cell/lstm_cell.py:23",
-         "launches": launches["lstm_cell"], "max_abs_err": lstm_err, **lstm_t},
+         "launches": launches["lstm_cell"], "max_abs_err": lstm_err, **lstm_t,
+         "train_launches": train_line["lstm_cell_launches"]},
         {"name": "text_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
@@ -1517,6 +1881,10 @@ def main() -> int:
          "launches": clean_launches, "max_abs_err": clean_err,
          **{k: clean_t["matrix"][k] for k in
             ("ms", "ms_burst", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
+        {"name": "lstm_cell_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
+         "replaces": "none: XLA differentiates src/repro/models/seq2seq.py:63 lstm_cell",
+         "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t},
     ]
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
@@ -1535,6 +1903,7 @@ def main() -> int:
         print(json.dumps({"serve_lm": {**line, "card": card}}))
     print(json.dumps({"preprocess": {**preprocess_line, "card": card}}))
     print(json.dumps({"feed": {**feed_line, "card": card}}))
+    print(json.dumps({"train": {**train_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

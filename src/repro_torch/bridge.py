@@ -14,32 +14,37 @@ leading ``n_units`` axis, and the unrolled remainder under ``tail/<t>/...``.
 layer (position j of unit u is layer ``u·len(pattern) + j``, ``tail[t]``
 is layer ``n_units·len(pattern) + t``) and ``lm_params_to_jax`` stacks
 them back.
+
+The optimizer state crosses too (``adamw_state_from_jax``,
+``adamw_state_to_jax``). The key paths are the checkpoint's
+(``checkpoint/tree.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from .checkpoint.tree import flatten_with_paths, tensor_from_numpy
+from .optim.adamw import AdamWState
 
-def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> Iterator[tuple[str, Any]]:
-    if isinstance(tree, Mapping):
-        for key in sorted(tree):
-            yield from _flatten(tree[key], prefix + (str(key),))
-    elif isinstance(tree, (list, tuple)):
-        for i, value in enumerate(tree):
-            yield from _flatten(value, prefix + (str(i),))
-    else:
-        yield "/".join(prefix), tree
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``; bf16 as numpy's ``bfloat16``, which exists
+    only where ``ml_dtypes`` (JAX's) has registered it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy().copy()
 
 
 def from_jax_params(tree: Any) -> dict[str, torch.Tensor]:
     """``{"encoder/0/wx": tensor, ...}`` from a tree of numpy-convertible
     leaves (copied to CPU tensors)."""
-    return {path: torch.from_numpy(np.array(leaf, copy=True)) for path, leaf in _flatten(tree)}
+    return {path: tensor_from_numpy(leaf) for path, leaf in flatten_with_paths(tree)}
 
 
 def _nest(node: Any) -> Any:
@@ -62,8 +67,24 @@ def to_jax_params(params: nn.Module | Mapping[str, torch.Tensor]) -> dict:
         node = tree
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = tensor.detach().cpu().numpy()
+        node[leaf] = tensor_to_numpy(tensor)
     return _nest(tree)
+
+
+def adamw_state_from_jax(state) -> AdamWState:
+    """The port's ``AdamWState`` (CPU tensors; ``count`` int32 0-d) from the
+    JAX package's (``repro/optim/adamw.py:13``), or any ``(count, m, v)``
+    of numpy-convertible leaves."""
+    count, m, v = state
+    return AdamWState(torch.from_numpy(np.array(count, dtype=np.int32)),
+                      from_jax_params(m), from_jax_params(v))
+
+
+def adamw_state_to_jax(state: AdamWState) -> AdamWState:
+    """``(count, m, v)`` as numpy trees in the layout of ``Seq2Seq.init``
+    (``count`` an int32 0-d array), ready for the JAX ``AdamWState(*...)``."""
+    return AdamWState(state.count.detach().cpu().numpy().astype(np.int32),
+                      to_jax_params(state.m), to_jax_params(state.v))
 
 
 def _layout(cfg) -> tuple[int, int, int]:

@@ -42,6 +42,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lstm_cell_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, h, c, wx, wh, b, h_out, c_out, gates_out; B, d_in, H; stream
+    "lstm_cell_train_f32": (_P,) * 9 + (_I,) * 3 + (_P,),
+    # dh (or null), dc (or null), gates, c, c_new, dz, dc_prev; B, H; stream
+    "lstm_cell_bwd_f32": (_P,) * 7 + (_I,) * 2 + (_P,),
     "text_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
     # in, out, offsets (or null); n_rows, width (rows of null offsets); strip_html; stream
     "text_clean": (_P, _P, _P, _I, _L, _I, _P),

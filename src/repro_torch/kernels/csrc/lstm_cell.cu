@@ -7,7 +7,11 @@
 //   h' = sigmoid(o) * tanh(c')
 // with the model's own layouts: wx (d_in, 4H), wh (H, 4H), b (4H,), columns
 // [i | f | g | o] each H wide (the TPU wrapper only reshapes that memory to
-// (D, 4, H)). Outputs are fresh buffers in the input dtype.
+// (D, 4, H)). Outputs are fresh buffers in the input dtype. The training
+// entry (fp32 only) also writes the activated gates for the backward,
+// gates (B, 4H) fp32 = [sigmoid(i) | sigmoid(f + 1) | tanh(g) | sigmoid(o)];
+// serving passes a null pointer there, and h' and c' are the same bits
+// either way.
 //
 // What bounds it: at the served shapes (B = 64, d_in = 128 or 256, H = 256)
 // one step reads 1.5-2 MiB of fp32 weights and does 50-67 MFLOP, about a
@@ -185,7 +189,8 @@ template <typename T, bool kAsync>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
 lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ c,
                  const T* __restrict__ wx, const T* __restrict__ wh, const T* __restrict__ b,
-                 T* __restrict__ h_out, T* __restrict__ c_out, int B, int d_in, int H) {
+                 T* __restrict__ h_out, T* __restrict__ c_out, float* __restrict__ gates,
+                 int B, int d_in, int H) {
   using L = Layout<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* stages = reinterpret_cast<T*>(smem);
@@ -298,10 +303,19 @@ lstm_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __re
 #pragma unroll
       for (int g = 0; g < 4; ++g) z[g] += to_f32(b[g * static_cast<size_t>(H) + j]);
       const size_t o = static_cast<size_t>(row) * H + j;
-      const float c_new = sigmoid(z[1] + 1.0f) * to_f32(c[o]) + sigmoid(z[0]) * tanhf(z[2]);
-      const float h_new = sigmoid(z[3]) * tanhf(c_new);
+      const float gi = sigmoid(z[0]), gf = sigmoid(z[1] + 1.0f), gg = tanhf(z[2]),
+                  go = sigmoid(z[3]);
+      const float c_new = gf * to_f32(c[o]) + gi * gg;
+      const float h_new = go * tanhf(c_new);
       c_out[o] = from_f32<T>(c_new);
       h_out[o] = from_f32<T>(h_new);
+      if (gates != nullptr) {
+        float* gr = gates + static_cast<size_t>(row) * 4 * H + j;
+        gr[0] = gi;
+        gr[H] = gf;
+        gr[2 * static_cast<size_t>(H)] = gg;
+        gr[3 * static_cast<size_t>(H)] = go;
+      }
     }
   }
 }
@@ -310,7 +324,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <typename T, bool kAsync>
 int launch_as(const void* x, const void* h, const void* c, const void* wx, const void* wh,
-              const void* b, void* h_out, void* c_out, int B, int d_in, int H, void* stream) {
+              const void* b, void* h_out, void* c_out, void* gates, int B, int d_in, int H,
+              void* stream) {
   static unsigned long long attribute_set = 0;  // a bit per device, per instantiation
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
@@ -327,13 +342,14 @@ int launch_as(const void* x, const void* h, const void* c, const void* wx, const
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
       static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), B, d_in, H);
+      static_cast<T*>(h_out), static_cast<T*>(c_out), static_cast<float*>(gates), B, d_in, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* h, const void* c, const void* wx, const void* wh,
-           const void* b, void* h_out, void* c_out, int B, int d_in, int H, void* stream) {
+           const void* b, void* h_out, void* c_out, void* gates, int B, int d_in, int H,
+           void* stream) {
   if (B < 1 || d_in < 0 || H < 1 || (B + kRows - 1) / kRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -341,8 +357,8 @@ int launch(const void* x, const void* h, const void* c, const void* wx, const vo
   // 8 units of a gate (H % 8 == 0), rows of x and h (d_in % kVec == 0).
   const bool vec = H % kUnits == 0 && d_in % Layout<T>::kVec == 0 && aligned16(x) &&
                    aligned16(h) && aligned16(wx) && aligned16(wh);
-  return vec ? launch_as<T, true>(x, h, c, wx, wh, b, h_out, c_out, B, d_in, H, stream)
-             : launch_as<T, false>(x, h, c, wx, wh, b, h_out, c_out, B, d_in, H, stream);
+  return vec ? launch_as<T, true>(x, h, c, wx, wh, b, h_out, c_out, gates, B, d_in, H, stream)
+             : launch_as<T, false>(x, h, c, wx, wh, b, h_out, c_out, gates, B, d_in, H, stream);
 }
 
 }  // namespace
@@ -350,13 +366,21 @@ int launch(const void* x, const void* h, const void* c, const void* wx, const vo
 extern "C" int lstm_cell_f32(const void* x, const void* h, const void* c, const void* wx,
                              const void* wh, const void* b, void* h_out, void* c_out,
                              int B, int d_in, int H, void* stream) {
-  return launch<float>(x, h, c, wx, wh, b, h_out, c_out, B, d_in, H, stream);
+  return launch<float>(x, h, c, wx, wh, b, h_out, c_out, nullptr, B, d_in, H, stream);
+}
+
+// The forward of a training step: as lstm_cell_f32, and the activated gates
+// (B, 4H) fp32 to ``gates``.
+extern "C" int lstm_cell_train_f32(const void* x, const void* h, const void* c, const void* wx,
+                                   const void* wh, const void* b, void* h_out, void* c_out,
+                                   void* gates, int B, int d_in, int H, void* stream) {
+  return launch<float>(x, h, c, wx, wh, b, h_out, c_out, gates, B, d_in, H, stream);
 }
 
 extern "C" int lstm_cell_bf16(const void* x, const void* h, const void* c, const void* wx,
                               const void* wh, const void* b, void* h_out, void* c_out,
                               int B, int d_in, int H, void* stream) {
-  return launch<__nv_bfloat16>(x, h, c, wx, wh, b, h_out, c_out, B, d_in, H, stream);
+  return launch<__nv_bfloat16>(x, h, c, wx, wh, b, h_out, c_out, nullptr, B, d_in, H, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

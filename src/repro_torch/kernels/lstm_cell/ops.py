@@ -1,9 +1,18 @@
-"""Public wrapper of the fused LSTM cell kernel (``csrc/lstm_cell.cu``).
+"""Public wrapper of the fused LSTM cell kernel (``csrc/lstm_cell.cu``)
+and its gradient (``csrc/lstm_cell_bwd.cu``).
 
 Counterpart of ``repro/kernels/lstm_cell/ops.py:16 lstm_cell_op``. CPU
-tensors go to the plain version in ``ref.py``; CUDA tensors go to the
-hand-written kernel or raise. ``LAUNCHES["lstm_cell"]`` counts kernel
-launches and nothing else.
+tensors go to the plain versions in ``ref.py``; CUDA tensors go to the
+hand-written kernels or raise. ``LAUNCHES["lstm_cell"]`` and
+``LAUNCHES["lstm_cell_bwd"]`` count kernel launches and nothing else.
+
+With grad mode on and an input that requires grad, the op is
+``LSTMCellFunction``: its forward is the kernel's training entry, which
+also writes the activated gates, and its backward the pointwise kernel
+followed by the matrix products (``torch.matmul``, as the JAX package
+leaves them to XLA's autodiff). Otherwise (serving runs under
+``torch.no_grad``) it is the serving entry, as before. Gradients are fp32
+only.
 """
 
 from __future__ import annotations
@@ -11,12 +20,12 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import lstm_cell_ref
+from .ref import lstm_cell_bwd_ref, lstm_cell_ref, lstm_cell_train_ref
 
-LAUNCHES = {"lstm_cell": 0}
+LAUNCHES = {"lstm_cell": 0, "lstm_cell_bwd": 0}
 
 _ENTRY = {torch.float32: "lstm_cell_f32", torch.bfloat16: "lstm_cell_bf16"}
-_FN: dict = {}  # dtype -> the library's entry point, resolved at its first launch
+_FN: dict = {}  # entry name -> the library's entry point, resolved at its first launch
 MAX_BATCH = 65535 * 64  # the kernel's grid holds 65,535 tiles of 64 batch rows
 
 
@@ -52,23 +61,125 @@ def _card_check(x, h, c, wx, wh, b) -> None:
 
 def lstm_cell_op(x, h, c, wx, wh, b):
     """One LSTM step: x ``(B, d_in)``, h/c ``(B, H)``, wx ``(d_in, 4H)``,
-    wh ``(H, 4H)``, b ``(4H,)`` -> (h', c') in x's dtype, fresh tensors."""
-    B, d_in, H = _check(x, h, c, wx, wh, b)
+    wh ``(H, 4H)``, b ``(4H,)`` -> (h', c') in x's dtype, fresh tensors.
+    Differentiable (fp32) when grad mode is on and an input requires grad."""
+    _check(x, h, c, wx, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h, c, wx, wh, b)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"lstm_cell_op: gradients are fp32 only, got {x.dtype} "
+                            "(bf16 training is ROADMAP Queue 1)")
+        return LSTMCellFunction.apply(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
         return lstm_cell_ref(x, h, c, wx, wh, b)
+    return _launch(x, h, c, wx, wh, b)
+
+
+def _launch(x, h, c, wx, wh, b, gates=None):
+    """Launch ``lstm_cell.cu`` on CUDA tensors: its serving entry, or its
+    training entry (fp32) when ``gates`` is the ``(B, 4H)`` buffer for the
+    activated gates. Returns (h', c')."""
     if x.device.type != "cuda":
         raise ValueError(f"lstm_cell_op: unsupported device {x.device}")
     _card_check(x, h, c, wx, wh, b)
-    fn = _FN.get(x.dtype)
-    if fn is None:
-        fn = _FN[x.dtype] = getattr(_build.library(), _ENTRY[x.dtype])
+    B, d_in = x.shape
+    H = h.shape[1]
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     if B == 0 or H == 0:
         return h_out, c_out
-    stream = _build.current_stream(x.device)
-    err = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, d_in, H, stream)
+    ptrs = (x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr())
+    if gates is None:
+        err = _entry(_ENTRY[x.dtype])(*ptrs, B, d_in, H, _build.current_stream(x.device))
+    else:
+        err = _entry("lstm_cell_train_f32")(*ptrs, gates.data_ptr(), B, d_in, H,
+                                            _build.current_stream(x.device))
     _build.check(err, "lstm_cell")
     LAUNCHES["lstm_cell"] += 1
     return h_out, c_out
+
+
+def _entry(name: str):
+    """The library's entry point ``name``, resolved at its first launch."""
+    fn = _FN.get(name)
+    if fn is None:
+        fn = _FN[name] = getattr(_build.library(), name)
+    return fn
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def lstm_cell_train(x, h, c, wx, wh, b):
+    """The forward of a training step, fp32: (h', c', gates) with the
+    activated gates ``(B, 4H)`` as ``ref.lstm_cell_train_ref`` defines them.
+    The kernel's training entry on the card."""
+    B, _, H = _check(x, h, c, wx, wh, b)
+    if x.device.type == "cpu":
+        return lstm_cell_train_ref(x, h, c, wx, wh, b)
+    if x.dtype != torch.float32:
+        raise TypeError(f"lstm_cell_train: the training entry takes float32, got {x.dtype}")
+    gates = torch.empty(B, 4 * H, dtype=torch.float32, device=x.device)
+    h_out, c_out = _launch(x, h, c, wx, wh, b, gates)
+    return h_out, c_out, gates
+
+
+def lstm_cell_bwd(dh, dc, gates, c, c_new):
+    """The cell's pointwise backward, fp32: (dz ``(B, 4H)``, dc_prev
+    ``(B, H)``); ``dh`` or ``dc`` may be ``None`` (a zero gradient). The
+    ``lstm_cell_bwd`` kernel on the card, ``ref.lstm_cell_bwd_ref`` on the
+    CPU."""
+    B, H = c_new.shape
+    device = c_new.device
+    for name, t, shape in (("dh", dh, (B, H)), ("dc", dc, (B, H)), ("gates", gates, (B, 4 * H)),
+                           ("c", c, (B, H))):
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"lstm_cell_bwd: {name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected float32 {shape} on {device}")
+    if c_new.dtype != torch.float32:
+        raise ValueError(f"lstm_cell_bwd: c_new is {c_new.dtype}, expected float32")
+    if device.type == "cpu":
+        return lstm_cell_bwd_ref(dh, dc, gates, c, c_new)
+    if device.type != "cuda":
+        raise ValueError(f"lstm_cell_bwd: unsupported device {device}")
+    dh = None if dh is None else dh.contiguous()
+    dc = None if dc is None else dc.contiguous()
+    for name, t in (("gates", gates), ("c", c), ("c_new", c_new)):
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_cell_bwd: {name} must be contiguous")
+    dz = torch.empty_like(gates)
+    dc_prev = torch.empty_like(c_new)
+    if B == 0 or H == 0:
+        return dz.zero_(), dc_prev.zero_()
+    err = _entry("lstm_cell_bwd_f32")(_ptr(dh), _ptr(dc), gates.data_ptr(), c.data_ptr(),
+                                      c_new.data_ptr(), dz.data_ptr(), dc_prev.data_ptr(), B, H,
+                                      _build.current_stream(device))
+    _build.check(err, "lstm_cell_bwd")
+    LAUNCHES["lstm_cell_bwd"] += 1
+    return dz, dc_prev
+
+
+class LSTMCellFunction(torch.autograd.Function):
+    """``lstm_cell_op`` with a gradient: the training forward saves x, h,
+    c, the weights, c' and the activated gates; the backward is the
+    pointwise kernel, then dx = dz wxᵀ, dh = dz whᵀ, dwx = xᵀ dz,
+    dwh = hᵀ dz, db = Σ dz. A ``None`` incoming gradient is a zero one."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        h_new, c_new, gates = lstm_cell_train(x, h, c, wx, wh, b)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, h, c, wx, wh, c_new, gates)
+        return h_new, c_new
+
+    @staticmethod
+    def backward(ctx, dh_new, dc_new):
+        x, h, c, wx, wh, c_new, gates = ctx.saved_tensors
+        dz, dc_prev = lstm_cell_bwd(dh_new, dc_new, gates, c, c_new)
+        need = ctx.needs_input_grad
+        return (dz @ wx.t() if need[0] else None, dz @ wh.t() if need[1] else None,
+                dc_prev if need[2] else None, x.t() @ dz if need[3] else None,
+                h.t() @ dz if need[4] else None, dz.sum(0) if need[5] else None)

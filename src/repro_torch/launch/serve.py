@@ -145,8 +145,11 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 
 
 # kernel names of csrc/*.cu, as the profiler lists them
-HAND_WRITTEN = ("lstm_cell_kernel", "text_scan_kernel", "flash_attention_kernel",
-                "rg_lru_kernel", "mlstm_chunk_kernel", "mlstm_decode_kernel")
+HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "text_scan_kernel",
+                "flash_attention_kernel", "rg_lru_kernel", "mlstm_chunk_kernel",
+                "mlstm_decode_kernel")
+# substrings of cuBLAS's matrix-product kernel names, lower-cased
+GEMM = ("gemm", "gemv")
 
 
 def _where(device: torch.device) -> str:
@@ -178,6 +181,11 @@ def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], N
             print(f"  {e.key[:60]}: {e.count} launches, {e.self_device_time_total / 1e3:.3f} ms "
                   f"({e.self_device_time_total / e.count:.3f} us each, "
                   f"{e.self_device_time_total / busy_us:.2%} of the device time)")
+    gemm_us = sum(e.self_device_time_total for e in kernels
+                  if any(g in e.key.lower() for g in GEMM))
+    if busy_us:
+        print(f"  matrix products (cuBLAS gemm/gemv): {gemm_us / 1e3:.3f} ms "
+              f"({gemm_us / busy_us:.2%} of the device time)")
     print(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}")
 

@@ -1,0 +1,119 @@
+"""The train step: value and gradient, microbatch accumulation, AdamW.
+
+Copy of ``repro/runtime/train_loop.py``: ``TrainStepConfig`` (``:20``),
+``split_microbatches`` (``:26``) and ``make_train_step`` (``:104``).
+``jax.value_and_grad`` becomes ``torch.autograd.grad`` over a loss that is
+pure in its parameters (``functional_loss``: the model's ``loss`` run
+with the given ``{path: tensor}`` in place of its own parameters, through
+``torch.func.functional_call``), and the microbatch ``lax.scan`` a loop
+that sums fp32 gradients and divides by the count, as the reference's scan
+body does. ``make_input_pipeline`` (``:39``) takes the planner's
+``Dataset``, which the port does not have yet (ROADMAP Queue 1), and the
+config's ``loss_scale``, which the reference declares and never reads, is
+left out.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Mapping
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from ..optim.adamw import AdamW, AdamWState
+
+Params = dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class TrainStepConfig:
+    n_microbatches: int = 1
+
+
+def split_microbatches(batch: Mapping[str, torch.Tensor], n: int) -> list[dict]:
+    """(B, ...) -> n batches of (B/n, ...) on every leaf."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} not divisible by microbatches {n}")
+        for i, part in enumerate(x.reshape(n, b // n, *x.shape[1:]).unbind(0)):
+            out[i][k] = part
+    return out
+
+
+class _Loss(nn.Module):
+    """Calls ``model.loss`` as its forward, so that ``functional_call`` can
+    swap the model's parameters for that call."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return self.model.loss(batch)
+
+
+def params_of(model: nn.Module) -> Params:
+    """The model's parameters as ``{path: tensor}`` (detached), the tree
+    that ``functional_loss``, ``AdamW`` and the checkpoints take."""
+    return {name.replace(".", "/"): p.detach() for name, p in model.named_parameters()}
+
+
+def functional_loss(model: nn.Module) -> Callable[[Params, dict], torch.Tensor]:
+    """``loss_fn(params, batch)``: ``model.loss(batch)`` computed with
+    ``params`` (``{path: tensor}``) in place of the model's parameters; the
+    model itself is left as it was."""
+    wrapper = _Loss(model)
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        named = {f"model.{path.replace('/', '.')}": t for path, t in params.items()}
+        return functional_call(wrapper, named, (batch,), strict=True)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn: Callable[[Params, dict], torch.Tensor]):
+    """``(params, batch) -> (loss, {path: grad})``, the counterpart of
+    ``jax.value_and_grad``: the loss detached, and a gradient for every
+    parameter (zeros where the loss does not reach it)."""
+    def fn(params: Params, batch):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                               for (k, p), g in zip(leaves.items(), grads)}
+
+    return fn
+
+
+def make_train_step(
+    loss_fn: Callable[[Params, dict], torch.Tensor],
+    optimizer: AdamW,
+    cfg: TrainStepConfig = TrainStepConfig(),
+):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics) with metrics ``loss`` and ``grad_norm``, fp32 0-d tensors."""
+    grads_of = value_and_grad(loss_fn)
+
+    def train_step(params: Params, opt_state: AdamWState, batch):
+        n = cfg.n_microbatches
+        if n <= 1:
+            loss, grads = grads_of(params, batch)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in params.items()}
+            for mb in split_microbatches(batch, n):
+                mb_loss, mb_grads = grads_of(params, mb)
+                grads = {k: a + mb_grads[k].float() for k, a in grads.items()}
+                loss = loss + mb_loss
+            loss = loss / n
+            grads = {k: g / n for k, g in grads.items()}
+        new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss.float(), "grad_norm": gnorm}
+
+    return train_step

@@ -84,7 +84,7 @@ LSTM_STAMPS = [
     ("    const T* st = stages + (t % kStages) * L::kStageElems;", "before", "t == 0"),
     ('  asm volatile("cp.async.wait_all;\\n" ::);', "before", ""),
     ("  cluster_wait();  // every partial of this block's rows has landed\n", "after", ""),
-    ("      h_out[o] = from_f32<T>(h_new);\n    }\n  }\n", "after", ""),
+    ("        gr[3 * static_cast<size_t>(H)] = go;\n      }\n    }\n  }\n", "after", ""),
 ]
 LSTM_PHASES = ["start", "first tile staged", "K loop done", "partials landed", "rows finished"]
 MLSTM_STAMPS = [
