@@ -51,12 +51,23 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    ``device_case_study_cleaner`` (the ``text_clean`` kernel, counters set to
    0 just before and read just after: one launch per column), every value
    held against the same path on the CPU;
-8. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
+8. the paper's comparison (Tables 2-6) on the same corpus: the abstract
+   column's scan pass on the card (``scan_flat``) held byte for byte
+   against the host's ``_run_scan`` of the same ``ScanPass`` and the
+   kernel against its plain version at that column, and timed; then
+   ``run_conventional`` (CA, Algorithm 2), ``run_p3sapp`` on the card
+   (Algorithm 1, one worker) at ``optimize`` False and True with the
+   ``text_scan`` counter set to 0 just before each and read just after
+   (exactly 2 launches: one a column), and ``run_p3sapp`` on the host
+   (``loops``, CPU); every run's records equal to CA's, 100% record
+   match for both fields, each run's ``StageTimings`` and the ingestion,
+   preprocessing and cumulative reductions (eq. 7) against CA;
+9. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
    onto a ``BucketGrid`` in ``DeviceFeed``'s fill thread, copied to the
    card and run through ``Seq2Seq.encode`` at CONFIG width inside
    ``feed.step``; the ``OverlapReport`` and the exact ``lstm_cell`` launch
    count (snapped width x 3 encoder layers, summed);
-9. training (the example's, ``examples/train_summarizer_torch.py``):
+10. training (the example's, ``examples/train_summarizer_torch.py``):
    ``lstm_cell_bwd`` against its plain version at the training shape and
    its grid's edges, two launches bit for bit, the training entry of
    ``lstm_cell`` bit-equal to the serving entry, and both timed; one train
@@ -69,15 +80,16 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    exactly the sum of snapped encoder width x 3 + decoder width - 1), the
    loss falling; a second controller resumes at step 20 with the saved
    state bit for bit and tracks the first run's losses at 1e-4;
-10. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
-   line per LM, the ``preprocess``, ``feed`` and ``train`` lines, the card
-   line from nvidia-smi, and the result line.
+11. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the ``preprocess``, ``feed``, ``train`` and ``p3sapp``
+   lines, the card line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import sys
 import time
@@ -560,10 +572,10 @@ def time_text_clean(gen, abstracts_flat, bw: float) -> dict:
 def preprocess(workdir: Path):
     """Algorithm 1 on the card: corpus -> ingest -> pre_clean -> device
     cleaning of both columns, held against the CPU. Returns the cleaned
-    frame, the abstract column as a flat buffer with offsets on the card
-    (for timing), the launches and the ``preprocess`` line."""
-    import shutil
-
+    frame, the pre-cleaned frame, the abstract column as a flat buffer
+    with offsets on the card (for timing), the launches and the
+    ``preprocess`` line. The corpus stays in ``workdir`` for the
+    ``p3sapp`` phase."""
     from repro_torch.core.device_pipeline import device_case_study_cleaner
     from repro_torch.core.ingest import ingest, pre_clean
     from repro_torch.data.synthetic import write_corpus
@@ -581,7 +593,6 @@ def preprocess(workdir: Path):
     t0 = time.perf_counter()
     clean = pre_clean(frame, list(FIELDS))
     times["pre_clean_s"] = time.perf_counter() - t0
-    shutil.rmtree(workdir)
 
     cleaner = device_case_study_cleaner()
     clean_ops.LAUNCHES["text_clean"] = 0
@@ -613,7 +624,126 @@ def preprocess(workdir: Path):
     line = {"corpus_bytes": corpus_bytes, "shards": len(paths), "records": len(frame),
             "records_clean": len(clean), **times, "text_clean_launches": launches,
             "equal_to_cpu": same / n_values}
-    return out, abstracts_flat, launches, line
+    return out, clean, abstracts_flat, launches, line
+
+
+def reductions(pa, ca) -> dict:
+    """Per cent of CA's time that P3SAPP saves, by stage (paper eq. 7)."""
+    return {stage: 100 * (1 - getattr(pa, stage) / getattr(ca, stage))
+            for stage in ("ingestion", "preprocessing", "cumulative")}
+
+
+def check_p3sapp_scan(clean) -> tuple[dict, tuple]:
+    """The abstract column's scan pass (the pre-cleaned frame's flat
+    buffer, as ``run_p3sapp`` gives it to the kernel): ``scan_flat`` on the
+    card byte for byte against the host's ``_run_scan`` of the same
+    ``ScanPass``, and ``text_scan`` against its plain version on the card.
+    Returns what was held and the column on the card (for timing)."""
+    from repro_torch.core import bytesops as B
+    from repro_torch.core.pipeline import compile_column_plans
+    from repro_torch.core.stages import abstract_stages
+    from repro_torch.kernels.text_clean.ops import scan_flat, text_scan_op
+    from repro_torch.kernels.text_clean.ref import text_scan_ref
+
+    scans = []
+    for optimize in (False, True):
+        (_, _, ops), = compile_column_plans(abstract_stages(), optimize)
+        scans.append([p for kind, p in B.compile_megapass(ops) if kind == "scan"])
+    (sp,), (sp_fused,) = scans
+    flags = B._kernel_scan_args(sp)
+    if flags != dict(lower=True, strip_html=True, strip_parens=True) or \
+            B._kernel_scan_args(sp_fused) != flags:
+        fail(f"the abstract chain's scan pass is not the kernel's: {flags}")
+    buf = clean.flat("abstract")
+    t0 = time.perf_counter()
+    got = scan_flat(buf, device="cuda", **flags)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = B._run_scan(buf, sp)
+    host_s = time.perf_counter() - t0
+    if got.tobytes() != want.tobytes():
+        n = min(got.size, want.size)
+        diff = np.flatnonzero(got[:n] != want[:n])
+        first = int(diff[0]) if diff.size else n
+        fail(f"p3sapp: the abstract column's scan on the card differs from the host's "
+             f"_run_scan ({got.size} vs {want.size} bytes, first difference at byte {first})")
+    t = torch.from_numpy(buf).cuda()
+    offsets = torch.cat([t.new_zeros(1, dtype=torch.int64),
+                         torch.nonzero(t == 0).flatten() + 1])
+    if not torch.equal(text_scan_op(t, offsets, **flags), text_scan_ref(t, offsets, **flags)):
+        fail("p3sapp: text_scan differs from its plain version over the abstract column")
+    held = {"bytes": int(buf.size), "rows": int(offsets.numel() - 1), "bytes_out": int(got.size),
+            "identical_to_host_run_scan": True, "identical_to_plain": True,
+            "scan_flat_s": card_s, "host_run_scan_s": host_s}
+    print(f"p3sapp: the abstract column's scan ({held['rows']} rows, {buf.size} bytes -> "
+          f"{got.size}) on the card identical to the host's _run_scan "
+          f"({card_s:.3f} s vs {host_s:.3f} s, host clock) and to the plain version")
+    return held, (t, offsets)
+
+
+def time_text_scan_column(column, bw: float) -> dict:
+    """``text_scan`` over the abstract column as ``run_p3sapp`` gives it,
+    all three flags on, by both timers: each byte read once and written
+    once, plus the offsets."""
+    from repro_torch.kernels.text_clean.ops import text_scan_op
+    from repro_torch.kernels.text_clean.ref import text_scan_ref
+
+    buf, offsets = column
+    flags = dict(lower=True, strip_html=True, strip_parens=True)
+    def kernel():
+        return text_scan_op(buf, offsets, **flags)
+
+    row = {"ms": device_ms(kernel), "ms_burst": device_ms_burst(kernel),
+           "plain_ms": device_ms(lambda: text_scan_ref(buf, offsets, **flags)),
+           "library_ms": None, "bound_ms": (2 * buf.numel() + 8 * offsets.numel()) / bw * 1e3,
+           "bound_by": "bytes", "shape": [offsets.numel() - 1, buf.numel()]}
+    print(f"text_scan p3sapp column: {json.dumps(row)}")
+    return row
+
+
+def p3sapp(workdir: Path, scan_held: dict) -> tuple[dict, dict]:
+    """The paper's comparison on the corpus in ``workdir``: CA (Algorithm
+    2), P3SAPP on the card at both ``optimize`` values (exactly 2
+    ``text_scan`` launches each, one worker), P3SAPP on the host (``loops``,
+    CPU); records equal to CA's and 100% record match. Returns the
+    launches of each card run and the ``p3sapp`` line."""
+    from repro_torch.core.p3sapp import record_match_accuracy, run_conventional, run_p3sapp
+    from repro_torch.kernels.text_clean import ops as clean_ops
+
+    records_ca, t_ca = run_conventional([workdir])
+    print(f"p3sapp: CA {len(records_ca)} records, {json.dumps(t_ca.as_dict())}")
+    runs, launches = {}, {}
+    for optimize in (False, True):
+        clean_ops.LAUNCHES["text_scan"] = 0
+        records, t = run_p3sapp([workdir], workers=1, optimize=optimize)
+        key, label = f"optimize_{str(optimize).lower()}", f"card, optimize={optimize}"
+        n = launches[key] = clean_ops.LAUNCHES["text_scan"]
+        if n != len(FIELDS):
+            fail(f"p3sapp ({label}) made {n} text_scan launches, not {len(FIELDS)}")
+        if records != records_ca:
+            same = sum(a == b for a, b in zip(records, records_ca))
+            fail(f"p3sapp ({label}): {len(records)} records, {same} equal to CA's "
+                 f"{len(records_ca)}")
+        match = {f: record_match_accuracy(records_ca, records, f)["percentage"] for f in FIELDS}
+        if any(v != 100.0 for v in match.values()):
+            fail(f"p3sapp ({label}): record match {match}")
+        runs[f"card_{key}"] = {**t.as_dict(), "text_scan_launches": n, "record_match": match,
+                               "reductions_vs_ca": reductions(t, t_ca)}
+        print(f"p3sapp: {label}: {n} text_scan launches, records equal to CA's, "
+              f"{json.dumps(runs[f'card_{key}'])}")
+        card_records = records
+    clean_ops.LAUNCHES["text_scan"] = 0
+    records, t = run_p3sapp([workdir], workers=1, backend="loops", device="cpu")
+    if clean_ops.LAUNCHES["text_scan"]:
+        fail("p3sapp on the host launched text_scan")
+    if records != card_records:
+        fail("p3sapp: the host path's records differ from the card's")
+    runs["host_loops"] = {**t.as_dict(), "reductions_vs_ca": reductions(t, t_ca)}
+    print(f"p3sapp: host (loops, CPU): records equal to the card's, "
+          f"{json.dumps(runs['host_loops'])}")
+    line = {"records": len(records_ca), "ca": t_ca.as_dict(), **runs,
+            "records_equal_to_ca": True, "abstract_scan": scan_held}
+    return launches, line
 
 
 def feed(cleaned):
@@ -889,7 +1019,6 @@ def train(cleaned):
     just before and read just after; then a second controller resumes at
     step 20 and replays steps 21-40. Returns the ``train`` line."""
     import itertools
-    import shutil
     import tempfile
 
     from repro_torch.checkpoint.tree import flatten_with_paths, map_with_paths
@@ -1833,20 +1962,28 @@ def main() -> int:
         serve_lm_lines.append(line)
 
     # 7. preprocessing: corpus -> ingest -> pre_clean -> device cleaning
-    cleaned, abstracts_flat, clean_launches, preprocess_line = preprocess(
-        ROOT / "build" / "chip_smoke_corpus")
+    workdir = ROOT / "build" / "chip_smoke_corpus"
+    cleaned, pre_cleaned, abstracts_flat, clean_launches, preprocess_line = preprocess(workdir)
     clean_t = time_text_clean(gen, abstracts_flat, bw)
     del abstracts_flat
     torch.cuda.empty_cache()
 
-    # 8. the feed into the summarizer's encoder
+    # 8. the paper's comparison: the abstract column's scan, CA, P3SAPP
+    scan_held, scan_column = check_p3sapp_scan(pre_cleaned)
+    scan_t["p3sapp_column"] = time_text_scan_column(scan_column, bw)
+    del scan_column, pre_cleaned
+    torch.cuda.empty_cache()
+    p3sapp_launches, p3sapp_line = p3sapp(workdir, scan_held)
+    shutil.rmtree(workdir)
+
+    # 9. the feed into the summarizer's encoder
     feed_line = feed(cleaned)
     torch.cuda.empty_cache()
 
-    # 9. training: card vs CPU, 40 steps with a checkpoint, resume
+    # 10. training: card vs CPU, 40 steps with a checkpoint, resume
     train_line = train(cleaned)
 
-    # 10. report
+    # 11. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -1867,7 +2004,8 @@ def main() -> int:
         {"name": "text_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
-         "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t},
+         "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t,
+         "p3sapp_launches": p3sapp_launches},
         lm_kernel("flash_attention", flash_err, "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention/flash_attention.py:27"),
         lm_kernel("rg_lru", rg_err, "src/repro_torch/kernels/csrc/rg_lru.cu",
@@ -1904,6 +2042,7 @@ def main() -> int:
     print(json.dumps({"preprocess": {**preprocess_line, "card": card}}))
     print(json.dumps({"feed": {**feed_line, "card": card}}))
     print(json.dumps({"train": {**train_line, "card": card}}))
+    print(json.dumps({"p3sapp": {**p3sapp_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -89,9 +89,18 @@ class Expr:
         pats = tuple((p.encode(), r.encode()) for p, r in patterns)
         return self._op(B.replace_op(pats), f"replace({len(pats)} patterns)")
 
-    def remove_stopwords(self, stopwords: Sequence[str] | None = None) -> "Expr":
-        """Drop dictionary words (default: the English stopword core)."""
-        words = STOPSET if stopwords is None else frozenset(w.encode() for w in stopwords)
+    def remove_stopwords(
+        self, stopwords: Sequence[str] | frozenset[bytes] | None = None
+    ) -> "Expr":
+        """Drop dictionary words (default: the English stopword core). A
+        frozenset is taken as the byte words themselves, as the reference
+        takes a built ``WordSet``."""
+        if stopwords is None:
+            words = STOPSET
+        elif isinstance(stopwords, frozenset):
+            words = stopwords
+        else:
+            words = frozenset(w.encode() for w in stopwords)
         return self._op(B.wordpred_op(partial(B.pred_stopword, words=words)),
                         f"remove_stopwords({len(words)} words)")
 
