@@ -56,18 +56,35 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    against the host's ``_run_scan`` of the same ``ScanPass`` and the
    kernel against its plain version at that column, and timed; then
    ``run_conventional`` (CA, Algorithm 2), ``run_p3sapp`` on the card
-   (Algorithm 1, one worker) at ``optimize`` False and True with the
-   ``text_scan`` counter set to 0 just before each and read just after
-   (exactly 2 launches: one a column), and ``run_p3sapp`` on the host
+   (Algorithm 1 on the ``Dataset`` planner, one worker) at ``optimize``
+   False and True with the ``text_scan`` counter set to 0 just before each
+   and read just after (exactly ``P3SAPP_SCANS``: 4 unfused, 2 fused, the
+   JAX package's planner's counts), and ``run_p3sapp`` on the host
    (``loops``, CPU); every run's records equal to CA's, 100% record
    match for both fields, each run's ``StageTimings`` and the ingestion,
    preprocessing and cumulative reductions (eq. 7) against CA;
-9. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
+9. the ``Dataset`` planner on the same corpus (``dataset``), the counters
+   set to 0 just before each part and read just after: the reference
+   example's chain (where, drop_duplicates, transform, where) whole-frame
+   with ``execute(optimize=True)`` (records equal to ``run_p3sapp``'s,
+   exactly 2 ``text_scan`` launches); its streamed token path on 4
+   executor threads with the shard cache on (``fit_vocab`` and an epoch
+   of ``device_batches(overlap=True)``, exactly 2 launches a shard each,
+   every batch on the ``bucket_grid_spec()`` grid and equal bit for bit to
+   the same chain under ``loops`` on the host, the cross-shard dedup
+   touching the cache nowhere); the chain without dedup through the shard
+   cache (``fit_vocab``, a cold and a warm epoch: 2 launches a shard, 0,
+   0, and the reference's hit and miss pattern; warm batches equal to
+   cold); 20 ``TrainController`` steps at CONFIG width fed by
+   ``make_input_pipeline(overlap=True)`` with exact ``lstm_cell`` and
+   ``lstm_cell_bwd`` counts; each part's wall time, ``StageTimings`` and
+   the feeds' ``OverlapReport``;
+10. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
    onto a ``BucketGrid`` in ``DeviceFeed``'s fill thread, copied to the
    card and run through ``Seq2Seq.encode`` at CONFIG width inside
    ``feed.step``; the ``OverlapReport`` and the exact ``lstm_cell`` launch
    count (snapped width x 3 encoder layers, summed);
-10. training (the example's, ``examples/train_summarizer_torch.py``):
+11. training (the example's, ``examples/train_summarizer_torch.py``):
    ``lstm_cell_bwd`` against its plain version at the training shape and
    its grid's edges, two launches bit for bit, the training entry of
    ``lstm_cell`` bit-equal to the serving entry, and both timed; one train
@@ -80,9 +97,9 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    exactly the sum of snapped encoder width x 3 + decoder width - 1), the
    loss falling; a second controller resumes at step 20 with the saved
    state bit for bit and tracks the first run's losses at 1e-4;
-11. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
-   line per LM, the ``preprocess``, ``feed``, ``train`` and ``p3sapp``
-   lines, the card line from nvidia-smi, and the result line.
+12. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp`` and
+   ``dataset`` lines, the card line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -147,6 +164,16 @@ CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
 # The feed phase: host batches of cleaned abstracts onto a bucket ladder.
 FEED_BATCHES, FEED_LADDER, FEED_VOCAB = 32, (32, 64, 128), 8000
+# text_scan launches of one run_p3sapp over the two columns, by optimize:
+# the planner's unfused executor runs each column's strip_html and
+# strip_parens...collapse_spaces stages as two kernel scans (its lowercase
+# is a scan pass with no span, which the kernel does not compute); the
+# fused one makes one scan a column. The JAX package's planner makes the
+# same counts of scan_flat calls (tests/test_torch_dataset.py).
+P3SAPP_SCANS = {False: 2 * len(FIELDS), True: len(FIELDS)}
+# The dataset phase: the reference example's chain on the phase-7 corpus,
+# 4 executor threads, batches of 64 on the 2-D grid, 20 planner-fed steps.
+DATASET_WORKERS, DATASET_BATCH, DATASET_STEPS = 4, 64, 20
 # The character cleaning kernel's rows from the JAX suite
 # (tests/test_kernels.py:178-183) and the stray-'>', NUL and non-ASCII cases.
 CLEAN_ROWS = ["Hello <b>World</b> 42!", "plain text only", "UPPER and (kept by kernel) 123",
@@ -701,12 +728,13 @@ def time_text_scan_column(column, bw: float) -> dict:
     return row
 
 
-def p3sapp(workdir: Path, scan_held: dict) -> tuple[dict, dict]:
+def p3sapp(workdir: Path, scan_held: dict) -> tuple[dict, dict, list]:
     """The paper's comparison on the corpus in ``workdir``: CA (Algorithm
-    2), P3SAPP on the card at both ``optimize`` values (exactly 2
-    ``text_scan`` launches each, one worker), P3SAPP on the host (``loops``,
-    CPU); records equal to CA's and 100% record match. Returns the
-    launches of each card run and the ``p3sapp`` line."""
+    2), P3SAPP on the card at both ``optimize`` values (exactly
+    ``P3SAPP_SCANS`` ``text_scan`` launches each, one worker), P3SAPP on the
+    host (``loops``, CPU); records equal to CA's and 100% record match.
+    Returns the launches of each card run, the ``p3sapp`` line and the
+    records."""
     from repro_torch.core.p3sapp import record_match_accuracy, run_conventional, run_p3sapp
     from repro_torch.kernels.text_clean import ops as clean_ops
 
@@ -718,8 +746,8 @@ def p3sapp(workdir: Path, scan_held: dict) -> tuple[dict, dict]:
         records, t = run_p3sapp([workdir], workers=1, optimize=optimize)
         key, label = f"optimize_{str(optimize).lower()}", f"card, optimize={optimize}"
         n = launches[key] = clean_ops.LAUNCHES["text_scan"]
-        if n != len(FIELDS):
-            fail(f"p3sapp ({label}) made {n} text_scan launches, not {len(FIELDS)}")
+        if n != P3SAPP_SCANS[optimize]:
+            fail(f"p3sapp ({label}) made {n} text_scan launches, not {P3SAPP_SCANS[optimize]}")
         if records != records_ca:
             same = sum(a == b for a, b in zip(records, records_ca))
             fail(f"p3sapp ({label}): {len(records)} records, {same} equal to CA's "
@@ -743,7 +771,220 @@ def p3sapp(workdir: Path, scan_held: dict) -> tuple[dict, dict]:
           f"{json.dumps(runs['host_loops'])}")
     line = {"records": len(records_ca), "ca": t_ca.as_dict(), **runs,
             "records_equal_to_ca": True, "abstract_scan": scan_held}
-    return launches, line
+    return launches, line, records_ca
+
+
+def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
+    """The ``Dataset`` planner on the card over the corpus in ``workdir``:
+    the reference example's chain whole-frame (records equal to
+    ``run_p3sapp``'s, 2 ``text_scan`` launches); its streamed token path on
+    4 executor threads (``fit_vocab`` and an epoch of ``device_batches``
+    into ``DeviceFeed``, 2 launches a shard each, every batch on the grid
+    and equal bit for bit to the same chain under ``loops`` on the host;
+    with the cache on, the cross-shard dedup touches it nowhere); the chain
+    without dedup through the shard cache (``fit_vocab``, a cold and a
+    warm epoch: 16, 0 and 0 launches, the reference's hit and miss
+    pattern); and ``make_input_pipeline`` feeding 20 ``TrainController``
+    steps at CONFIG width, exact ``lstm_cell``/``lstm_cell_bwd`` counts.
+    Returns the launches and the ``dataset`` line."""
+    import tempfile
+
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.expr import abstract_expr, col, title_expr
+    from repro_torch.core.ingest import list_shards
+    from repro_torch.data.batching import seq2seq_specs
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.kernels.text_clean import ops as clean_ops
+    from repro_torch.models.seq2seq import Seq2Seq
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.fault_tolerance import TrainController
+    from repro_torch.runtime.train_loop import (functional_loss, make_input_pipeline,
+                                                make_train_step, params_of)
+
+    started = time.perf_counter()
+    shards = len(list_shards([workdir]))
+    per_pass = len(FIELDS) * shards  # one kernel scan a column and shard
+    keep = col("title").not_empty() & col("abstract").not_empty()
+    specs = seq2seq_specs(CONFIG.max_abstract_len, CONFIG.max_title_len)
+    walls, launches, line = {}, {}, {"shards": shards, "workers": DATASET_WORKERS}
+
+    def chain(dedup=True):
+        ds = Dataset.from_json_dirs([workdir]).where(keep)
+        if dedup:
+            ds = ds.drop_duplicates()
+        return ds.transform(abstract=abstract_expr(), title=title_expr()).where(keep)
+
+    def batched(ds, tok):
+        return (ds.tokenize(tok, specs)
+                .batched(DATASET_BATCH, shuffle=False,
+                         bucket_by=("encoder_tokens", "decoder_tokens"))
+                .prefetch(2))
+
+    def scans(label, want, fn):
+        """``fn()`` with the text_scan counter set to 0 just before and
+        read just after; its wall time; fails unless ``want`` launches."""
+        clean_ops.LAUNCHES["text_scan"] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        n = launches[label] = clean_ops.LAUNCHES["text_scan"]
+        if n != want:
+            fail(f"dataset ({label}) made {n} text_scan launches, expected {want}")
+        return out
+
+    def counters(stats):
+        return {k: stats.get(k, 0) for k in ("cache_hits", "cache_misses",
+                                             "token_cache_hits", "token_cache_misses")}
+
+    # 1. whole frame, optimized: one kernel scan a column
+    records, timings = scans("whole_frame", len(FIELDS), lambda: chain().execute(optimize=True))
+    if records != p3sapp_records:
+        fail(f"dataset: the example chain's {len(records)} records differ from run_p3sapp's "
+             f"{len(p3sapp_records)}")
+    line["whole_frame"] = {"records": len(records), "timings": timings.as_dict()}
+    print(f"dataset: whole frame {walls['whole_frame']:.3f} s, {len(records)} records equal "
+          f"to run_p3sapp's, {launches['whole_frame']} text_scan launches; "
+          f"{json.dumps(timings.as_dict())}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache_root:
+        # 2. the streamed token path of the dedup chain: nothing memoized
+        src = chain().workers(DATASET_WORKERS).cache(Path(cache_root) / "dedup")
+        fit_stats, stats = {}, {}
+        tok = scans("fit_vocab", per_pass,
+                    lambda: src.fit_vocab(vocab_size=CONFIG.vocab_size, stats=fit_stats))
+        stream = batched(src, tok)
+        grid = stream.bucket_grid_spec()
+
+        def epoch():
+            feed = stream.device_batches(overlap=True, stats=stats)
+            got = []
+            try:
+                for batch in feed:
+                    with feed.step(batch):
+                        got.append({k: batch[k].cpu().numpy() for k in batch})
+            finally:
+                feed.close()
+            return got, feed.report()
+
+        card, report = scans("epoch", per_pass, epoch)
+        t0 = time.perf_counter()
+        host = list(batched(chain().workers(DATASET_WORKERS).backend("loops").device("cpu"),
+                            tok).iter_batches())
+        walls["host_loops_epoch"] = time.perf_counter() - t0
+        if len(card) != len(host):
+            fail(f"dataset: {len(card)} batches on the card, {len(host)} on the host")
+        for i, (a, b) in enumerate(zip(card, host)):
+            want = grid.snap(b)
+            if a.keys() != want.keys() or not all(
+                    a[k].dtype == want[k].dtype and np.array_equal(a[k], want[k]) for k in a):
+                fail(f"dataset: streamed batch {i} differs from the host's under loops")
+            if grid.cell_key(a) != grid.cell_key(want) or any(
+                    a[k].shape[1] not in grid.widths[k] for k in grid.widths):
+                fail(f"dataset: streamed batch {i} left the bucket grid")
+        for label, st in (("fit_vocab", fit_stats), ("epoch", stats)):
+            if st.get("executor") != "thread" or any(counters(st).values()):
+                fail(f"dataset: the dedup chain's {label} reports {st.get('executor')} and "
+                     f"cache counters {counters(st)}, expected thread and all 0")
+        line["stream"] = {"batches": len(card), "vocab": len(tok),
+                          "executor": stats["executor"], "fit_vocab_cache": counters(fit_stats),
+                          "epoch_cache": counters(stats),
+                          "epoch_timings": stats["timings"].as_dict(),
+                          "fit_vocab_timings": fit_stats["timings"].as_dict(),
+                          "feed": report.as_dict(), "equal_to_host_loops": True}
+        print(f"dataset: streamed fit_vocab {walls['fit_vocab']:.3f} s and epoch "
+              f"{walls['epoch']:.3f} s on {DATASET_WORKERS} threads ({launches['fit_vocab']} "
+              f"and {launches['epoch']} text_scan launches, {len(card)} batches of "
+              f"{DATASET_BATCH} on the grid, each equal bit for bit to the host's under loops, "
+              f"{walls['host_loops_epoch']:.3f} s); cache counters all 0 with the dedup; "
+              f"epoch StageTimings {json.dumps(stats['timings'].as_dict())}; feed report "
+              f"{json.dumps(report.as_dict())}")
+
+        # 3. the chain without dedup through the shard cache
+        cached = chain(dedup=False).workers(DATASET_WORKERS).cache(Path(cache_root) / "cache")
+        fit_stats = {}
+        ctok = scans("cache_fit_vocab", per_pass,
+                     lambda: cached.fit_vocab(vocab_size=CONFIG.vocab_size, stats=fit_stats))
+        cstream = batched(cached, ctok)
+        cold_stats, warm_stats = {}, {}
+        cold = scans("cache_cold", 0, lambda: list(cstream.iter_batches(stats=cold_stats)))
+        warm = scans("cache_warm", 0, lambda: list(cstream.iter_batches(stats=warm_stats)))
+        pattern = [counters(fit_stats), counters(cold_stats), counters(warm_stats)]
+        want = [dict(cache_hits=0, cache_misses=0, token_cache_hits=0,
+                     token_cache_misses=shards),
+                dict(cache_hits=per_pass, cache_misses=0, token_cache_hits=0,
+                     token_cache_misses=per_pass),
+                dict(cache_hits=0, cache_misses=0, token_cache_hits=per_pass,
+                     token_cache_misses=0)]
+        if pattern != want:
+            fail(f"dataset: cache counters {pattern}, expected {want}")
+        if len(warm) != len(cold) or not all(
+                np.array_equal(a[k], b[k]) for a, b in zip(warm, cold) for k in a):
+            fail("dataset: the warm epoch's batches differ from the cold epoch's")
+        line["cache"] = {"counters": pattern, "batches": len(cold),
+                         "cold_timings": cold_stats["timings"].as_dict(),
+                         "warm_timings": warm_stats["timings"].as_dict()}
+        print(f"dataset: cache fit_vocab {walls['cache_fit_vocab']:.3f} s, cold epoch "
+              f"{walls['cache_cold']:.3f} s, warm epoch {walls['cache_warm']:.3f} s; "
+              f"text_scan launches {launches['cache_fit_vocab']}/{launches['cache_cold']}/"
+              f"{launches['cache_warm']}; counters {json.dumps(pattern)}; warm batches equal "
+              f"to cold")
+
+    # 4. make_input_pipeline feeds the train step at CONFIG width
+    model = Seq2Seq(CONFIG, "cuda", seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 5, DATASET_STEPS), weight_decay=1e-4)
+    train_step = make_train_step(functional_loss(model), opt)
+    train_stats = {}
+    feed = make_input_pipeline(batched(chain().workers(DATASET_WORKERS), tok), epochs=None,
+                               overlap=True, stats=train_stats)
+    widths = []
+
+    def fed_step(params, opt_state, batch):
+        with feed.step(batch):
+            widths.append((batch["encoder_tokens"].shape[1], batch["decoder_tokens"].shape[1]))
+            out = train_step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        return out
+
+    def init_state():
+        params = params_of(model)
+        return params, opt.init(params)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        controller = TrainController(ckpt_dir, fed_step, init_state, save_every=10 ** 6)
+        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        t0 = time.perf_counter()
+        try:
+            history = controller.run(iter(feed), n_steps=DATASET_STEPS)
+        finally:
+            feed.close()
+        walls["train"] = time.perf_counter() - t0
+        step_launches = dict(lstm_ops.LAUNCHES)
+    want_steps = sum(e * CONFIG.n_encoder_layers + d - 1 for e, d in widths)
+    if len(history) != DATASET_STEPS or step_launches != {"lstm_cell": want_steps,
+                                                          "lstm_cell_bwd": want_steps}:
+        fail(f"dataset: {len(history)} planner-fed steps and launches {step_launches}, "
+             f"expected {DATASET_STEPS} and {want_steps} of each")
+    losses = [h["loss"] for h in history]
+    if not np.isfinite(losses).all():
+        fail(f"dataset: a non-finite loss {losses}")
+    report = feed.report()
+    walls["phase"] = time.perf_counter() - started
+    line["train"] = {"steps": len(history), "batch": DATASET_BATCH, "widths": widths,
+                     "lstm_cell_launches": step_launches["lstm_cell"],
+                     "lstm_cell_bwd_launches": step_launches["lstm_cell_bwd"],
+                     "losses": losses, "feed": report.as_dict(),
+                     "executor": train_stats.get("executor", "thread")}
+    line.update({"seconds": walls, "text_scan_launches": launches})
+    print(f"dataset: {len(history)} steps of {DATASET_BATCH} fed by make_input_pipeline in "
+          f"{walls['train']:.3f} s; lstm_cell and lstm_cell_bwd launches "
+          f"{step_launches['lstm_cell']} each (= sum of encoder width x "
+          f"{CONFIG.n_encoder_layers} + decoder width - 1); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; feed report {json.dumps(report.as_dict())}")
+    print(f"dataset: phase wall {walls['phase']:.3f} s")
+    return {"text_scan": launches, "lstm_cell": step_launches["lstm_cell"],
+            "lstm_cell_bwd": step_launches["lstm_cell_bwd"]}, line
 
 
 def feed(cleaned):
@@ -1973,17 +2214,23 @@ def main() -> int:
     scan_t["p3sapp_column"] = time_text_scan_column(scan_column, bw)
     del scan_column, pre_cleaned
     torch.cuda.empty_cache()
-    p3sapp_launches, p3sapp_line = p3sapp(workdir, scan_held)
-    shutil.rmtree(workdir)
+    p3sapp_launches, p3sapp_line, p3sapp_records = p3sapp(workdir, scan_held)
+    torch.cuda.empty_cache()
 
-    # 9. the feed into the summarizer's encoder
+    # 9. the Dataset planner on the same corpus: whole frame, streamed, cached, fed
+    dataset_launches, dataset_line = dataset(workdir, p3sapp_records)
+    del p3sapp_records
+    shutil.rmtree(workdir)
+    torch.cuda.empty_cache()
+
+    # 10. the feed into the summarizer's encoder
     feed_line = feed(cleaned)
     torch.cuda.empty_cache()
 
-    # 10. training: card vs CPU, 40 steps with a checkpoint, resume
+    # 11. training: card vs CPU, 40 steps with a checkpoint, resume
     train_line = train(cleaned)
 
-    # 11. report
+    # 12. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -2000,12 +2247,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
          "replaces": "src/repro/kernels/lstm_cell/lstm_cell.py:23",
          "launches": launches["lstm_cell"], "max_abs_err": lstm_err, **lstm_t,
-         "train_launches": train_line["lstm_cell_launches"]},
+         "train_launches": train_line["lstm_cell_launches"],
+         "dataset_launches": dataset_launches["lstm_cell"]},
         {"name": "text_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
          "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t,
-         "p3sapp_launches": p3sapp_launches},
+         "p3sapp_launches": p3sapp_launches, "dataset_launches": dataset_launches["text_scan"]},
         lm_kernel("flash_attention", flash_err, "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "src/repro/kernels/flash_attention/flash_attention.py:27"),
         lm_kernel("rg_lru", rg_err, "src/repro_torch/kernels/csrc/rg_lru.cu",
@@ -2022,7 +2270,8 @@ def main() -> int:
         {"name": "lstm_cell_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
          "replaces": "none: XLA differentiates src/repro/models/seq2seq.py:63 lstm_cell",
-         "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t},
+         "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t,
+         "dataset_launches": dataset_launches["lstm_cell_bwd"]},
     ]
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
@@ -2043,6 +2292,7 @@ def main() -> int:
     print(json.dumps({"feed": {**feed_line, "card": card}}))
     print(json.dumps({"train": {**train_line, "card": card}}))
     print(json.dumps({"p3sapp": {**p3sapp_line, "card": card}}))
+    print(json.dumps({"dataset": {**dataset_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

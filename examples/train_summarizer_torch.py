@@ -1,15 +1,16 @@
 """Train the paper's summarizer with the PyTorch/CUDA port (paper §4.2.3).
 
-The port's counterpart of ``examples/train_summarizer.py``, on the
-preprocessing path of the port (the planner's ``Dataset`` is not ported
-yet): ``write_corpus`` -> ``ingest`` -> ``pre_clean`` ->
-``device_case_study_cleaner`` (the ``text_clean`` kernel on the card) ->
-``WordTokenizer.fit`` on the cleaned text -> a seeded 90/10 split -> the
-seq2seq encoding -> ``DeviceFeed`` on the 2-D bucket grid
-``derive_buckets(max_abstract_len) x derive_buckets(max_title_len)`` ->
-``TrainController`` over ``make_train_step`` with AdamW and
-``warmup_cosine`` (checkpoints every 100 steps, resume on restart) -> the
-validation loss on 64 rows and 3 greedy titles (Algorithm 3).
+The port's counterpart of ``examples/train_summarizer.py``, on the same
+``Dataset`` chain (``examples/train_summarizer.py:50-78``):
+``write_corpus`` -> ``from_json_dirs`` -> ``where(keep)`` ->
+``drop_duplicates`` -> ``transform(abstract=abstract_expr(),
+title=title_expr())`` -> ``where(keep)``, executed once (the scan passes
+on the card's ``text_scan`` kernel) -> ``fit_vocab`` -> ``split(0.1)`` ->
+``tokenize(seq2seq_specs)`` -> ``batched`` on the paired 2-D bucket grid
+-> ``prefetch(2)`` -> ``make_input_pipeline(overlap=True)``, a
+``DeviceFeed`` -> ``TrainController`` over ``make_train_step`` with AdamW
+and ``warmup_cosine`` (checkpoints every 100 steps, resume on restart) ->
+the validation loss on 64 rows and 3 greedy titles (Algorithm 3).
 
     PYTHONPATH=src python examples/train_summarizer_torch.py --steps 300
     PYTHONPATH=src python examples/train_summarizer_torch.py --smoke --device cpu \\
@@ -27,36 +28,37 @@ import tempfile
 import time
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from repro_torch.configs.p3sapp_summarizer import CONFIG, SMOKE
-from repro_torch.core.device_pipeline import BucketGrid, DeviceFeed, device_case_study_cleaner
-from repro_torch.core.ingest import ingest, pre_clean
-from repro_torch.data.batching import derive_buckets, seq2seq_arrays, shuffled_batches, split_indices
+from repro_torch.core.dataset import Dataset
+from repro_torch.core.expr import abstract_expr, col, title_expr
+from repro_torch.data.batching import seq2seq_specs
 from repro_torch.data.synthetic import write_corpus
-from repro_torch.data.tokenizer import PAD, WordTokenizer
+from repro_torch.data.tokenizer import PAD
 from repro_torch.launch.serve import profile
 from repro_torch.models.seq2seq import Seq2Seq
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.runtime.fault_tolerance import TrainController
-from repro_torch.runtime.train_loop import functional_loss, make_train_step, params_of
+from repro_torch.runtime.train_loop import (
+    functional_loss,
+    make_input_pipeline,
+    make_train_step,
+    params_of,
+)
 
-FIELDS = ("title", "abstract")
 
-
-def token_arrays(corpus_dir: str, cfg, device: torch.device):
-    """The cleaned corpus as (tokenizer, train arrays, val arrays)."""
-    frame = pre_clean(ingest([corpus_dir], FIELDS), list(FIELDS))
-    clean = device_case_study_cleaner(device).transform(frame, list(FIELDS))
-    keep = np.array([bool(t) and bool(a) for t, a in zip(clean["title"], clean["abstract"])])
-    clean = clean.take(keep)
-    tok = WordTokenizer.fit(list(clean["title"]) + list(clean["abstract"]),
-                            vocab_size=cfg.vocab_size)
-    arrays = seq2seq_arrays(list(clean["abstract"]), list(clean["title"]), tok,
-                            cfg.max_abstract_len, cfg.max_title_len)
-    train, val = split_indices(len(clean), 0.1, seed=0)
-    return tok, {k: v[train] for k, v in arrays.items()}, {k: v[val] for k, v in arrays.items()}
+def clean_dataset(corpus_dir: str, device) -> Dataset:
+    """The reference example's cleaning chain, its terminals on ``device``."""
+    keep = col("title").not_empty() & col("abstract").not_empty()
+    return (
+        Dataset.from_json_dirs([corpus_dir])
+        .where(keep)
+        .drop_duplicates()
+        .transform(abstract=abstract_expr(), title=title_expr())
+        .where(keep)
+        .device(device)
+    )
 
 
 def main(argv: Sequence[str] | None = None) -> dict:
@@ -82,16 +84,27 @@ def main(argv: Sequence[str] | None = None) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="p3sapp_corpus_") as corpus:
         write_corpus(corpus, total_bytes=int(args.corpus_mb * 1e6), n_files=8, seed=1)
-        tok, train, val = token_arrays(corpus, cfg, device)
-    n_train, n_val = len(train["encoder_tokens"]), len(val["encoder_tokens"])
-    print(f"preprocessing: {time.perf_counter() - t0:.2f}s; train={n_train} val={n_val}")
+        clean = clean_dataset(corpus, device)
+        # the one pass over the corpus; every terminal below reuses its frame
+        records, timings = clean.execute(optimize=True)
+    print(f"P3SAPP preprocessing: {timings.cumulative:.2f}s, {len(records)} records")
+    tok = clean.fit_vocab(vocab_size=cfg.vocab_size)
+    train_ds, val_ds = clean.split(val_fraction=0.1, seed=0)
+    specs = seq2seq_specs(cfg.max_abstract_len, cfg.max_title_len)
+    train_batches = (train_ds.tokenize(tok, specs)
+                     .batched(args.batch_size, shuffle=True,
+                              bucket_by=("encoder_tokens", "decoder_tokens"))
+                     .prefetch(2))
+    val = val_ds.tokenize(tok, specs).arrays()
+    n_val = len(val["encoder_tokens"])
+    print(f"preprocessing: {time.perf_counter() - t0:.2f}s; train={len(records) - n_val} "
+          f"val={n_val}")
 
-    grid = BucketGrid(args.batch_size, {"encoder_tokens": derive_buckets(cfg.max_abstract_len),
-                                        "decoder_tokens": derive_buckets(cfg.max_title_len)})
     model = Seq2Seq(cfg, device, seed=0)
     opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, args.steps), weight_decay=1e-4)
     train_step = make_train_step(functional_loss(model), opt)
-    feed = DeviceFeed(shuffled_batches(train, args.batch_size, seed=0), grid=grid, device=device)
+    feed = make_input_pipeline(train_batches, epochs=None, overlap=True, device=device)
+    grid = feed.grid
     tokens = []
 
     def fed_step(params, opt_state, batch):
@@ -134,8 +147,8 @@ def main(argv: Sequence[str] | None = None) -> dict:
         print(f"  gold: {tok.decode(val['decoder_tokens'][i])}")
         print(f"  pred: {tok.decode(gen[i])}\n")
     if args.profile:
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in grid.snap(next(shuffled_batches(train, args.batch_size))).items()}
+        host = next(iter(train_batches.iter_batches()))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in grid.snap(host).items()}
         profile(lambda: train_step(controller.params, controller.opt_state, batch), device,
                 sync, f"train step at {tuple(batch['encoder_tokens'].shape)} encoder, "
                       f"{tuple(batch['decoder_tokens'].shape)} decoder tokens")

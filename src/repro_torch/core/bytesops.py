@@ -2,8 +2,9 @@
 
 Copies of what the serving chains, the ``col()`` chains of
 ``repro_torch.core.expr`` and the stage pipeline need from
-``repro/core/bytesops.py``: a column of ``n`` strings is one uint8 array
-whose rows each end in ``ROW_SEP`` (``\\x00``). The serving chains run the
+``repro/core/bytesops.py``, and what the ``Dataset`` planner's predicates,
+``concat`` and fingerprints need: a column of ``n`` strings is one uint8
+array whose rows each end in ``ROW_SEP`` (``\\x00``). The serving chains run the
 scan pass (lowercase and the two span strips) on the device instead; see
 ``repro_torch.kernels.text_clean.ops.scan_flat``.
 
@@ -20,7 +21,11 @@ the card unless the caller asks for the host.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import os
+import re
+import threading
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Sequence
@@ -46,6 +51,11 @@ def unflatten(buf: np.ndarray) -> list[str]:
     if parts and parts[-1] == b"":
         parts = parts[:-1]
     return [p.decode("utf-8", errors="ignore") for p in parts]
+
+
+def n_rows(buf: np.ndarray) -> int:
+    """Copy of ``repro/core/bytesops.py:102 n_rows``."""
+    return int((buf == ROW_SEP).sum())
 
 
 # ConvertToLower. Copy of ``repro/core/bytesops.py:110 LOWER_LUT``.
@@ -128,6 +138,120 @@ def collapse_spaces(buf: np.ndarray) -> np.ndarray:
     return buf2[~(sp2 & next_sep)]
 
 
+def regex_sub(buf: np.ndarray, pattern: bytes, repl: bytes) -> np.ndarray:
+    """One compiled-regex substitution pass over the flat bytes, the row
+    count re-verified: a match that crossed a separator would have to
+    consume it. Copy of ``repro/core/bytesops.py:196 regex_sub``."""
+    raw = buf.tobytes()
+    out = re.sub(pattern, repl, raw)
+    if out.count(b"\x00") != raw.count(b"\x00"):
+        raise ValueError(
+            f"regex_replace({pattern.decode(errors='replace')!r}) matched the "
+            "row separator and would merge or split rows; exclude NUL from "
+            "the pattern (e.g. use [^a-z\\x01-\\x1f] style classes)"
+        )
+    return np.frombuffer(out, dtype=np.uint8).copy()
+
+
+# ---------------------------------------------------------------------------
+# Row-level reductions: predicates over flat buffers, no decode
+# (``repro/core/bytesops.py:216-288``)
+# ---------------------------------------------------------------------------
+
+
+def row_lengths(buf: np.ndarray) -> np.ndarray:
+    """Per-row byte length *including* the trailing separator. Copy of
+    ``repro/core/bytesops.py:222 row_lengths``."""
+    sep_idx = np.flatnonzero(buf == ROW_SEP)
+    return np.diff(np.concatenate(([-1], sep_idx))).astype(np.int64)
+
+
+def row_nonempty(buf: np.ndarray) -> np.ndarray:
+    """Rows with at least one byte of payload. Copy of
+    ``repro/core/bytesops.py:228 row_nonempty``."""
+    return row_lengths(buf) > 1
+
+
+def _segment_words(buf: np.ndarray):
+    """(is_word_byte, word_id_per_byte, start_idx, lengths). Copy of
+    ``repro/core/bytesops.py:288 _segment_words``."""
+    delim = (buf == SPACE) | (buf == ROW_SEP)
+    isw = ~delim
+    starts = isw.copy()
+    starts[1:] &= delim[:-1]
+    start_idx = np.flatnonzero(starts)
+    wid = np.cumsum(starts, dtype=np.int32) - 1  # valid where isw
+    if start_idx.size:
+        lengths = np.add.reduceat(isw.astype(np.int32), start_idx)
+    else:
+        lengths = np.zeros(0, dtype=np.int32)
+    return isw, wid, start_idx, lengths
+
+
+def row_word_counts(buf: np.ndarray) -> np.ndarray:
+    """Per-row number of space-separated words. Copy of
+    ``repro/core/bytesops.py:233 row_word_counts``."""
+    n = n_rows(buf)
+    counts = np.zeros(n, dtype=np.int64)
+    if buf.size == 0:
+        return counts
+    sep = buf == ROW_SEP
+    _, _, start_idx, _ = _segment_words(buf)
+    if start_idx.size:
+        row_of_byte = np.cumsum(sep, dtype=np.int64) - sep
+        np.add.at(counts, row_of_byte[start_idx], 1)
+    return counts
+
+
+def rows_containing(buf: np.ndarray, needle: bytes) -> np.ndarray:
+    """Rows whose payload contains the literal ``needle`` (without
+    ``\\x00``, so a match never spans rows). Copy of
+    ``repro/core/bytesops.py:247 rows_containing``."""
+    n = n_rows(buf)
+    mask = np.zeros(n, dtype=bool)
+    if not needle or buf.size == 0:
+        mask[:] = bool(n) and not needle
+        return mask
+    m = len(needle)
+    if m > buf.size:
+        return mask
+    pat = np.frombuffer(needle, dtype=np.uint8)
+    hit = buf[: buf.size - m + 1] == pat[0]
+    for j in range(1, m):
+        hit &= buf[j : buf.size - m + 1 + j] == pat[j]
+    pos = np.flatnonzero(hit)
+    if pos.size:
+        sep = buf == ROW_SEP
+        row_of_byte = np.cumsum(sep, dtype=np.int64) - sep
+        mask[row_of_byte[pos]] = True
+    return mask
+
+
+def concat_rows(bufs: Sequence[np.ndarray], sep: bytes = b" ") -> np.ndarray:
+    """Row-wise concatenation of equal-row-count flat buffers with ``sep``
+    between the parts. Copy of ``repro/core/bytesops.py:270 concat_rows``."""
+    if not bufs:
+        raise ValueError("concat_rows needs at least one buffer")
+    split = [b.tobytes().split(b"\x00")[:-1] for b in bufs]
+    counts = {len(rows) for rows in split}
+    if len(counts) > 1:
+        raise ValueError(f"ragged concat inputs: row counts {sorted(counts)}")
+    joined = b"".join(sep.join(parts) + b"\x00" for parts in zip(*split))
+    return np.frombuffer(joined, dtype=np.uint8).copy()
+
+
+def pack_word(word: str) -> tuple[int, int, int]:
+    """(k1, k2, length) key of a word of at most 16 bytes, as
+    ``data.batching.VocabTable`` packs it. Copy of
+    ``repro/core/bytesops.py:343 pack_word``."""
+    b = word.encode("utf-8")
+    if len(b) > 16:
+        raise ValueError(f"dictionary word too long: {word!r}")
+    padded = b + b"\x00" * (16 - len(b))
+    k = np.frombuffer(padded, dtype=np.uint64)
+    return int(k[0]), int(k[1]), len(b)
+
+
 def remove_words(buf: np.ndarray, drop: Callable[[bytes], bool]) -> np.ndarray:
     """Delete the space-delimited words for which ``drop(word)`` is true,
     then collapse spaces: the semantics of ``repro/core/bytesops.py:396
@@ -143,13 +267,15 @@ def remove_words(buf: np.ndarray, drop: Callable[[bytes], bool]) -> np.ndarray:
 
 
 def remove_short_words(buf: np.ndarray, threshold: int) -> np.ndarray:
-    """Drop words of at most ``threshold`` bytes (``bytesops.py:418``)."""
+    """Drop words of at most ``threshold`` bytes (``bytesops.py:418``).
+    Copy of ``repro/core/bytesops.py:418``."""
     return remove_words(buf, lambda w: len(w) <= threshold)
 
 
 def remove_stopwords(buf: np.ndarray, stopwords: frozenset[bytes]) -> np.ndarray:
     """Drop words in ``stopwords`` (``bytesops.py:422``; a byte-word set
-    matches exactly what the reference's packed ``WordSet`` matches)."""
+    matches exactly what the reference's packed ``WordSet`` matches). Copy of
+    ``repro/core/bytesops.py:422``."""
     return remove_words(buf, stopwords.__contains__)
 
 
@@ -162,53 +288,82 @@ def remove_stopwords(buf: np.ndarray, stopwords: frozenset[bytes]) -> np.ndarray
 @dataclass(frozen=True, eq=False)
 class Op:
     """One byte op of a compiled chain. Copy of ``repro/core/bytesops.py:432
-    Op`` without its regex kind; ``pred`` takes one word's bytes (the
-    reference's takes a packed ``WordView`` of all words at once)."""
+    Op``; ``pred`` takes one word's bytes (the reference's takes a packed
+    ``WordView`` of all words at once), so no op needs ``needs_hashes``."""
 
-    kind: str  # "lut" | "span" | "replace" | "collapse" | "wordpred"
+    kind: str  # "lut" | "span" | "replace" | "collapse" | "wordpred" | "regex"
     lut: np.ndarray | None = None
     span: tuple[int, int] | None = None
     patterns: tuple[tuple[bytes, bytes], ...] | None = None
     pred: Callable[[bytes], bool] | None = None
+    regex: tuple[bytes, bytes] | None = None  # (pattern, repl)
 
 
 # Module-level predicates (picklable, as the reference's are).
 
 
 def pred_short(word: bytes, threshold: int) -> bool:
+    """Copy of ``repro/core/bytesops.py:445``."""
     return len(word) <= threshold
 
 
 def pred_stopword(word: bytes, words: frozenset[bytes]) -> bool:
+    """Copy of ``repro/core/bytesops.py:449``."""
     return word in words
 
 
 def pred_or(word: bytes, p1, p2) -> bool:
-    """The OR of two word predicates, as fusion builds it."""
+    """The OR of two word predicates, as fusion builds it.
+    Copy of ``repro/core/bytesops.py:453``."""
     return p1(word) or p2(word)
 
 
 def lut_op(lut: np.ndarray) -> Op:
+    """Copy of ``repro/core/bytesops.py:457``."""
     return Op("lut", lut=lut)
 
 
 def span_op(open_c: str, close_c: str) -> Op:
+    """Copy of ``repro/core/bytesops.py:461``."""
     return Op("span", span=(ord(open_c), ord(close_c)))
 
 
 def replace_op(patterns: Sequence[tuple[bytes, bytes]]) -> Op:
+    """Copy of ``repro/core/bytesops.py:465``."""
     return Op("replace", patterns=tuple(patterns))
 
 
 def collapse_op() -> Op:
+    """Copy of ``repro/core/bytesops.py:469``."""
     return Op("collapse")
 
 
 def wordpred_op(pred: Callable[[bytes], bool]) -> Op:
+    """Copy of ``repro/core/bytesops.py:473``."""
     return Op("wordpred", pred=pred)
 
 
+def regex_op(pattern: str, repl: str) -> Op:
+    """Regex substitution op. The pattern must compile and must not match
+    the row separator, and the replacement must not emit one; probed here,
+    re-verified by :func:`regex_sub`. Copy of
+    ``repro/core/bytesops.py:477 regex_op``."""
+    pat = pattern.encode("utf-8")
+    rep = repl.encode("utf-8")
+    rx = re.compile(pat)  # fail fast on bad patterns, at plan-build time
+    if b"\x00" in rep:
+        raise ValueError("regex replacement must not emit NUL (the row separator)")
+    for probe in (b"\x00", b"a\x00", b"\x00a", b"ab\x00cd"):
+        if any(b"\x00" in m.group() for m in rx.finditer(probe)):
+            raise ValueError(
+                f"regex pattern {pattern!r} can match NUL (the row separator) "
+                "and would merge or split rows; exclude \\x00 explicitly"
+            )
+    return Op("regex", regex=(pat, rep))
+
+
 def apply_op(buf: np.ndarray, op: Op) -> np.ndarray:
+    """Copy of ``repro/core/bytesops.py:501``."""
     if op.kind == "lut":
         return apply_lut(buf, op.lut)
     if op.kind == "span":
@@ -219,13 +374,127 @@ def apply_op(buf: np.ndarray, op: Op) -> np.ndarray:
         return collapse_spaces(buf)
     if op.kind == "wordpred":
         return remove_words(buf, op.pred)
+    if op.kind == "regex":
+        return regex_sub(buf, *op.regex)
     raise ValueError(f"unknown op {op.kind}")
 
 
 def apply_ops(buf: np.ndarray, ops: Sequence[Op]) -> np.ndarray:
+    """Copy of ``repro/core/bytesops.py:517``."""
     for op in ops:
         buf = apply_op(buf, op)
     return buf
+
+
+# ---------------------------------------------------------------------------
+# Signatures: the unit of plan and cache fingerprints
+# (``repro/core/bytesops.py:523-633``)
+# ---------------------------------------------------------------------------
+
+
+class UnfingerprintableOpError(ValueError):
+    """The op's behavior cannot be captured in a stable signature (a
+    lambda or a closure): its outputs are never cached. Copy of
+    ``repro/core/bytesops.py:523``."""
+
+
+def _pred_signature(pred) -> bytes:
+    """Stable signature of a word predicate: a module-level function (its
+    qualified name and bytecode) or a ``functools.partial`` tree over
+    them, with every bound parameter. Copy of
+    ``repro/core/bytesops.py:529 _pred_signature``."""
+    if isinstance(pred, functools.partial):
+        parts = [b"partial:", _pred_signature(pred.func)]
+        for a in pred.args:
+            parts.append(_value_signature(a))
+        for k in sorted(pred.keywords):
+            parts.append(k.encode() + b"=" + _value_signature(pred.keywords[k]))
+        return b"|".join(parts)
+    qualname = getattr(pred, "__qualname__", None)
+    if qualname is None or "<lambda>" in qualname or "<locals>" in qualname:
+        raise UnfingerprintableOpError(
+            f"cannot fingerprint predicate {pred!r}; use a module-level "
+            "function (optionally via functools.partial) to make it cacheable"
+        )
+    module = getattr(pred, "__module__", "") or ""
+    parts = [f"{module}.{qualname}".encode()]
+    code = getattr(pred, "__code__", None)
+    if code is not None:
+        parts.append(code.co_code)
+        parts.append(
+            repr([c for c in code.co_consts if not hasattr(c, "co_code")]).encode()
+        )
+    return b"\x1f".join(parts)
+
+
+def _value_signature(value) -> bytes:
+    """Deterministic signature of a predicate parameter; a set of stop
+    words (the port's form of the reference's ``WordSet``) signs as its
+    sorted members, so the signature is the same in every process. Copy of
+    ``repro/core/bytesops.py:563 _value_signature``."""
+    if callable(value):
+        return _pred_signature(value)
+    if isinstance(value, np.ndarray):
+        return b"nd:" + value.tobytes()
+    if value is None or isinstance(value, (bool, int, float, str, bytes)):
+        return f"{type(value).__name__}:{value!r}".encode()
+    if isinstance(value, (tuple, list)):
+        return b"seq:" + b",".join(_value_signature(v) for v in value)
+    if isinstance(value, (set, frozenset)):
+        return b"set:" + b",".join(sorted(_value_signature(v) for v in value))
+    if isinstance(value, dict):
+        return b"map:" + b",".join(
+            _value_signature(k) + b"=" + _value_signature(v)
+            for k, v in sorted(value.items(), key=lambda kv: repr(kv[0]))
+        )
+    raise UnfingerprintableOpError(
+        f"cannot fingerprint predicate parameter {value!r} "
+        f"({type(value).__name__}); pass plain data or a set of byte words"
+    )
+
+
+def op_signature(op: Op) -> bytes:
+    """Stable byte signature of one op. Copy of
+    ``repro/core/bytesops.py:594 op_signature``."""
+    if op.kind == "lut":
+        return b"lut:" + op.lut.tobytes()
+    if op.kind == "span":
+        return b"span:%d,%d" % op.span
+    if op.kind == "replace":
+        # Length-prefixed, so two pattern lists never collide.
+        parts = [b"replace:"]
+        for p, r in op.patterns:
+            parts.append(len(p).to_bytes(4, "little") + p)
+            parts.append(len(r).to_bytes(4, "little") + r)
+        return b"".join(parts)
+    if op.kind == "collapse":
+        return b"collapse"
+    if op.kind == "wordpred":
+        return b"wordpred:" + _pred_signature(op.pred)
+    if op.kind == "regex":
+        pat, rep = op.regex
+        return (
+            b"regex:"
+            + len(pat).to_bytes(4, "little") + pat
+            + len(rep).to_bytes(4, "little") + rep
+        )
+    raise ValueError(f"unknown op {op.kind}")
+
+
+# Every fingerprint of the port's planner and cache starts with this tag,
+# so no fingerprint of the port coincides with one of the JAX package.
+PORT_TAG = b"repro_torch\x1f"
+
+
+def ops_fingerprint(ops: Sequence[Op]) -> str:
+    """Hex fingerprint of an op chain (order-sensitive, parameter-exact),
+    port-tagged. Copy of ``repro/core/bytesops.py:623 ops_fingerprint``."""
+    h = hashlib.blake2b(PORT_TAG, digest_size=16)
+    for op in ops:
+        sig = op_signature(op)
+        h.update(len(sig).to_bytes(8, "little"))
+        h.update(sig)
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +566,7 @@ def _sep_safe(lut: np.ndarray) -> bool:
 
 
 def _compose_luts(ops: Sequence[Op]) -> np.ndarray:
+    """Copy of ``repro/core/bytesops.py:710``."""
     lut = _IDENTITY_LUT
     for op in ops:
         lut = op.lut[lut]
@@ -313,6 +583,7 @@ def _detector(cur: np.ndarray, byte: int):
 
 
 def _detect(buf: np.ndarray, det) -> np.ndarray:
+    """Copy of ``repro/core/bytesops.py:727``."""
     if isinstance(det, np.ndarray):
         return det[buf]
     return buf == det
@@ -347,7 +618,7 @@ def compile_megapass(ops: Sequence[Op]) -> list[tuple[str, object]] | None:
     i, n = 0, len(ops)
     while i < n:
         kind = ops[i].kind
-        if kind == "replace":
+        if kind in ("replace", "regex"):
             passes.append(("op", ops[i]))
             i += 1
             continue
@@ -537,20 +808,25 @@ def run_megapass(buf: np.ndarray, passes: Sequence[tuple[str, object]], *,
 
 
 # compile_megapass runs once per column and chain; memoize by op identity.
-# Holding the ops keeps their ids live, so no other op can take one.
+# Holding the ops keeps their ids live, so no other op can take one. The
+# shard executor's threads share the memo: a lookup takes the entry (the
+# ops and the program) in one read, so a clear by another thread cannot
+# take it from under a reader, and a lock orders the clear and the store.
 _MEGAPASS_CACHE: dict[tuple[int, ...], tuple[tuple[Op, ...], object]] = {}
+_MEGAPASS_LOCK = threading.Lock()
 
 
 def _compile_cached(ops: Sequence[Op]):
-    """``repro/core/bytesops.py:1002 _compile_cached``."""
+    """``repro/core/bytesops.py:1002 _compile_cached``, safe across threads."""
     key = tuple(id(op) for op in ops)
     hit = _MEGAPASS_CACHE.get(key)
     if hit is not None:
         return hit[1]
     prog = compile_megapass(ops)
-    if len(_MEGAPASS_CACHE) >= 128:
-        _MEGAPASS_CACHE.clear()
-    _MEGAPASS_CACHE[key] = (tuple(ops), prog)
+    with _MEGAPASS_LOCK:
+        if len(_MEGAPASS_CACHE) >= 128:
+            _MEGAPASS_CACHE.clear()
+        _MEGAPASS_CACHE[key] = (tuple(ops), prog)
     return prog
 
 

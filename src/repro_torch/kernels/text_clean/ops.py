@@ -7,13 +7,16 @@ Counterparts of ``repro/kernels/text_clean/ops.py``: ``text_scan_op``
 (``:65``) for the character cleaning of ``DeviceCleaner``. CPU tensors go
 to the plain versions in ``ref.py``; CUDA tensors go to the hand-written
 kernels or raise. ``LAUNCHES[name]`` counts each kernel's launches and
-nothing else.
+nothing else, under a lock: the planner's shard threads launch
+``text_scan`` concurrently.
 
 Unlike the TPU bridge, nothing is padded to 128 lanes or declined: the
 kernels walk flat buffers by row offsets, whatever the row lengths.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -24,6 +27,12 @@ from ...device import resolve
 from .ref import text_clean_flat_ref, text_clean_ref, text_scan_ref
 
 LAUNCHES = {"text_scan": 0, "text_clean": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def text_scan_op(buf, offsets, *, lower: bool = True, strip_html: bool = False,
@@ -49,7 +58,7 @@ def text_scan_op(buf, offsets, *, lower: bool = True, strip_html: bool = False,
                         int(lower), int(strip_html), int(strip_parens),
                         _build.current_stream(buf.device))
     _build.check(err, "text_scan")
-    LAUNCHES["text_scan"] += 1
+    _count("text_scan")
     return out
 
 
@@ -108,7 +117,7 @@ def _launch_clean(buf, offsets, n_rows: int, width: int, strip_html: bool) -> to
                          None if offsets is None else offsets.data_ptr(), n_rows, width,
                          int(strip_html), _build.current_stream(buf.device))
     _build.check(err, "text_clean")
-    LAUNCHES["text_clean"] += 1
+    _count("text_clean")
     return out
 
 

@@ -1,22 +1,21 @@
 """The train step: value and gradient, microbatch accumulation, AdamW.
 
 Copy of ``repro/runtime/train_loop.py``: ``TrainStepConfig`` (``:20``),
-``split_microbatches`` (``:26``) and ``make_train_step`` (``:104``).
+``split_microbatches`` (``:26``), ``make_input_pipeline`` (``:39``) and
+``make_train_step`` (``:104``).
 ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over a loss that is
 pure in its parameters (``functional_loss``: the model's ``loss`` run
 with the given ``{path: tensor}`` in place of its own parameters, through
 ``torch.func.functional_call``), and the microbatch ``lax.scan`` a loop
 that sums fp32 gradients and divides by the count, as the reference's scan
-body does. ``make_input_pipeline`` (``:39``) takes the planner's
-``Dataset``, which the port does not have yet (ROADMAP Queue 1), and the
-config's ``loss_scale``, which the reference declares and never reads, is
-left out.
+body does. The config's ``loss_scale``, which the reference declares and
+never reads, is left out.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import torch
 from torch import nn
@@ -42,6 +41,54 @@ def split_microbatches(batch: Mapping[str, torch.Tensor], n: int) -> list[dict]:
         for i, part in enumerate(x.reshape(n, b // n, *x.shape[1:]).unbind(0)):
             out[i][k] = part
     return out
+
+
+def make_input_pipeline(
+    dataset,
+    *,
+    epochs: int | None = None,
+    prefetch: int = 2,
+    sharding: Any = None,
+    stats: dict | None = None,
+    overlap: bool = False,
+    donate: bool = True,
+    profiler: Any = None,
+    device=None,
+):
+    """Wire a streaming :class:`~repro_torch.core.dataset.Dataset` into the
+    learner: batches stream out of the dataset's shard executor through an
+    :class:`~repro_torch.core.async_loader.AsyncLoader` that copies them to
+    ``device`` (else the chain's ``.device(...)``, else the card) ahead of
+    compute.
+    Call ``.close()`` when training stops mid-epoch. ``stats`` (a dict)
+    receives executor and cache counters after each epoch.
+
+    ``overlap=True`` (or a ``profiler``) returns a
+    :class:`~repro_torch.core.device_pipeline.DeviceFeed` instead: batches
+    snap onto the plan's bucket grid, copies run one batch ahead, and the
+    feed's profiler accounts host-wait against device-step time; wrap each
+    step in ``feed.step(batch)``. PyTorch has no buffer donation, so
+    ``donate`` donates nothing: it is the feed's guard that marks a stepped
+    batch consumed, as the reference's donated buffers are. ``sharding``
+    is refused. Copy of ``repro/runtime/train_loop.py:39``."""
+    from ..core.async_loader import AsyncLoader, refuse_sharding
+    from ..device import resolve
+
+    refuse_sharding(sharding)
+    target = resolve(dataset._resolve_device(device))
+    batches = dataset.iter_batches(epochs=epochs, stats=stats, device=device)
+    if overlap or profiler is not None:
+        from ..core.device_pipeline import DeviceFeed
+
+        return DeviceFeed(
+            batches,
+            grid=dataset.bucket_grid_spec(),
+            prefetch=prefetch,
+            donate=donate,
+            profiler=profiler,
+            device=target,
+        )
+    return AsyncLoader(batches, prefetch=prefetch, device=target)
 
 
 class _Loss(nn.Module):

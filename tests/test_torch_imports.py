@@ -42,6 +42,16 @@ def test_importing_the_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_planner_modules_are_covered():
+    """The scans above reach every module of the ``Dataset`` planner."""
+    names = set(port_modules())
+    for name in ("core.dataset", "core.plan", "core.executor", "core.expr", "core.bytesops",
+                 "core.engine_config", "core.ingest", "data.batching", "analysis",
+                 "analysis.diagnostics", "analysis.expr_check", "analysis.plan_analyzer",
+                 "analysis.rewrites"):
+        assert f"repro_torch.{name}" in names
+
+
 def imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
