@@ -79,12 +79,34 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    ``make_input_pipeline(overlap=True)`` with exact ``lstm_cell`` and
    ``lstm_cell_bwd`` counts; each part's wall time, ``StageTimings`` and
    the feeds' ``OverlapReport``;
-10. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
+10. the process shard executor against the thread executor on the same
+   corpus (``executors``), 4 workers, the ``device`` backend, the chain
+   without its dedup, the counters set to 0 just before each part and read
+   just after: ``fit_vocab`` (the same vocabulary), an epoch of
+   ``device_batches(overlap=True)`` (every batch equal bit for bit, the
+   executors' start from construction to the first shard result), the
+   shard cache cold and warm (the same counters, warm batches equal to
+   cold), each with exactly 2 ``text_scan`` launches a shard, 0 warm, the
+   process workers' launches counted in the workers and added by the
+   caller; then 20 ``TrainController`` steps fed by
+   ``make_input_pipeline`` on each executor with exact ``lstm_cell`` and
+   ``lstm_cell_bwd`` counts;
+11. text serving (``serve_text``): a row program of the abstract plan
+   (``Dataset.row_program``, vocabulary fitted on the corpus), StableLM-3B
+   at its published width and depth with that vocabulary (random weights
+   from seed 0 built on the card), 4 slots, two waves sharing one ring
+   cache: exact ``ServeStats`` counters, exact ``text_scan`` launches
+   (the program's kernel scans times the calls that reach them) and
+   ``flash_attention`` launches (32 x the tokens of the decoded
+   requests); every decoded prompt's tokens equal on the card, the CPU and
+   the thread executor's rows; 2 layers of the same width at
+   ``init_scale=1``, served tokens card against CPU;
+12. the feed: 32 batches of 64 cleaned abstracts, tokenized and snapped
    onto a ``BucketGrid`` in ``DeviceFeed``'s fill thread, copied to the
    card and run through ``Seq2Seq.encode`` at CONFIG width inside
    ``feed.step``; the ``OverlapReport`` and the exact ``lstm_cell`` launch
    count (snapped width x 3 encoder layers, summed);
-11. training (the example's, ``examples/train_summarizer_torch.py``):
+13. training (the example's, ``examples/train_summarizer_torch.py``):
    ``lstm_cell_bwd`` against its plain version at the training shape and
    its grid's edges, two launches bit for bit, the training entry of
    ``lstm_cell`` bit-equal to the serving entry, and both timed; one train
@@ -97,13 +119,15 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    exactly the sum of snapped encoder width x 3 + decoder width - 1), the
    loss falling; a second controller resumes at step 20 with the saved
    state bit for bit and tracks the first run's losses at 1e-4;
-12. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
-   line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp`` and
-   ``dataset`` lines, the card line from nvidia-smi, and the result line.
+14. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+   line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
+   ``dataset``, ``executors`` and ``serve_text`` lines, the card line from
+   nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -174,6 +198,17 @@ P3SAPP_SCANS = {False: 2 * len(FIELDS), True: len(FIELDS)}
 # The dataset phase: the reference example's chain on the phase-7 corpus,
 # 4 executor threads, batches of 64 on the 2-D grid, 20 planner-fed steps.
 DATASET_WORKERS, DATASET_BATCH, DATASET_STEPS = 4, 64, 20
+# The executors phase: the same chain without its dedup on each executor.
+EXECUTORS = ("thread", "process")
+# The serve_text phase: StableLM-3B (the JAX launcher's default) over a row
+# program of the abstract plan; 28 requests in two waves sharing one ring
+# cache: the first 20 and an empty one into a queue of 32, then those 20
+# again (cache hits) and 8 more into a queue of 4 (4 shed on arrival).
+SERVE_TEXT_ARCH, SERVE_TEXT_VOCAB, SERVE_TEXT_PROMPT = "stablelm_3b", 8000, 128
+SERVE_TEXT_REQUESTS, SERVE_TEXT_QUEUES, SERVE_TEXT_CACHE_SLOTS = 28, (32, 4), 64
+SERVE_TEXT_SLOTS, SERVE_TEXT_MAX_NEW, SERVE_TEXT_MAX_SEQ = 4, 8, 256
+SERVE_TEXT_COUNTERS = {"cache_hits": 20, "cache_misses": 29, "admitted": 25, "rejected": 4,
+                       "filtered": 1, "served": 44}
 # The character cleaning kernel's rows from the JAX suite
 # (tests/test_kernels.py:178-183) and the stray-'>', NUL and non-ASCII cases.
 CLEAN_ROWS = ["Hello <b>World</b> 42!", "plain text only", "UPPER and (kept by kernel) 123",
@@ -795,7 +830,6 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
     from repro_torch.core.ingest import list_shards
     from repro_torch.data.batching import seq2seq_specs
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
-    from repro_torch.kernels.text_clean import ops as clean_ops
     from repro_torch.models.seq2seq import Seq2Seq
     from repro_torch.optim.adamw import AdamW, warmup_cosine
     from repro_torch.runtime.fault_tolerance import TrainController
@@ -816,27 +850,12 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
         return ds.transform(abstract=abstract_expr(), title=title_expr()).where(keep)
 
     def batched(ds, tok):
-        return (ds.tokenize(tok, specs)
-                .batched(DATASET_BATCH, shuffle=False,
-                         bucket_by=("encoder_tokens", "decoder_tokens"))
-                .prefetch(2))
+        return grid_batches(ds, tok, specs)
 
     def scans(label, want, fn):
-        """``fn()`` with the text_scan counter set to 0 just before and
-        read just after; its wall time; fails unless ``want`` launches."""
-        clean_ops.LAUNCHES["text_scan"] = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        walls[label] = time.perf_counter() - t0
-        n = launches[label] = clean_ops.LAUNCHES["text_scan"]
-        if n != want:
-            fail(f"dataset ({label}) made {n} text_scan launches, expected {want}")
-        return out
+        return counted("dataset", label, want, fn, walls, launches)
 
-    def counters(stats):
-        return {k: stats.get(k, 0) for k in ("cache_hits", "cache_misses",
-                                             "token_cache_hits", "token_cache_misses")}
+    counters = cache_counters
 
     # 1. whole frame, optimized: one kernel scan a column
     records, timings = scans("whole_frame", len(FIELDS), lambda: chain().execute(optimize=True))
@@ -902,7 +921,9 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
               f"{json.dumps(report.as_dict())}")
 
         # 3. the chain without dedup through the shard cache
-        cached = chain(dedup=False).workers(DATASET_WORKERS).cache(Path(cache_root) / "cache")
+        # threads, as in earlier runs: 4 workers without a dedup would take processes
+        cached = (chain(dedup=False).workers(DATASET_WORKERS, executor="thread")
+                  .cache(Path(cache_root) / "cache"))
         fit_stats = {}
         ctok = scans("cache_fit_vocab", per_pass,
                      lambda: cached.fit_vocab(vocab_size=CONFIG.vocab_size, stats=fit_stats))
@@ -985,6 +1006,455 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
     print(f"dataset: phase wall {walls['phase']:.3f} s")
     return {"text_scan": launches, "lstm_cell": step_launches["lstm_cell"],
             "lstm_cell_bwd": step_launches["lstm_cell_bwd"]}, line
+
+
+def grid_batches(ds, tok, specs):
+    """``ds`` tokenized by ``specs`` in batches of ``DATASET_BATCH`` on the
+    paired bucket grid, in stream order."""
+    return (ds.tokenize(tok, specs)
+            .batched(DATASET_BATCH, shuffle=False, bucket_by=("encoder_tokens", "decoder_tokens"))
+            .prefetch(2))
+
+
+def counted(phase: str, label: str, want: int | None, fn, walls: dict, launches: dict):
+    """``fn()`` with the ``text_scan`` counter set to 0 just before and read
+    just after, and its wall time with the card synchronized; fails unless
+    ``want`` launches (None: only read)."""
+    from repro_torch.kernels.text_clean import ops as clean_ops
+
+    clean_ops.LAUNCHES["text_scan"] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[label] = time.perf_counter() - t0
+    n = launches[label] = clean_ops.LAUNCHES["text_scan"]
+    if want is not None and n != want:
+        fail(f"{phase} ({label}) made {n} text_scan launches, expected {want}")
+    return out
+
+
+@contextlib.contextmanager
+def timed_executors(into: list):
+    """Inside, each shard executor the planner makes is recorded in
+    ``into``: its name, the seconds its construction took and the seconds
+    from then to its first shard result."""
+    from repro_torch.core import executor as EX
+
+    real = EX.make_executor
+
+    def make(*args, **kwargs):
+        t0 = time.perf_counter()
+        ex = real(*args, **kwargs)
+        into.append({"name": ex.name, "construct_s": time.perf_counter() - t0})
+        return FirstResult(ex, t0, into[-1])
+
+    EX.make_executor = make
+    try:
+        yield into
+    finally:
+        EX.make_executor = real
+
+
+def cache_counters(stats: dict) -> dict:
+    return {k: stats.get(k, 0) for k in ("cache_hits", "cache_misses", "token_cache_hits",
+                                         "token_cache_misses")}
+
+
+def executors(workdir: Path) -> tuple[dict, dict]:
+    """The process shard executor against the thread executor under the
+    ``device`` backend, on the ``dataset`` phase's chain without its dedup
+    (a full-subset dedup keeps the reference on threads), 4 workers:
+    ``fit_vocab`` (the same vocabulary), an epoch of
+    ``device_batches(overlap=True)`` (every batch equal bit for bit), the
+    shard cache's cold and warm epochs (the same counters and batches),
+    each with 2 ``text_scan`` launches a shard (0 warm), the process
+    workers' counted by themselves and added by the caller; each
+    executor's start, from its construction to its first result; and
+    ``DATASET_STEPS`` ``TrainController`` steps fed by
+    ``make_input_pipeline`` under each, exact ``lstm_cell`` and
+    ``lstm_cell_bwd`` counts. Returns the launches and the ``executors``
+    line."""
+    import tempfile
+
+    from repro_torch.configs.p3sapp_summarizer import CONFIG
+    from repro_torch.core import executor as EX
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.expr import abstract_expr, col, title_expr
+    from repro_torch.core.ingest import list_shards
+    from repro_torch.data.batching import seq2seq_specs
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models.seq2seq import Seq2Seq
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.fault_tolerance import TrainController
+    from repro_torch.runtime.train_loop import (functional_loss, make_input_pipeline,
+                                                make_train_step, params_of)
+
+    started = time.perf_counter()
+    shards = len(list_shards([workdir]))
+    per_pass = len(FIELDS) * shards  # one kernel scan a column and shard
+    keep = col("title").not_empty() & col("abstract").not_empty()
+    specs = seq2seq_specs(CONFIG.max_abstract_len, CONFIG.max_title_len)
+    walls, launches = {}, {}
+    line = {"shards": shards, "workers": DATASET_WORKERS, "executors": EXECUTORS}
+
+    def chain(executor):
+        return (Dataset.from_json_dirs([workdir]).where(keep)
+                .transform(abstract=abstract_expr(), title=title_expr()).where(keep)
+                .workers(DATASET_WORKERS, executor=executor))
+
+    def batched(ds, tok):
+        return grid_batches(ds, tok, specs)
+
+    def scans(label, want, fn):
+        return counted("executors", label, want, fn, walls, launches)
+
+    def ran_on(label, stats, executor):
+        if stats.get("executor") != executor:
+            fail(f"executors ({label}) ran on {stats.get('executor')}, not {executor}")
+
+    # 1. fit_vocab: the same vocabulary on either executor
+    vocabs, fit_timings = {}, {}
+    for executor in EXECUTORS:
+        stats = {}
+        vocabs[executor] = scans(f"fit_vocab_{executor}", per_pass, lambda: chain(executor)
+                                 .fit_vocab(vocab_size=CONFIG.vocab_size, stats=stats))
+        ran_on(f"fit_vocab {executor}", stats, executor)
+        fit_timings[executor] = stats["timings"].as_dict()
+    tok = vocabs["thread"]
+    if vocabs["process"].itos != tok.itos:
+        fail("executors: fit_vocab's vocabulary differs between threads and processes")
+    line["fit_vocab"] = {"vocab": len(tok), "timings": fit_timings, "equal": True}
+    print(f"executors: fit_vocab {walls['fit_vocab_thread']:.3f} s on threads, "
+          f"{walls['fit_vocab_process']:.3f} s on processes, {per_pass} text_scan launches "
+          f"each, vocabularies equal ({len(tok)} words)")
+
+    # 2. an epoch into DeviceFeed, and each executor's start
+    batches, epoch = {}, {}
+    for executor in EXECUTORS:
+        stats, made = {}, []
+
+        def run():
+            feed = batched(chain(executor), tok).device_batches(overlap=True, stats=stats)
+            got = []
+            try:
+                for batch in feed:
+                    with feed.step(batch):
+                        got.append({k: batch[k].cpu().numpy() for k in batch})
+            finally:
+                feed.close()
+            return got, feed.report()
+
+        with timed_executors(made):
+            batches[executor], report = scans(f"epoch_{executor}", per_pass, run)
+        ran_on(f"epoch {executor}", stats, executor)
+        epoch[executor] = {"batches": len(batches[executor]),
+                           "timings": stats["timings"].as_dict(), "feed": report.as_dict(),
+                           "start": made[0]}
+    a, b = batches["thread"], batches["process"]
+    if len(a) != len(b) or not all(x.keys() == y.keys() and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x)
+            for x, y in zip(a, b)):
+        fail("executors: the process executor's batches differ from the thread executor's")
+    line["epoch"] = {**epoch, "equal": True}
+    print(f"executors: epoch {walls['epoch_thread']:.3f} s on threads, "
+          f"{walls['epoch_process']:.3f} s on processes ({len(a)} batches equal bit for bit, "
+          f"{per_pass} text_scan launches each, the process workers' summed); from "
+          f"construction to the first shard result: threads "
+          f"{epoch['thread']['start']['first_result_s']:.3f} s, processes "
+          f"{epoch['process']['start']['first_result_s']:.3f} s; StageTimings (thread-seconds, "
+          f"worker-seconds) {json.dumps({k: v['timings'] for k, v in epoch.items()})}")
+
+    # 3. the shard cache, cold then warm: the same counters either way
+    cache = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache_root:
+        for executor in EXECUTORS:
+            stream = batched(chain(executor).cache(Path(cache_root) / executor), tok)
+            cold_stats, warm_stats = {}, {}
+            cold = scans(f"cache_cold_{executor}", per_pass,
+                         lambda: list(stream.iter_batches(stats=cold_stats)))
+            warm = scans(f"cache_warm_{executor}", 0,
+                         lambda: list(stream.iter_batches(stats=warm_stats)))
+            ran_on(f"cache {executor}", warm_stats, executor)
+            if len(warm) != len(cold) or not all(
+                    np.array_equal(x[k], y[k]) for x, y in zip(warm, cold) for k in x):
+                fail(f"executors: the warm epoch's batches differ from the cold ({executor})")
+            cache[executor] = {"counters": [cache_counters(cold_stats),
+                                            cache_counters(warm_stats)],
+                               "cold_timings": cold_stats["timings"].as_dict(),
+                               "warm_timings": warm_stats["timings"].as_dict(),
+                               "batches": cold}
+    want = [dict(cache_hits=0, cache_misses=per_pass, token_cache_hits=0,
+                 token_cache_misses=per_pass),
+            dict(cache_hits=0, cache_misses=0, token_cache_hits=per_pass,
+                 token_cache_misses=0)]
+    if cache["process"]["counters"] != cache["thread"]["counters"] or \
+            cache["thread"]["counters"] != want:
+        fail(f"executors: cache counters {cache['thread']['counters']} on threads, "
+             f"{cache['process']['counters']} on processes, expected {want}")
+    if not all(np.array_equal(x[k], y[k]) for x, y in
+               zip(cache["process"].pop("batches"), cache["thread"].pop("batches")) for k in x):
+        fail("executors: the cached epochs' batches differ between the executors")
+    line["cache"] = cache
+    print(f"executors: cache cold/warm {walls['cache_cold_thread']:.3f}/"
+          f"{walls['cache_warm_thread']:.3f} s on threads, {walls['cache_cold_process']:.3f}/"
+          f"{walls['cache_warm_process']:.3f} s on processes; text_scan launches "
+          f"{per_pass}/0 each; counters {json.dumps(want)} on both")
+
+    # 4. make_input_pipeline feeds the train step at CONFIG width
+    model = Seq2Seq(CONFIG, "cuda", seed=SEED)
+    train = {}
+    for executor in EXECUTORS:
+        opt = AdamW(learning_rate=warmup_cosine(3e-3, 5, DATASET_STEPS), weight_decay=1e-4)
+        train_step = make_train_step(functional_loss(model), opt)
+        widths, step_s, made = [], [], []
+
+        def fed_step(params, opt_state, batch):
+            t0 = time.perf_counter()
+            with feed.step(batch):
+                widths.append((batch["encoder_tokens"].shape[1],
+                               batch["decoder_tokens"].shape[1]))
+                out = train_step(params, opt_state, batch)
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        def init_state():
+            params = params_of(model)
+            return params, opt.init(params)
+
+        with tempfile.TemporaryDirectory() as ckpt_dir, timed_executors(made):
+            controller = TrainController(ckpt_dir, fed_step, init_state, save_every=10 ** 6)
+            lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+            t0 = time.perf_counter()
+            feed = make_input_pipeline(batched(chain(executor), tok), epochs=None,
+                                       overlap=True)
+            try:
+                history = controller.run(iter(feed), n_steps=DATASET_STEPS)
+            finally:
+                feed.close()
+            walls[f"train_{executor}"] = time.perf_counter() - t0
+            got = dict(lstm_ops.LAUNCHES)
+        want_cells = sum(e * CONFIG.n_encoder_layers + d - 1 for e, d in widths)
+        if len(history) != DATASET_STEPS or got != {"lstm_cell": want_cells,
+                                                    "lstm_cell_bwd": want_cells}:
+            fail(f"executors: {len(history)} steps fed on {executor} and launches {got}, "
+                 f"expected {DATASET_STEPS} and {want_cells} of each")
+        if [m["name"] for m in made] != [executor]:
+            fail(f"executors: the steps fed on {executor} ran on {made}")
+        losses = [h["loss"] for h in history]
+        if not np.isfinite(losses).all():
+            fail(f"executors: a non-finite loss {losses}")
+        train[executor] = {"steps": len(history), "widths": widths,
+                           "lstm_cell_launches": got["lstm_cell"],
+                           "lstm_cell_bwd_launches": got["lstm_cell_bwd"],
+                           "ms_a_step": 1e3 * walls[f"train_{executor}"] / len(history),
+                           "step_ms_median": 1e3 * statistics.median(step_s),
+                           "losses": losses, "feed": feed.report().as_dict(),
+                           "start": made[0]}
+        print(f"executors: {len(history)} steps fed on {executor} in "
+              f"{walls[f'train_{executor}']:.3f} s ({train[executor]['ms_a_step']:.1f} ms a "
+              f"step, median step {train[executor]['step_ms_median']:.1f} ms); lstm_cell and "
+              f"lstm_cell_bwd launches {want_cells} each; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+    walls["phase"] = time.perf_counter() - started
+    line.update({"train": train, "seconds": walls, "text_scan_launches": launches})
+    print(f"executors: phase wall {walls['phase']:.3f} s")
+    return {"text_scan": launches,
+            "lstm_cell": {k: v["lstm_cell_launches"] for k, v in train.items()},
+            "lstm_cell_bwd": {k: v["lstm_cell_bwd_launches"] for k, v in train.items()}}, line
+
+
+class FirstResult:
+    """A shard executor whose first result's time is recorded in ``into``
+    (``first_result_s``, from ``t0``, just before its construction)."""
+
+    def __init__(self, executor, t0: float, into: dict):
+        self._executor, self._t0, self._into = executor, t0, into
+
+    def __getattr__(self, name):
+        return getattr(self._executor, name)
+
+    def __iter__(self):
+        for res in self._executor:
+            self._into.setdefault("first_result_s", time.perf_counter() - self._t0)
+            yield res
+
+
+def kernel_scans(comp) -> int:
+    """The ``text_scan`` launches of one evaluation of a compiled expression
+    or predicate over a non-empty buffer: its scan passes that
+    ``bytesops._run_scan_device`` gives the kernel (the kernel's flags and
+    at least one span)."""
+    from repro_torch.core import bytesops as B
+
+    if not isinstance(comp, tuple) or not comp or not isinstance(comp[0], str):
+        return 0
+    if comp[0] in ("chain", "wrap"):
+        prog = B.compile_megapass(comp[2]) if comp[2] else None
+        n = sum(kind == "scan" and bool(p.spans) and B._kernel_scan_args(p) is not None
+                for kind, p in prog or ())
+        return n + (kernel_scans(comp[1]) if comp[0] == "wrap" else 0)
+    return sum(kernel_scans(c) for c in comp[1:])
+
+
+def serve_text_phase(workdir: Path) -> tuple[dict, dict]:
+    """Text serving at StableLM-3B's published width and depth (random
+    weights from ``SEED`` built on the card, the vocabulary the fitted
+    tokenizer's): a row program from the abstract plan over the corpus,
+    ``serve_text`` through ``SERVE_TEXT_SLOTS`` slots in two waves that
+    share one ring cache (exact ``ServeStats`` counters, ``text_scan`` and
+    ``flash_attention`` launches worked out from the program and the
+    served tokens); every decoded request's prompt tokens from the row
+    program on the card equal to the same program's on the CPU and to that
+    record's row of the thread executor's tokens; then a model of the same
+    width cut to ``CARD_VS_CPU_LAYERS`` layers, card against CPU with the
+    same weights. Returns the launches and the ``serve_text`` line."""
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.expr import abstract_expr, col
+    from repro_torch.core.ingest import list_shards
+    from repro_torch.data.batching import TokenSpec
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.serve_loop import RingCache, ServeStats, TextRequest, serve_text
+
+    started = time.perf_counter()
+    walls, launches = {}, {}
+
+    def plan(dirs):
+        return (Dataset.from_json_dirs(dirs, fields=("abstract",))
+                .where(col("abstract").not_empty()).transform(abstract=abstract_expr()))
+
+    tok = plan([workdir]).fit_vocab(vocab_size=SERVE_TEXT_VOCAB, workers=DATASET_WORKERS,
+                                    executor="thread")
+    spec = TokenSpec("abstract", SERVE_TEXT_PROMPT)
+    chain = plan([workdir]).tokenize(tok, [spec]).batched(BATCH).prefetch(2)
+    rp, rp_cpu = chain.row_program(), chain.row_program(device="cpu")
+    out_name = rp.output_names[0]
+    filter_scans = sum(kernel_scans(arg) for kind, arg in rp.steps if kind == "filter")
+    project_scans = sum(kernel_scans(comp) for kind, arg in rp.steps if kind == "project"
+                        for _, comp in arg)
+
+    # the requests: shard 0's first distinct raw abstracts whose rows the plan keeps
+    shard0 = list_shards([workdir])[0]
+    raw = [json.loads(line).get("abstract") for line in shard0.read_text().splitlines()
+           if line.strip()]
+    texts, seen = [], set()
+    for text in raw:
+        got = rp_cpu(text) if isinstance(text, str) and text not in seen else None
+        seen.add(text)
+        if got is not None and (got[out_name][0] != 0).any():
+            texts.append(text)
+        if len(texts) == SERVE_TEXT_REQUESTS:
+            break
+    if len(texts) != SERVE_TEXT_REQUESTS:
+        fail(f"serve_text: shard 0 holds {len(texts)} served abstracts, not "
+             f"{SERVE_TEXT_REQUESTS}")
+    first = SERVE_TEXT_REQUESTS - 8
+    wave1 = [TextRequest(i, t, SERVE_TEXT_MAX_NEW) for i, t in enumerate(texts[:first] + [""])]
+    wave2 = [TextRequest(100 + i, t, SERVE_TEXT_MAX_NEW) for i, t in enumerate(texts)]
+
+    cfg = dataclasses.replace(get(SERVE_TEXT_ARCH), vocab_size=len(tok.itos))
+    t0 = time.perf_counter()
+    model = LM(cfg, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    walls["build"] = time.perf_counter() - t0
+    kw = dict(slots=SERVE_TEXT_SLOTS, max_seq=SERVE_TEXT_MAX_SEQ)
+    serve_text(model, rp, wave1[:1], **kw)  # warm-up
+    torch.cuda.synchronize()
+
+    cache, stats = RingCache(slots=SERVE_TEXT_CACHE_SLOTS), ServeStats()
+    results = {}
+    flash_ops.LAUNCHES["flash_attention"] = 0
+
+    def waves():
+        for reqs, queue_size in ((wave1, SERVE_TEXT_QUEUES[0]), (wave2, SERVE_TEXT_QUEUES[1])):
+            results.update(serve_text(model, rp, reqs, queue_size=queue_size, cache=cache,
+                                      stats=stats, **kw))
+
+    counted("serve_text", "serve", None, waves, walls, launches)
+    launches["flash_attention"] = flash_ops.LAUNCHES["flash_attention"]
+    counters = {k: getattr(stats, k) for k in SERVE_TEXT_COUNTERS}
+    if counters != SERVE_TEXT_COUNTERS:
+        fail(f"serve_text: counters {counters}, expected {SERVE_TEXT_COUNTERS}")
+    decoded = [r.uid for r in wave1[:first]] + [r.uid for r in wave2[first:]
+                                                if r.uid in results]
+    if len(decoded) != stats.served - stats.cache_hits or results[first] != [] or any(
+            results[100 + i] != results[i] for i in range(first)):
+        fail("serve_text: the decoded, filtered or cached answers are not the expected ones")
+    if any(not 1 <= len(results[u]) <= SERVE_TEXT_MAX_NEW or
+           not all(0 <= x < cfg.vocab_size for x in results[u]) for u in decoded):
+        fail("serve_text: a decoded request got no token, too many or one outside the vocabulary")
+    attn = model.kinds.count("attn")
+    want = {"text_scan": filter_scans * stats.admitted + project_scans * len(decoded),
+            "flash_attention": attn * sum(len(results[u]) for u in decoded)}
+    if launches["serve"] != want["text_scan"] or launches["flash_attention"] != \
+            want["flash_attention"]:
+        fail(f"serve_text: launches text_scan {launches['serve']}, flash_attention "
+             f"{launches['flash_attention']}, expected {want}")
+    print(f"serve_text: {cfg.name} ({model.param_count()} parameters, vocabulary {len(tok)}, "
+          f"built in {walls['build']:.1f} s) served {len(wave1)} + {len(wave2)} requests in "
+          f"{walls['serve']:.3f} s; counters {json.dumps(counters)}; text_scan launches "
+          f"{launches['serve']} = {filter_scans} x {stats.admitted} preprocessed + "
+          f"{project_scans} x {len(decoded)} reaching the projection; flash_attention "
+          f"{launches['flash_attention']} = {attn} x {sum(len(results[u]) for u in decoded)} "
+          f"(the prefills + the later tokens of {len(decoded)} decoded requests)")
+
+    # zero skew: card, CPU and the training path's thread executor
+    by_text = {r.text: r.uid for r in wave1[:first] + wave2[first:]}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as one:
+        shutil.copy(shard0, one)
+        rows = [row for b in plan([Path(one)]).tokenize(tok, [spec])
+                .batch(BATCH, shuffle=False, drop_remainder=False).prefetch(2)
+                .workers(1, executor="thread").iter_batches() for row in b[out_name]]
+    _, kept = rp_cpu.encode_batch(raw)
+    row_of = np.cumsum(kept) - 1
+    for text, uid in by_text.items():
+        if uid not in decoded:
+            continue
+        card, cpu = rp(text)[out_name][0], rp_cpu(text)[out_name][0]
+        train_row = rows[row_of[raw.index(text)]]
+        if not (np.array_equal(card, cpu) and np.array_equal(np.trim_zeros(card, "b"),
+                                                              np.trim_zeros(train_row, "b"))):
+            fail(f"serve_text: request {uid}'s prompt tokens differ between the card, the CPU "
+                 f"and the thread executor")
+    lat = sorted(stats.latency_s.values())
+    quantiles = {f"p{q}": float(np.percentile(lat, q)) for q in (50, 90, 99)}
+    print(f"serve_text: prompt tokens of {len(decoded)} decoded requests equal on the card, "
+          f"the CPU and the thread executor's rows; preprocess {stats.preprocess_s:.3f} s, "
+          f"decode {stats.decode_s:.3f} s; latency {json.dumps(quantiles)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # card against CPU at a few layers of the same width, same weights
+    small = dataclasses.replace(cfg, n_layers=CARD_VS_CPU_LAYERS[SERVE_TEXT_ARCH],
+                                init_scale=1.0)
+    card = LM(small, "cuda", seed=SEED)
+    cpu = LM(small, "meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    reqs = [TextRequest(i, t, SERVE_TEXT_MAX_NEW) for i, t in enumerate(texts[:8])]
+    agreement = token_agreement(serve_text(card, rp, reqs, **kw),
+                                serve_text(cpu, rp_cpu, reqs, **kw))
+    print(f"serve_text: {small.name} with {small.n_layers} layers at init_scale 1, card vs CPU: "
+          f"served-token agreement {agreement:.4%}")
+    if agreement < 0.99:
+        fail(f"serve_text: served-token agreement {agreement:.4%} is under 99%")
+    walls["phase"] = time.perf_counter() - started
+    print(f"serve_text: phase wall {walls['phase']:.3f} s")
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "vocab": len(tok), "slots": kw["slots"],
+            "max_new": SERVE_TEXT_MAX_NEW, "max_seq": kw["max_seq"],
+            "waves": [len(wave1), len(wave2)], "queue_sizes": list(SERVE_TEXT_QUEUES),
+            "counters": counters, "launches": {"text_scan": launches["serve"],
+                                               "flash_attention": launches["flash_attention"]},
+            "expected_launches": want, "decoded": len(decoded),
+            "tokens": sum(len(results[u]) for u in decoded),
+            "preprocess_s": stats.preprocess_s, "decode_s": stats.decode_s,
+            "latency_s": quantiles, "seconds": walls, "prompt_skew": 0,
+            "card_vs_cpu_layers": small.n_layers, "token_agreement": agreement}
+    return line["launches"], line
 
 
 def feed(cleaned):
@@ -2220,17 +2690,25 @@ def main() -> int:
     # 9. the Dataset planner on the same corpus: whole frame, streamed, cached, fed
     dataset_launches, dataset_line = dataset(workdir, p3sapp_records)
     del p3sapp_records
+    torch.cuda.empty_cache()
+
+    # 10. threads against processes on the same corpus
+    executors_launches, executors_line = executors(workdir)
+    torch.cuda.empty_cache()
+
+    # 11. text serving through a row program of the same corpus's plan
+    serve_text_launches, serve_text_line = serve_text_phase(workdir)
     shutil.rmtree(workdir)
     torch.cuda.empty_cache()
 
-    # 10. the feed into the summarizer's encoder
+    # 12. the feed into the summarizer's encoder
     feed_line = feed(cleaned)
     torch.cuda.empty_cache()
 
-    # 11. training: card vs CPU, 40 steps with a checkpoint, resume
+    # 13. training: card vs CPU, 40 steps with a checkpoint, resume
     train_line = train(cleaned)
 
-    # 12. report
+    # 14. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -2248,14 +2726,19 @@ def main() -> int:
          "replaces": "src/repro/kernels/lstm_cell/lstm_cell.py:23",
          "launches": launches["lstm_cell"], "max_abs_err": lstm_err, **lstm_t,
          "train_launches": train_line["lstm_cell_launches"],
-         "dataset_launches": dataset_launches["lstm_cell"]},
+         "dataset_launches": dataset_launches["lstm_cell"],
+         "executors_launches": executors_launches["lstm_cell"]},
         {"name": "text_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/text_scan.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:77",
          "launches": launches["text_scan"], "max_abs_err": scan_err, **scan_t,
-         "p3sapp_launches": p3sapp_launches, "dataset_launches": dataset_launches["text_scan"]},
-        lm_kernel("flash_attention", flash_err, "src/repro_torch/kernels/csrc/flash_attention.cu",
-                  "src/repro/kernels/flash_attention/flash_attention.py:27"),
+         "p3sapp_launches": p3sapp_launches, "dataset_launches": dataset_launches["text_scan"],
+         "executors_launches": executors_launches["text_scan"],
+         "serve_text_launches": serve_text_launches["text_scan"]},
+        {**lm_kernel("flash_attention", flash_err,
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/flash_attention.py:27"),
+         "serve_text_launches": serve_text_launches["flash_attention"]},
         lm_kernel("rg_lru", rg_err, "src/repro_torch/kernels/csrc/rg_lru.cu",
                   "src/repro/kernels/rg_lru/rg_lru.py:28"),
         {**lm_kernel("mlstm_chunk", mlstm_err, "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
@@ -2271,7 +2754,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
          "replaces": "none: XLA differentiates src/repro/models/seq2seq.py:63 lstm_cell",
          "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t,
-         "dataset_launches": dataset_launches["lstm_cell_bwd"]},
+         "dataset_launches": dataset_launches["lstm_cell_bwd"],
+         "executors_launches": executors_launches["lstm_cell_bwd"]},
     ]
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
@@ -2293,6 +2777,8 @@ def main() -> int:
     print(json.dumps({"train": {**train_line, "card": card}}))
     print(json.dumps({"p3sapp": {**p3sapp_line, "card": card}}))
     print(json.dumps({"dataset": {**dataset_line, "card": card}}))
+    print(json.dumps({"executors": {**executors_line, "card": card}}))
+    print(json.dumps({"serve_text": {**serve_text_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

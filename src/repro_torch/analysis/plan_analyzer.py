@@ -19,8 +19,8 @@ point. Codes (``E0xx`` from :mod:`expr_check`, ``P010+`` from
 * ``P008``: invalid Tokenize/Batch/Prefetch configuration
 * ``P009``: off-grid bucket widths
 * ``P014``: plan does not start with a source node
-* ``P016``: plan not row-program-eligible (:func:`check_row_program_plan`;
-  the port's ``Dataset`` has no ``row_program`` yet)
+* ``P016``: plan not row-program-eligible (:func:`check_row_program_plan`,
+  run by ``Dataset.row_program()``)
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Lazy, Spark-DataFrame-style ``Dataset``: one declarative plan from JSON
 shards to batches on the card.
 
-Copy of ``repro/core/dataset.py`` without ``row_program`` (it waits for
-the port of text serving, ROADMAP Queue 1). Chain methods append logical
+Copy of ``repro/core/dataset.py``. Chain methods append logical
 plan nodes (:mod:`repro_torch.core.plan`); terminals hand the plan to the
 planner, which merges ``Project`` nodes and fuses their expression chains,
 pushes ``where`` filters and projections toward the source, prunes dead
@@ -22,7 +21,8 @@ derived columns, and runs whole-frame or streams per shard::
 
 Terminals: ``collect()`` / ``to_records()`` / ``execute()`` (whole-frame,
 with :class:`~repro_torch.core.plan.StageTimings`), ``fit_vocab()``,
-``arrays()``, ``iter_batches()`` and ``device_batches()``. Whole-frame
+``arrays()``, ``iter_batches()``, ``device_batches()`` and
+``row_program()`` (per-request serving). Whole-frame
 results are memoized on the frame-level prefix. Every terminal validates
 the plan first (:mod:`repro_torch.analysis`).
 
@@ -30,8 +30,10 @@ Where the port differs. The ``device`` backend (the default) runs each scan
 pass on ``device``, and ``device_batches`` copies batches to it: the card
 unless the chain (``.device(...)``) or the terminal (``device=``) names
 another, and without a card both raise. ``.workers(n)`` runs shards on
-threads at any ``n``; ``executor="process"`` and ``"remote"`` raise
-(:mod:`repro_torch.core.engine_config`). ``sharding=`` is refused.
+spawned processes when ``n > 1``, as the reference's forked ones, and
+under the ``device`` backend each worker runs its scans on that device;
+``executor="remote"`` raises (:mod:`repro_torch.core.engine_config`).
+``sharding=`` is refused.
 """
 
 from __future__ import annotations
@@ -463,10 +465,12 @@ class Dataset:
         executor: str | None = None,
         remote: Any = None,
     ) -> "Dataset":
-        """Default worker count for every terminal of this chain. Streaming
-        terminals run shards on ``n`` reader threads; ``executor`` may be
-        ``"thread"``, and ``"process"``, ``"remote"`` or a ``remote=``
-        option raise here: those executors are not ported yet."""
+        """Default worker count for every terminal of this chain (and, for
+        streaming terminals, which physical executor runs the shards:
+        ``"thread"``/``"process"``; default picks processes when
+        ``n > 1``). ``"remote"`` or a ``remote=`` option raise here: the
+        remote executor is not ported yet. Copy of
+        ``repro/core/dataset.py:475``."""
         if n < 1:
             raise ValueError(f"workers must be >= 1, got {n}")
         EngineConfig(executor="remote" if remote is not None else executor).resolve_executor()
@@ -891,3 +895,64 @@ class Dataset:
                 device=target,
             )
         return AsyncLoader(it, prefetch=depth, device=target)
+
+    def row_program(self, *, optimize: bool = True, device=None):
+        """Terminal: lower this plan to a per-request
+        :class:`~repro_torch.runtime.row_program.RowProgram` for online
+        serving.
+
+        The *same* optimized step chain the shard executors run — compiled
+        by the same :func:`repro_torch.core.executor.compile_shard_program`
+        from the same plan, carrying the same frozen token specs and
+        vocabulary fingerprint — packaged for single-row execution with no
+        shard/pool/shared-memory machinery, so a served request is
+        byte-identical to the training path by construction. ``device`` is
+        where the ``device`` backend's scan passes run: the terminal's,
+        else the chain's ``.device(...)``, else the card.
+
+        Requires a tokenized ``SourceJsonDirs`` chain whose steps are all
+        row-local; cross-row plans (``drop_duplicates``, ``split``) raise
+        a :class:`repro_torch.analysis.PlanValidationError` carrying
+        ``P016`` diagnostics. Copy of ``repro/core/dataset.py:883``.
+        """
+        import dataclasses
+
+        from ..analysis import PlanValidationError, check_row_program_plan
+        from ..runtime.row_program import RowProgram
+        from . import executor as EX
+
+        self._require_valid(streaming=False, optimize=optimize)
+        errors = [
+            d for d in check_row_program_plan(self._nodes) if d.severity == "error"
+        ]
+        if errors:
+            raise PlanValidationError(errors)
+        tok = next(n for n in self._nodes if isinstance(n, P.Tokenize))
+        frame_nodes, _ = P.split_plan(self._nodes)
+        if optimize:
+            frame_nodes = P.optimize_plan(frame_nodes, self._needed_columns())
+        spec_cols = tuple(dict.fromkeys(spec.column for spec in tok.specs))
+        token_plan = EX.TokenPlan(
+            specs=tuple(tok.specs),
+            stoi=dict(tok.tokenizer.stoi),
+            vocab_fp=tok.tokenizer.fingerprint,
+        )
+        program = EX.compile_shard_program(
+            frame_nodes,
+            optimize=optimize,
+            output_columns=spec_cols,
+            tokens=token_plan,
+            backend=self._resolve_backend(),
+            device=self._scan_device(device),
+        )
+        return RowProgram(
+            fields=program.fields,
+            steps=program.steps,
+            specs=program.tokens.specs,
+            stoi=program.tokens.stoi,
+            vocab_fp=program.tokens.vocab_fp,
+            backend=program.backend,
+            # where the scans run is no part of what the plan computes
+            fingerprint=EX.program_fingerprint(dataclasses.replace(program, device=None)),
+            device=program.device,
+        )

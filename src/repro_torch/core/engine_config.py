@@ -7,8 +7,8 @@ its five knobs and their one resolution order:
                        >  environment variable  >  default
 
 =======================  =====================================================
-``REPRO_EXECUTOR``       shard executor: ``thread`` (the only one the port
-                         has; empty = ``thread``)
+``REPRO_EXECUTOR``       shard executor: ``thread``/``process`` (empty =
+                         auto: processes when workers > 1)
 ``REPRO_WORKERS``        default worker count for every terminal
 ``REPRO_CACHE``          truthy = enable the on-disk shard cache
 ``REPRO_CACHE_DIR``      shard-cache root (with ``REPRO_CACHE`` or
@@ -19,16 +19,13 @@ its five knobs and their one resolution order:
 Where the port differs. The backend's default is ``device`` (the
 reference's is ``loops``): the port's entry points run on the card unless
 the caller asks for the host with ``backend="loops"`` or ``"fused"``, or
-``device="cpu"``. The executor's default is ``thread`` at any worker count
-(the reference's is ``process`` when ``workers > 1``); ``process`` and
-``remote``, explicit or from ``REPRO_EXECUTOR``, raise ``ValueError``:
-their executors are not ported yet (ROADMAP Queue 1). Frames and batches
-are the same under either executor, so only ``stats["executor"]`` differs
-from the reference's. The reference's ``REPRO_PALLAS_INTERPRET`` has no
-counterpart.
+``device="cpu"``. ``remote``, explicit or from ``REPRO_EXECUTOR``, raises
+``ValueError``: the remote executor is not ported yet (ROADMAP Queue 1).
+The reference's ``REPRO_PALLAS_INTERPRET`` has no counterpart.
 
 This module imports neither torch nor the executor at import time: the
-stage pipeline's spawned pool workers import it.
+stage pipeline's spawned pool workers and the process shard executor's
+spawned children import it.
 """
 
 from __future__ import annotations
@@ -52,9 +49,9 @@ _TRUTHY = ("1", "true", "yes", "on")
 # from an explicit ``.cache(False)`` (stored as None: cache off, env ignored).
 _UNSET: Any = object()
 
-EXECUTORS = ("", "thread")
-# The reference's executors that the port has not ported yet.
-UNPORTED_EXECUTORS = ("process", "remote")
+EXECUTORS = ("", "thread", "process")
+# The reference's executor that the port has not ported yet.
+UNPORTED_EXECUTORS = ("remote",)
 
 
 def _env_truthy(name: str) -> bool:
@@ -89,19 +86,21 @@ class EngineConfig:
 
     # -- resolution (explicit > env > default) -----------------------------
     def resolve_executor(self, explicit: str | None = None) -> str:
-        """``"thread"``; ``ValueError`` for an executor the port does not
-        have (``process``, ``remote``) or does not know."""
+        """``""`` means auto (processes when workers > 1, else threads:
+        :func:`~repro_torch.core.executor.make_executor` applies that last
+        step because it also owns the fallback rules); ``ValueError`` for
+        ``remote``, which the port does not have, or an unknown name."""
         choice = (explicit or self.executor or os.environ.get(ENV_EXECUTOR) or "")
         choice = choice.strip().lower()
         if choice in UNPORTED_EXECUTORS:
             raise ValueError(
                 f"executor {choice!r} is not ported to repro_torch yet (ROADMAP.md "
-                "Queue 1: the process shard executor with its shared-memory packing, "
-                "and the remote executor); use executor='thread'"
+                "Queue 1: the remote executor and its TCP data plane); use "
+                "executor='thread' or 'process'"
             )
         if choice not in EXECUTORS:
-            raise ValueError(f"unknown executor {choice!r}; use 'thread'")
-        return "thread"
+            raise ValueError(f"unknown executor {choice!r}; use 'thread' or 'process'")
+        return choice
 
     def resolve_workers(self, explicit: int | None = None, default: int = 1) -> int:
         if explicit is not None:

@@ -1,17 +1,23 @@
-"""The in-process shard executor and the plan-fingerprint shard cache.
+"""Shard executors: reader threads or spawned worker processes, and the
+plan-fingerprint shard cache.
 
-Copy of the in-process half of ``repro/core/executor.py``
-(``:78-1233``, ``:1349-1421``, ``:1824-1906``):
+Copy of ``repro/core/executor.py`` without the remote executor
+(``:78-1906``):
 
 * :class:`ShardProgram`: the per-shard physical program compiled from the
   frame-level plan (parse -> select/dropna/filter[/dedup] -> per-column
   compiled expressions -> token encoding or word counting). ``filter``
   steps evaluate predicates to row masks straight off the flat buffers.
+  Programs pickle, so the same program runs in a thread or in a worker
+  process.
 * :class:`ThreadShardExecutor`: a work-stealing
   :class:`~repro_torch.core.async_loader.ShardPool` of reader threads,
   each running the whole program per shard; it holds the cross-shard
-  ``drop_duplicates`` state. Under the ``device`` backend its threads send
-  their scan passes to the card from this one process.
+  ``drop_duplicates`` state.
+* :class:`ProcessShardExecutor`: spawned worker processes pulling shards
+  from one task queue (work stealing). Raw shard bytes travel to the
+  workers in shared-memory segments, and cleaned flat column buffers,
+  token arrays and word counts travel back the same way.
 * :class:`ShardCache`: the ``persist()`` analogue, an on-disk cache of
   cleaned column buffers, token arrays and word counts keyed by (shard
   bytes digest, column lineage fingerprint). Writes are atomic (a temp
@@ -22,27 +28,34 @@ tag (``bytesops.PORT_TAG``) and the default cache root is
 ``<tempdir>/repro_torch_shard_cache``: both packages read
 ``REPRO_CACHE_DIR``, and neither ever reads the other's entries. The
 program carries the ``device`` of the ``device`` backend's scan passes,
-resolved by the caller's thread (the card unless the caller names another).
-:func:`make_executor` makes the thread executor at any worker count;
-``executor="process"`` and ``"remote"`` raise: the process executor with
-its shared-memory packing (``executor.py:1235-1823``) and the remote one
-are not ported yet (ROADMAP Queue 1).
+resolved by the caller (the card unless the caller names another). Worker
+processes are spawned, never forked: a forked child of a process that has
+touched CUDA cannot use it. So this module imports no torch at import
+time, and a child under a host backend (``loops``, ``fused``) never
+imports it; under ``device`` each child makes ``program.device`` current
+before the first shard whose steps it runs, and runs its scans there
+itself, or raises. ``executor="remote"`` raises:
+the remote executor is not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import json
+import multiprocessing as mp
 import os
 import pickle
+import queue
 import tempfile
 import threading
 import time
+import traceback
 from collections import Counter
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Iterator, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 
@@ -50,8 +63,6 @@ from . import bytesops as B
 from . import expr as E
 from . import ingest as ing
 from ..data.batching import TokenSpec, VocabTable, encode_flat, encode_rows
-from ..device import resolve
-from .async_loader import ShardPool
 from .engine_config import EngineConfig
 from .frame import ColumnarFrame
 
@@ -227,6 +238,10 @@ def compile_shard_program(
         else:
             raise UnsupportedPlanError(f"not shard-executable: {node.describe()}")
     backend = EngineConfig().resolve_backend(backend)
+    if backend == "device":
+        from ..device import resolve  # torch: a host-backend program never needs it
+
+        device = str(resolve(device))
     return ShardProgram(
         tuple(src.fields),
         tuple(steps),
@@ -234,7 +249,7 @@ def compile_shard_program(
         tokens=tokens,
         count_words=tuple(count_words),
         backend=backend,
-        device=str(resolve(device)) if backend == "device" else None,
+        device=device if backend == "device" else None,
     )
 
 
@@ -1207,6 +1222,8 @@ class ThreadShardExecutor:
         self._agg_lock = threading.Lock()
         self._parse_s = self._pre_s = self._clean_s = self._post_s = 0.0
         self._tokenize_s = 0.0
+        from .async_loader import ShardPool  # torch: a process child never needs it
+
         self._pool = ShardPool(
             shards, self._process, n_readers=max(int(workers), 1)
         )
@@ -1295,9 +1312,139 @@ class ThreadShardExecutor:
         self._pool.stop()
 
 
+# ---------------------------------------------------------------------------
+# Process executor: the shared-memory wire format
+# ---------------------------------------------------------------------------
+
+
+def shared_memory_available() -> bool:
+    """Whether POSIX shared memory works here (creating a segment also
+    starts this process's resource tracker). Copy of
+    ``repro/core/executor.py:1235``."""
+    try:
+        from multiprocessing import shared_memory
+
+        seg = shared_memory.SharedMemory(create=True, size=16)
+    except (ImportError, OSError):  # a platform without /dev/shm
+        return False
+    seg.close()
+    seg.unlink()
+    return True
+
+
+def _utf8_roundtrips(v: str) -> bool:
+    """False for strings flatten() would mangle (lone surrogates from the
+    stdlib-json fallback): those must ride the obj_rows side channel so
+    the process executor stays value-identical with the thread path. Copy
+    of ``repro/core/executor.py:1247``."""
+    try:
+        v.encode("utf-8")
+        return "\x00" not in v
+    except UnicodeEncodeError:
+        return False
+
+
+def _pack_columns(
+    frame: ColumnarFrame, flat: dict[str, np.ndarray], columns: Sequence[str]
+) -> tuple[bytes, list[dict]]:
+    """Pack columns as (flat uint8 bytes + int64 row-end offsets) sections.
+
+    Cleaned columns ship their program-output buffer as-is (no re-encode);
+    untouched columns flatten here and carry their non-string originals
+    (None, numbers, …) in the metadata so the round trip is value-exact —
+    the thread and whole-frame executors never coerce those. Copy of
+    ``repro/core/executor.py:1258``."""
+    parts: list[bytes] = []
+    metas: list[dict] = []
+    pos = 0
+    for col in columns:
+        if col in flat:
+            buf = flat[col]
+            obj_rows: list[tuple[int, Any]] = []  # op output is always a string
+        else:
+            buf = frame.flat(col)
+            obj_rows = [
+                (i, v)
+                for i, v in enumerate(frame[col])
+                if not isinstance(v, str) or not _utf8_roundtrips(v)
+            ]
+        offsets = np.flatnonzero(buf == B.ROW_SEP).astype(np.int64)
+        raw = buf.tobytes()
+        offs = offsets.tobytes()
+        metas.append(
+            {
+                "name": col,
+                "buf_off": pos,
+                "buf_len": len(raw),
+                "offs_off": pos + len(raw),
+                "n_rows": int(offsets.size),
+                "obj_rows": obj_rows,
+            }
+        )
+        parts.append(raw)
+        parts.append(offs)
+        pos += len(raw) + len(offs)
+    return b"".join(parts), metas
+
+
+def _unpack_columns(payload: memoryview, metas: list[dict]) -> ColumnarFrame:
+    """Inverse of :func:`_pack_columns`. Copy of
+    ``repro/core/executor.py:1300``."""
+    cols: dict[str, np.ndarray] = {}
+    for m in metas:
+        raw = bytes(payload[m["buf_off"] : m["buf_off"] + m["buf_len"]])
+        offsets = np.frombuffer(
+            payload, dtype=np.int64, count=m["n_rows"], offset=m["offs_off"]
+        )
+        starts = np.concatenate(([0], offsets[:-1] + 1)) if m["n_rows"] else []
+        rows: list = [
+            raw[s:e].decode("utf-8", errors="ignore")
+            for s, e in zip(starts, offsets)
+        ]
+        for i, v in m["obj_rows"]:
+            rows[i] = v
+        cols[m["name"]] = np.array(rows, dtype=object)
+    return ColumnarFrame(cols)
+
+
+def _pack_tokens(
+    payload: bytes, tokens: dict[str, np.ndarray]
+) -> tuple[bytes, list[dict]]:
+    """Append int32 token arrays to a payload as 8-byte-aligned raw
+    sections (metadata records name/offset/shape). Copy of
+    ``repro/core/executor.py:1318``."""
+    buf = bytearray(payload)
+    metas: list[dict] = []
+    for name, arr in tokens.items():
+        buf += b"\x00" * ((-len(buf)) % 8)
+        metas.append(
+            {
+                "name": name,
+                "off": len(buf),
+                "rows": int(arr.shape[0]),
+                "width": int(arr.shape[1]),
+            }
+        )
+        buf += np.ascontiguousarray(arr, dtype=np.int32).tobytes()
+    return bytes(buf), metas
+
+
+def _unpack_tokens(payload: memoryview, metas: list[dict]) -> dict[str, np.ndarray]:
+    """Inverse of :func:`_pack_tokens`, copying out of the segment. Copy of
+    ``repro/core/executor.py:1339``."""
+    out: dict[str, np.ndarray] = {}
+    for m in metas:
+        arr = np.frombuffer(
+            payload, dtype=np.int32, count=m["rows"] * m["width"], offset=m["off"]
+        ).reshape(m["rows"], m["width"])
+        out[m["name"]] = arr.copy()  # the shm segment is unlinked after
+    return out
+
+
 def program_fingerprint(program: ShardProgram) -> str:
-    """Content fingerprint of a compiled shard program, port-tagged (the
-    reference's remote data plane keys result dedup on it). Copy of
+    """Content fingerprint of a compiled shard program, port-tagged
+    (``Dataset.row_program`` keys the serving cache on it; the reference's
+    remote data plane keys result dedup on it). Copy of
     ``repro/core/executor.py:1349``."""
     return hashlib.blake2b(
         B.PORT_TAG + pickle.dumps(program, protocol=4), digest_size=16
@@ -1307,9 +1454,8 @@ def program_fingerprint(program: ShardProgram) -> str:
 class ProgramContext:
     """Per-process execution state for one compiled program: the shard
     cache handle plus every derived fingerprint, computed once per worker
-    instead of once per shard. The reference's process and remote workers
-    drive shards through :meth:`run`; in the port it runs one shard in the
-    calling thread. Copy of
+    instead of once per shard. The process executor's workers drive shards
+    through :meth:`run`. Copy of
     ``repro/core/executor.py:1361``."""
 
     def __init__(self, program: ShardProgram, cache_dir: str | Path | None):
@@ -1332,18 +1478,24 @@ class ProgramContext:
         path: str | Path | None,
         digest: str | None,
         row_take: np.ndarray | None,
+        before_steps: Callable[[], None] | None = None,
     ) -> ShardResult:
         """Execute the program on one shard: serve fully-cached products
         without parsing when possible, else parse ``data`` (read from
         ``path`` when ``data`` is None — the fully-cached fast path's rare
-        fallback) and run every step. Wall time not attributed to a
-        specific stage lands in ``parse_s``."""
+        fallback) and run every step, calling ``before_steps`` first (its
+        time counts in no stage). Wall time not attributed to a specific
+        stage lands in ``parse_s``."""
         t0 = time.perf_counter()
         res = _load_cached_products(
             self.program, self.cache, self.token_fps, self.count_fp, digest,
             self.dedup_fp,
         )
         if res is None:
+            if before_steps is not None:
+                t_before = time.perf_counter()
+                before_steps()
+                t0 += time.perf_counter() - t_before  # no stage's time
             if data is None:
                 with open(path, "rb") as fh:
                     data = fh.read()
@@ -1365,9 +1517,485 @@ class ProgramContext:
         )
         return res
 
+
+def pack_shard_result(res: ShardResult, *, token_space: bool) -> tuple[dict, bytes]:
+    """Serialize one :class:`ShardResult` into the executor wire format:
+    flat column sections (:func:`_pack_columns`) followed by 8-byte-aligned
+    int32 token sections (:func:`_pack_tokens`), with a metadata dict
+    carrying section offsets, counters, and timings. Copy of
+    ``repro/core/executor.py:1422``."""
+    if token_space:
+        # Token arrays / counts are the product; text columns stay in the
+        # worker instead of riding the transport for nothing.
+        payload, metas = b"", []
+    else:
+        out_cols = list(dict.fromkeys(list(res.frame.columns) + list(res.flat)))
+        payload, metas = _pack_columns(res.frame, res.flat, out_cols)
+    payload, tok_metas = _pack_tokens(payload, res.tokens)
+    meta = {
+        "size": len(payload),
+        "columns": metas,
+        "tokens": tok_metas,
+        "word_counts": (
+            dict(res.word_counts) if res.word_counts is not None else None
+        ),
+        "parse_s": res.parse_s,
+        "pre_clean_s": res.pre_clean_s,
+        "clean_s": res.clean_s,
+        "post_clean_s": res.post_clean_s,
+        "tokenize_s": res.tokenize_s,
+        "cache_hits": res.cache_hits,
+        "cache_misses": res.cache_misses,
+        "token_cache_hits": res.token_cache_hits,
+        "token_cache_misses": res.token_cache_misses,
+    }
+    return meta, payload
+
+
+def unpack_shard_result(meta: dict, payload: memoryview) -> ShardResult:
+    """Caller-side inverse of :func:`pack_shard_result`; ``payload`` is a
+    shared-memory view. Copy of ``repro/core/executor.py:1457``."""
+    res = ShardResult(
+        _unpack_columns(payload, meta["columns"]),
+        parse_s=meta["parse_s"],
+        pre_clean_s=meta["pre_clean_s"],
+        clean_s=meta["clean_s"],
+        post_clean_s=meta["post_clean_s"],
+        tokenize_s=meta.get("tokenize_s", 0.0),
+        cache_hits=meta["cache_hits"],
+        cache_misses=meta["cache_misses"],
+        token_cache_hits=meta.get("token_cache_hits", 0),
+        token_cache_misses=meta.get("token_cache_misses", 0),
+    )
+    res.tokens = _unpack_tokens(payload, meta.get("tokens", []))
+    counts = meta.get("word_counts")
+    res.word_counts = Counter(counts) if counts is not None else None
+    return res
+
+
+def _out_seg_name(run_id: str, task_id: int) -> str:
+    """Deterministic name for a worker's output segment: the caller can
+    sweep orphans left by a worker that died between creating the segment
+    and delivering its name (SIGKILL, OOM) without ever learning the name
+    from the worker. Copy of ``repro/core/executor.py:1478``, with the
+    port's prefix."""
+    return f"repro_torch_{run_id}_{task_id}"
+
+
+def _unlink_segment(name: str) -> None:
+    """Copy of ``repro/core/executor.py:1486``."""
+    from multiprocessing import shared_memory
+
+    try:
+        seg = shared_memory.SharedMemory(name=name)
+        seg.close()
+        seg.unlink()
+    except FileNotFoundError:
+        pass
+
+
+def _bind_device(program: ShardProgram) -> dict[str, int] | None:
+    """Under the ``device`` backend: make ``program.device`` this worker's
+    current device and return the text kernels' launch counters, whose
+    growth the worker reports with each result. None under a host backend,
+    whose worker never imports torch. Raises when the program's device is
+    a card this process cannot see: no scan falls back to the host."""
+    if program.backend != "device":
+        return None
+    import torch
+
+    from ..device import resolve
+    from ..kernels.text_clean import ops as clean_ops
+
+    device = resolve(program.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"shard worker {os.getpid()}: the program scans on {device}, and this "
+                "process sees no CUDA device"
+            )
+        if device.index is not None:
+            torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)  # the workers are the parallelism on the host
+    return clean_ops.LAUNCHES
+
+
+def _worker_main(task_q, result_q, program: ShardProgram, cache_dir, run_id) -> None:
+    """Worker process: pull (task_id, shm_name, meta, digest, row_take)
+    tasks until sentinel. ``meta`` is the byte count of the shared-memory
+    segment — or, when ``shm_name`` is None (feeder's fully-cached fast
+    path, no shm copy made), the shard's file path for the rare fallback
+    re-read (an entry vanished or corrupted between probe and load).
+    ``row_take`` is the shard's canonical-survivor rows for a
+    ``dedup_take`` program (None otherwise). Under the ``device`` backend
+    the worker binds the program's device before the first shard whose
+    steps it runs (a shard served from the cache needs no card), each
+    result carries the text kernels' launches it made, and a worker whose
+    caller died stops instead of waiting for tasks. Copy of
+    ``repro/core/executor.py:1497``."""
+    from multiprocessing import shared_memory
+
+    ctx = ProgramContext(program, cache_dir)
+    bound: dict = {}  # "counters": the kernels' counters once bound, "mark": as last reported
+
+    def bind() -> None:
+        if "counters" not in bound:
+            counters = _bind_device(program)
+            bound.update(counters=counters, mark=dict(counters or {}))
+
+    parent = mp.parent_process()
+    while True:
+        try:
+            task = task_q.get(timeout=1.0)
+        except queue.Empty:
+            if parent is not None and not parent.is_alive():
+                break  # the caller died: no one will read a result
+            continue
+        if task is None:
+            break
+        task_id, shm_name, meta, digest, row_take = task
+        out = None
+        delivered = False
+        try:
+            if shm_name is None:
+                data, path = None, meta
+            else:
+                path = None
+                seg = shared_memory.SharedMemory(name=shm_name)
+                try:
+                    data = bytes(seg.buf[:meta])
+                finally:
+                    seg.close()
+            res = ctx.run(data, path, digest, row_take, before_steps=bind)
+            body, payload = pack_shard_result(res, token_space=ctx.token_space)
+            counters = bound.get("counters") or {}
+            body["launches"] = {k: n - bound["mark"][k] for k, n in counters.items()
+                                if n != bound["mark"][k]}
+            if counters:
+                bound["mark"] = dict(counters)
+            name = _out_seg_name(run_id, task_id)
+            try:
+                out = shared_memory.SharedMemory(
+                    create=True, size=max(len(payload), 1), name=name
+                )
+            except FileExistsError:
+                # Stale block from a crashed earlier run that collided on
+                # the id: reclaim it.
+                _unlink_segment(name)
+                out = shared_memory.SharedMemory(
+                    create=True, size=max(len(payload), 1), name=name
+                )
+            out.buf[: len(payload)] = payload
+            body["shm"] = out.name
+            out.close()
+            result_q.put(("ok", task_id, body))
+            delivered = True
+        except Exception:  # an interrupt ends the worker; the caller sees its exit code
+            result_q.put(("err", task_id, traceback.format_exc()))
+        finally:
+            if out is not None and not delivered:
+                # The caller never learned this segment's name; unlink it
+                # here or the block outlives the run.
+                try:
+                    out.unlink()
+                except FileNotFoundError:
+                    pass
+
+
+class ProcessShardExecutor:
+    """Spawned worker processes pulling shards from a shared queue (work
+    stealing).
+
+    Transport is shared memory in both directions: the feeder thread reads
+    each shard once (digesting as it reads), places the raw bytes in a
+    segment, and workers return cleaned flat column buffers + row offsets
+    in a segment of their own. In-flight shards are bounded so the feeder
+    never races ahead of slow consumers. Every wait is bounded: a worker
+    that dies fails the run with its exit code.
+
+    Under the ``device`` backend the kernel library is built here, once,
+    before any worker starts; each worker then runs its scans on
+    ``program.device`` and reports its launches, which are added to this
+    process's counters. Copy of ``repro/core/executor.py:1556``.
+    """
+
+    name = "process"
+
+    def __init__(
+        self,
+        shards: Sequence[str | Path],
+        program: ShardProgram,
+        *,
+        workers: int = 2,
+        cache_dir: str | Path | None = None,
+        max_inflight: int | None = None,
+        row_filters: dict[int, np.ndarray] | None = None,
+    ):
+        if program.has_dedup:
+            raise UnsupportedPlanError(
+                "drop_duplicates needs cross-shard state; use the thread executor"
+            )
+        self._row_filters = row_filters
+        self.program = program
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.token_cache_hits = 0
+        self.token_cache_misses = 0
+        self._parse_s = self._pre_s = self._clean_s = self._post_s = 0.0
+        self._tokenize_s = 0.0
+        # Caller-side fast-path probe state: when every token-space
+        # product of a shard already sits in the cache, the feeder skips
+        # the shared-memory copy (workers load straight from disk).
+        self._cache = ShardCache(cache_dir) if cache_dir is not None else None
+        self._token_fps = token_fingerprints(program) if self._cache else None
+        self._count_fp = count_fingerprint(program) if self._cache else None
+        self._dedup_fp = dedup_keys_fingerprint(program) if self._cache else None
+        self._shards = [Path(s) for s in shards]
+        self._stopped = threading.Event()
+        self._feed_errors: list[Exception] = []
+        self._inflight = threading.Semaphore(max_inflight or max(2 * workers, 4))
+        self._in_segs: dict[int, str] = {}
+        self._seg_lock = threading.Lock()
+        # Segment-leak bookkeeping: output segments carry deterministic
+        # names derived from this run id, and every task whose output the
+        # caller already unlinked lands in _consumed — so the sweep in
+        # stop() (and the atexit last resort) can unlink exactly the
+        # blocks a killed worker orphaned.
+        self.run_id = f"{os.getpid():x}x{os.urandom(4).hex()}"
+        self._consumed: set[int] = set()
+        if program.backend == "device":
+            _build_kernels_for(program)
+        atexit.register(self._sweep_segments)
+        # Start the resource tracker before the first worker: spawned
+        # workers share it, or unlinking a segment a worker created is
+        # reported as a leak at shutdown.
+        shared_memory_available()
+        ctx = mp.get_context("spawn")
+        self._task_q = ctx.Queue()
+        self._result_q = ctx.Queue()
+        self._procs = [
+            ctx.Process(
+                target=_worker_main,
+                args=(self._task_q, self._result_q, program, cache_dir, self.run_id),
+                daemon=True,
+            )
+            for _ in range(max(int(workers), 1))
+        ]
+        for p in self._procs:
+            p.start()
+        self._feeder = threading.Thread(target=self._feed, daemon=True)
+        self._feeder.start()
+
+    def _feed(self) -> None:
+        from multiprocessing import shared_memory
+
+        try:
+            for i, path in enumerate(self._shards):
+                while not self._inflight.acquire(timeout=0.1):
+                    if self._stopped.is_set():
+                        return
+                if self._stopped.is_set():
+                    return
+                data, digest = ing.read_shard_bytes(path)
+                row_take = (
+                    self._row_filters.get(i)
+                    if self._row_filters is not None
+                    else None
+                )
+                if products_fully_cached(
+                    self.program, self._cache, self._token_fps,
+                    self._count_fp, digest, self._dedup_fp,
+                ):
+                    # Fully cached: no shm copy; ship the path so the
+                    # worker can fall back to its own read if an entry
+                    # vanishes between this probe and its load.
+                    self._task_q.put((i, None, str(path), digest, row_take))
+                    continue
+                seg = shared_memory.SharedMemory(create=True, size=max(len(data), 1))
+                seg.buf[: len(data)] = data
+                with self._seg_lock:
+                    self._in_segs[i] = seg.name
+                self._task_q.put((i, seg.name, len(data), digest, row_take))
+                seg.close()
+        except Exception as e:  # deleted shard, /dev/shm full, ...
+            # Surface the real cause to the consumer; without this the
+            # consumer only sees "workers exited before delivering".
+            self._feed_errors.append(e)
+        finally:
+            for _ in self._procs:
+                self._task_q.put(None)
+
+    def _release_input(self, task_id: int) -> None:
+        with self._seg_lock:
+            name = self._in_segs.pop(task_id, None)
+        if name is not None:
+            _unlink_segment(name)
+
+    def _next_result(self):
+        """Result-queue get that notices dead workers instead of blocking
+        forever (an OOM-killed or segfaulted worker never sends its
+        result)."""
+        while True:
+            try:
+                return self._result_q.get(timeout=1.0)
+            except queue.Empty:
+                if self._feed_errors:
+                    raise self._feed_errors[0]
+                crashed = [
+                    p.exitcode
+                    for p in self._procs
+                    if not p.is_alive() and p.exitcode not in (0, None)
+                ]
+                if crashed:
+                    raise RuntimeError(
+                        f"shard worker died with exit code {crashed[0]} "
+                        "(no result for its shard)"
+                    )
+                if all(not p.is_alive() for p in self._procs):
+                    raise RuntimeError(
+                        "all shard workers exited before delivering every result"
+                    )
+
+    def __iter__(self) -> Iterator[ShardResult]:
+        from multiprocessing import shared_memory
+
+        for _ in range(len(self._shards)):
+            if self._stopped.is_set():
+                return
+            try:
+                msg = self._next_result()
+            except BaseException:
+                self.stop()
+                raise
+            status, task_id, body = msg
+            self._release_input(task_id)
+            self._inflight.release()
+            if status == "err":
+                self._consumed.add(task_id)  # worker unlinked its own block
+                self.stop()
+                raise RuntimeError(f"shard worker failed:\n{body}")
+            seg = shared_memory.SharedMemory(name=body["shm"])
+            try:
+                view = seg.buf[: body["size"]]
+                res = unpack_shard_result(body, view)
+                del view  # release the exported buffer before closing
+            finally:
+                seg.close()
+                seg.unlink()
+                self._consumed.add(task_id)
+            if body["launches"]:
+                from ..kernels.text_clean import ops as clean_ops
+
+                clean_ops.add_launches(body["launches"])
+            self._parse_s += res.parse_s
+            self._pre_s += res.pre_clean_s
+            self._clean_s += res.clean_s
+            self._post_s += res.post_clean_s
+            self._tokenize_s += res.tokenize_s
+            self.cache_hits += res.cache_hits
+            self.cache_misses += res.cache_misses
+            self.token_cache_hits += res.token_cache_hits
+            self.token_cache_misses += res.token_cache_misses
+            res.shard_index = task_id
+            yield res
+
+    @property
+    def timings(self):
+        from .plan import StageTimings
+
+        return StageTimings(
+            self._parse_s, self._pre_s, self._clean_s, self._post_s, self._tokenize_s
+        )
+
+    def _drain_results(self) -> None:
+        while True:
+            try:
+                status, task_id, body = self._result_q.get_nowait()
+            except queue.Empty:
+                return
+            if status == "ok":
+                _unlink_segment(body["shm"])
+            self._consumed.add(task_id)
+            self._release_input(task_id)
+
+    def _sweep_segments(self) -> None:
+        """Unlink every shared-memory block this run may still own: feeder
+        input segments not yet released, and any deterministically-named
+        worker output segment whose result the caller never consumed (a
+        SIGKILLed worker can orphan one between creating the block and
+        delivering its name). Runs from stop() and, as a last resort, from
+        an atexit hook, so even an abandoned executor cannot leak."""
+        with self._seg_lock:
+            leftover = list(self._in_segs.values())
+            self._in_segs.clear()
+        for name in leftover:
+            _unlink_segment(name)
+        for i in range(len(self._shards)):
+            if i not in self._consumed:
+                _unlink_segment(_out_seg_name(self.run_id, i))
+
+    def stop(self) -> None:
+        """Abandon remaining shards; safe after breaking out early.
+        Idempotent."""
+        if self._stopped.is_set():
+            return
+        self._stopped.set()
+        self._inflight.release()  # unblock a parked feeder
+        self._feeder.join(timeout=5.0)
+        # Abandon queued tasks so workers reach their sentinels quickly
+        # (the feeder's sentinels sit behind them in the queue).
+        while True:
+            try:
+                task = self._task_q.get_nowait()
+            except queue.Empty:
+                break
+            if task is not None:
+                self._release_input(task[0])
+        for _ in self._procs:
+            self._task_q.put(None)
+        self._drain_results()
+        for p in self._procs:
+            p.join(timeout=5.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        # Results a worker managed to emit between the drains above, then
+        # every block that can still be ours (inputs + orphaned outputs).
+        self._drain_results()
+        self._sweep_segments()
+        for q in (self._task_q, self._result_q):
+            q.close()
+            q.cancel_join_thread()  # nothing left to deliver; never block exit
+        atexit.unregister(self._sweep_segments)
+
+
+def _build_kernels_for(program: ShardProgram) -> None:
+    """Build the kernel library once, before any worker starts, when the
+    program's scans run on a card: each worker then loads the cached
+    build instead of compiling it beside the others."""
+    from ..device import resolve
+
+    if resolve(program.device).type == "cuda":
+        from ..kernels import _build
+
+        _build.library()
+
+
 # ---------------------------------------------------------------------------
 # Executor selection
 # ---------------------------------------------------------------------------
+
+
+def _picklable(program: ShardProgram) -> bool:
+    try:
+        pickle.dumps(program)
+    except (pickle.PicklingError, AttributeError, TypeError):
+        return False
+    return True
 
 
 def make_executor(
@@ -1379,16 +2007,46 @@ def make_executor(
     executor: str | None = None,
     row_filters: dict[int, np.ndarray] | None = None,
     remote: Any = None,
-) -> ThreadShardExecutor:
-    """The thread shard executor, at any worker count. ``executor`` (then
-    ``REPRO_EXECUTOR``) may name ``"thread"`` or nothing; ``"process"``
-    and ``"remote"``, and a ``remote`` option, raise ``ValueError``: those
-    executors are not ported yet, and running their plans on threads
-    instead would hide it. Copy of
-    ``repro/core/executor.py:1824``."""
-    EngineConfig(executor=executor).resolve_executor()
+):
+    """Pick the physical shard executor.
+
+    Explicit ``executor`` wins, then ``REPRO_EXECUTOR``, then the default:
+    processes when ``workers > 1``, threads otherwise. Requests for the
+    process executor fall back to threads — never error — when the program
+    needs cross-shard dedup state, the platform lacks shared memory,
+    ``workers <= 1``, the default choice lands on one core, or the program
+    does not pickle (a lambda word predicate: workers are spawned, so the
+    program travels pickled). ``executor="remote"`` and a ``remote``
+    option raise ``ValueError``: the remote executor is not ported yet.
+    Copy of ``repro/core/executor.py:1824``, whose pickle check applies
+    on spawn-only platforms, which the port's always-spawning executor
+    makes every platform."""
+    choice = EngineConfig(executor=executor).resolve_executor()
     if remote is not None:
         EngineConfig(executor="remote").resolve_executor()
+    explicit = bool(choice)
+    if not choice:
+        choice = "process" if workers > 1 else "thread"
+    # More worker processes than cores only adds spawn + scheduling cost;
+    # clamp (the thread pool is unclamped — its readers overlap blocking
+    # I/O, not CPU). When the *default* selection lands on one effective
+    # worker the process executor is pure overhead, so fall back to
+    # threads — but an explicit request (argument or REPRO_EXECUTOR) is
+    # honored even on one core.
+    n_proc = max(min(workers, os.cpu_count() or workers), 1)
+    if choice == "process" and (
+        workers <= 1
+        or program.has_dedup
+        or not shared_memory_available()
+        or (n_proc <= 1 and not explicit)
+        or not _picklable(program)
+    ):
+        choice = "thread"
+    if choice == "process":
+        return ProcessShardExecutor(
+            shards, program, workers=n_proc, cache_dir=cache_dir,
+            row_filters=row_filters,
+        )
     return ThreadShardExecutor(
         shards, program, workers=workers, cache_dir=cache_dir,
         row_filters=row_filters,

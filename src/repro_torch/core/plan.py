@@ -19,8 +19,8 @@ Copy of ``repro/core/plan.py`` (the whole file):
 * **Physical executors**: :func:`execute_frame_plan` runs the frame-level
   prefix whole-frame with the paper's stage timings
   (:class:`StageTimings`, whose home this is; ``core.p3sapp`` re-exports
-  it); :func:`stream_batches` runs the same plan per shard over the thread
-  shard executor with the optional shard cache
+  it); :func:`stream_batches` runs the same plan per shard over a thread
+  or process shard executor with the optional shard cache
   (:mod:`repro_torch.core.executor`).
 * **Fingerprints**: :func:`plan_fingerprint` hashes the optimized plan,
   port-tagged.
@@ -936,7 +936,7 @@ def stream_batches(
     device=None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Per-shard streaming execution: parse → filter → clean each shard
-    on the thread shard executor (see
+    on a shard executor, threads or processes (see
     :func:`repro_torch.core.executor.make_executor`), then tokenize and batch
     across shard boundaries.
 
@@ -956,9 +956,8 @@ def stream_batches(
     partial dedup *stacked with another dedup* is rejected.
 
     ``cache_dir`` enables the plan-fingerprint shard cache; ``executor``
-    is ``"thread"`` (the port's one shard executor; ``"process"`` and
-    ``"remote"`` raise), ``device`` is where the ``device`` backend's scan
-    passes run. When ``stats`` is a dict it receives
+    is ``"thread"`` or ``"process"`` (``"remote"`` raises), ``device`` is
+    where the ``device`` backend's scan passes run. When ``stats`` is a dict it receives
     ``executor``, ``cache_hits``, ``cache_misses`` and per-epoch ``timings``
     after each epoch completes.
     Copy of ``repro/core/plan.py:877``.

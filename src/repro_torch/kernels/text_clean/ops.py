@@ -8,7 +8,8 @@ Counterparts of ``repro/kernels/text_clean/ops.py``: ``text_scan_op``
 to the plain versions in ``ref.py``; CUDA tensors go to the hand-written
 kernels or raise. ``LAUNCHES[name]`` counts each kernel's launches and
 nothing else, under a lock: the planner's shard threads launch
-``text_scan`` concurrently.
+``text_scan`` concurrently, and its process executor adds the launches
+that its workers report.
 
 Unlike the TPU bridge, nothing is padded to 128 lanes or declined: the
 kernels walk flat buffers by row offsets, whatever the row lengths.
@@ -33,6 +34,14 @@ _LAUNCHES_LOCK = threading.Lock()
 def _count(name: str) -> None:
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+
+
+def add_launches(launches: dict[str, int]) -> None:
+    """Add launches that another process made (a process shard executor's
+    worker reports its own with each result) to this process's counters."""
+    with _LAUNCHES_LOCK:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
 
 
 def text_scan_op(buf, offsets, *, lower: bool = True, strip_html: bool = False,

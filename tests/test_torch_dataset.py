@@ -3,9 +3,9 @@ shards that both packages read: records, token arrays, fitted vocabularies
 and batches, whole-frame and streamed at 1 and 2 workers, equal to the
 reference's bit for bit (the port under ``loops``, ``fused`` and
 ``device`` on the CPU, the reference under ``loops``); the count of scans
-that reach the kernel equal to the reference's; the executors the port
-does not have refused; and nothing put on the CPU unless the caller names
-it."""
+that reach the kernel equal to the reference's; the process executor
+where the reference picks it, and the remote one refused; and nothing put
+on the CPU unless the caller names it."""
 
 from collections import Counter
 
@@ -143,12 +143,13 @@ def test_arrays_equal_the_reference(corpus, reference, backend):
 def test_streamed_batches_equal_the_reference(corpus, reference, dedup, workers):
     """Bit for bit at every worker count, the cross-shard dedup included:
     the port's threads take their dedup turns in shard order, so their
-    stream is the reference's one-thread stream."""
+    stream is the reference's one-thread stream. Without the dedup, more
+    than one worker runs on processes, as in the reference."""
     tok = port_chain(corpus).fit_vocab(vocab_size=400)
     stats = {}
     got = list(batch_chain(port_chain(corpus, dedup), tok, PBT).workers(workers)
                .iter_batches(stats=stats))
-    assert stats["executor"] == "thread"
+    assert stats["executor"] == ("process" if workers > 1 and not dedup else "thread")
     assert_batches_equal(got, reference["streamed"][dedup])
 
 
@@ -244,19 +245,37 @@ def test_streamed_scan_counts_equal_the_reference(corpus, scan_counts):
 
 
 def test_the_executors_the_port_lacks_raise(corpus, monkeypatch):
-    ds = port_chain(corpus)
+    """``remote``, as a name, a ``remote=`` option or ``REPRO_EXECUTOR``,
+    raises naming the ROADMAP; ``process``, explicit or from
+    ``REPRO_EXECUTOR``, runs and gives the thread executor's batches and
+    vocabulary, and the dedup chain falls back to threads as the
+    reference's does."""
+    ds = port_chain(corpus, dedup=False)
     tok = ds.fit_vocab(vocab_size=400)
-    for kw in ({"executor": "process"}, {"executor": "remote"}, {"remote": True}):
+    for kw in ({"executor": "remote"}, {"remote": True}):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             ds.workers(2, **kw)
     with pytest.raises(ValueError, match="unknown executor"):
         ds.workers(2, executor="fiber")
     shards = sorted(corpus.glob("*.jsonl"))
     program = PX.compile_shard_program([ds.plan[0]], backend="loops")
-    for kw in ({"executor": "process"}, {"executor": "remote"}, {"remote": {"port": 1}}):
+    for kw in ({"executor": "remote"}, {"remote": {"port": 1}}):
         with pytest.raises(ValueError, match="not ported"):
             PX.make_executor(shards, program, **kw)
+    threads = list(batch_chain(ds, tok, PBT).workers(2, executor="thread").iter_batches())
+    stats = {}
+    assert_batches_equal(list(batch_chain(ds, tok, PBT).workers(2, executor="process")
+                              .iter_batches(stats=stats)), threads)
+    assert stats["executor"] == "process"
+    stats = {}
+    assert len(list(batch_chain(port_chain(corpus), tok, PBT).workers(2, executor="process")
+                    .iter_batches(stats=stats))) > 0
+    assert stats["executor"] == "thread"
     monkeypatch.setenv("REPRO_EXECUTOR", "process")
+    stats = {}
+    assert ds.workers(2).fit_vocab(vocab_size=400, stats=stats).stoi == tok.stoi
+    assert stats["executor"] == "process"
+    monkeypatch.setenv("REPRO_EXECUTOR", "remote")
     with pytest.raises(ValueError, match="not ported"):
         ds.workers(2).fit_vocab(vocab_size=400)
     with pytest.raises(ValueError, match="not ported"):
@@ -328,7 +347,7 @@ def test_the_feed_puts_every_batch_on_the_grid(corpus, via):
     feed.close()
     assert n == len(host) > 0
     if via == "make_input_pipeline":
-        assert stats["executor"] == "thread"
+        assert stats["executor"] == "process"  # two workers by default, no dedup
 
 
 def test_counts_and_dedup_turns_hold_under_thread_stress(corpus, reference):

@@ -121,3 +121,31 @@ def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
                               text=True, timeout=120, env=dict(os.environ, PYTHONPATH=""))
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_core_exports_resolve_lazily():
+    """``repro_torch.core`` exports the reference's public names, each
+    resolved at first use: importing the package or its executor module
+    imports neither the JAX package nor torch (the process executor's
+    spawned workers import that module)."""
+    import types
+
+    import repro.core as jcore
+    import repro_torch.core as core
+
+    assert set(core.__all__) == {n for n, v in vars(jcore).items()
+                                 if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    for name in core.__all__:
+        assert getattr(core, name) is not None, name
+    with pytest.raises(AttributeError):
+        core.not_a_name
+    code = (
+        "import sys, repro_torch.core\n"
+        "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "import repro_torch.core.executor\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)\n"
+        "assert 'jax' not in sys.modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
