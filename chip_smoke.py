@@ -119,10 +119,31 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    exactly the sum of snapped encoder width x 3 + decoder width - 1), the
    loss falling; a second controller resumes at step 20 with the saved
    state bit for bit and tracks the first run's losses at 1e-4;
-14. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+14. the LM's training (``lm_train``, the path of ``python -m
+   repro_torch.launch.train``): the training entry of ``flash_attention``
+   (which also writes each row's log-sum-exp) and ``flash_attention_bwd``
+   against their plain versions at 13 shapes (hd 80 and 256, groups 1-16,
+   seq 1-300, windows under the sequence, cluster splits; 2e-5 abs/rel or
+   1e-5 of the tensor's max), ``rg_lru_bwd`` at the forward's 11 shapes
+   and the training shape with and without h0 (1e-5), each launched twice
+   and held equal bit for bit, and timed beside its plain version, bound and
+   (flash) SDPA's forward and backward; ``mlstm_chunk_op`` under grad
+   raising; one ``value_and_grad`` of ``LM.loss`` card against CPU for
+   StableLM-3B and RecurrentGemma-9B at ``CARD_VS_CPU_LAYERS`` full-width
+   layers, ``init_scale=1`` (loss 1e-5 rel, every gradient present,
+   non-zero and within 1e-4 of its tensor's max, launches exact); 20 steps
+   of ``make_train_step`` with AdamW at StableLM-3B's full width cut to 4
+   layers, batch 8, seq 64, on rows of the launcher's ``build_dataset``
+   built on the card (exactly 2 ``text_scan`` launches; flash forward
+   layers x 2 and backward layers x 1 a step, with remat; the loss
+   falling; seconds a step, tokens/s, peak memory, one step traced for the
+   idle share); then ``launch.train.main`` at ``--smoke`` on the card to
+   step 10 and resumed to step 20, the restored state bit-equal to the
+   saved one;
+15. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
    line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
-   ``dataset``, ``executors`` and ``serve_text`` lines, the card line from
-   nvidia-smi, and the result line.
+   ``dataset``, ``executors``, ``serve_text`` and ``lm_train`` lines, the
+   card line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -2597,6 +2618,504 @@ def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
             "decode_vs_forward_max_abs_err": decode_err, "token_agreement": agreement}
 
 
+# The lm_train phase: the LM launcher's training path (src/repro/launch/
+# train.py, whose default is --arch stablelm_3b) on the card. StableLM-3B
+# at its full width cut to LM_TRAIN_LAYERS of its 32 layers: at full depth
+# the params, gradients and AdamW moments alone are 45 GB in fp32 and the
+# functional update makes new ones beside them (PERF.md §4). 4 layers
+# peak at 30.2 GB; at 8 the launcher's learning rate (3e-3) diverges, with
+# the plain versions as with the kernels (tools/lm_train_depth.py); batch 8,
+# seq 64 (the launcher's defaults), LM_TRAIN_STEPS steps with remat, so each
+# attention layer's flash forward launches twice a step and its backward
+# once.
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = "stablelm_3b", 4, 8, 64
+LM_TRAIN_STEPS, LM_TRAIN_CORPUS_MB, LM_TRAIN_LR = 20, 2.0, 3e-3
+# one step card vs CPU at CARD_VS_CPU_LAYERS full-width layers, batch 2, seq 64
+LM_TRAIN_CHECKED, LM_TRAIN_CHECK_BATCH = ("stablelm_3b", "recurrentgemma_9b"), 2
+# the launcher at --smoke on the card: to step 10 saving every 5, then resumed to step 20
+LAUNCHER_FLAGS = ["--arch", "stablelm_3b", "--smoke", "--device", "cuda", "--corpus-mb", "0.5",
+                  "--save-every", "5"]
+LAUNCHER_STEPS = (10, 20)
+# (b, s, nq, nkv, hd, causal, window) of the flash backward: the training
+# shapes, then hd 80 and 256, groups of 1, 4 and 16, lengths on both sides
+# of the backward's 32- and 64-key tiles, windows under the sequence, and
+# forwards that the plan splits over a cluster (lse from the combine)
+FLASH_BWD_CASES = [
+    (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 32, 80, True, 0),  # StableLM-3B's training step
+    (LM_TRAIN_CHECK_BATCH, 64, 16, 1, 256, True, 2048),  # RecurrentGemma-9B's checked step
+    (1, 1, 32, 32, 80, True, 0),
+    (1, 1, 16, 1, 256, True, 2048),
+    (3, 63, 16, 1, 256, True, 20),
+    (2, 65, 32, 32, 80, True, 0),
+    (4, 64, 8, 2, 80, True, 17),
+    (5, 64, 16, 16, 256, True, 64),
+    (1, 300, 4, 4, 80, True, 0),  # split
+    (1, 200, 2, 1, 80, True, 150),  # split, windowed
+    (2, 300, 16, 1, 256, True, 100),
+    (1, 300, 2, 2, 256, False, 0),  # non-causal, split
+    (8, 65, 4, 1, 256, False, 9),  # a non-causal window
+]
+
+
+def held_fp32(got, want, what: str) -> float:
+    """fp32 within 2e-5 abs/rel elementwise, or, where sums reorder over
+    many terms, within 1e-5 of the tensor's largest element. Returns the
+    max abs error."""
+    err = (got - want).abs()
+    worst = err.max().item() if err.numel() else 0.0
+    if not (torch.all(err <= 2e-5 + 2e-5 * want.abs())
+            or worst <= 1e-5 * want.abs().max().item()):
+        fail(f"{what}: max abs err {worst:.3e} against the plain version (largest element "
+             f"{want.abs().max().item():.3e}; tol 2e-5 abs/rel or 1e-5 of the largest)")
+    return worst
+
+
+def flash_bwd_inputs(case, gen):
+    b, s, nq, nkv, hd = case[:5]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    return rnd(b, s, nq, hd), rnd(b, s, nkv, hd), rnd(b, s, nkv, hd), rnd(b, s, nq, hd)
+
+
+def check_flash_bwd(gen) -> tuple[float, float]:
+    """The training entry of ``flash_attention`` against
+    ``flash_attention_train_ref`` (out and lse) and equal bit for bit to the
+    serving entry; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``;
+    each launched twice and the two results held equal bit for bit. Returns
+    the max abs errors of the training entry and of the backward at the
+    training shape."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_train_ref)
+
+    err_fwd = err_bwd = 0.0
+    n_split = 0
+    for case in FLASH_BWD_CASES:
+        b, s, nq, nkv, hd, causal, window = case
+        kw = dict(causal=causal, window=window)
+        n_split += flash_ops.plan(b, s, nq, nkv, q_offset=0, n_keys=s, **kw).split > 1
+        q, k, v, dout = flash_bwd_inputs(case, gen)
+        out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
+        out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
+        served = flash_ops.flash_attention_op(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want_out, want_lse = flash_attention_train_ref(q, k, v, **kw)
+        e_out = held_fp32(out, want_out, f"flash_attention_train {case} out")
+        held_fp32(lse, want_lse, f"flash_attention_train {case} lse")
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            fail(f"flash_attention_train {case}: two launches differ")
+        if not torch.equal(out, served):
+            fail(f"flash_attention {case}: the training entry's out differs from the serving "
+                 f"entry's")
+        grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        e_grad = max(held_fp32(g, w, f"flash_attention_bwd {case} d{name}")
+                     for name, g, w in zip("qkv", grads, want))
+        if not all(torch.equal(g, r) for g, r in zip(grads, again)):
+            fail(f"flash_attention_bwd {case}: two launches differ")
+        if case == FLASH_BWD_CASES[0]:
+            err_fwd, err_bwd = e_out, e_grad
+    if n_split < 2:
+        fail(f"flash_attention_train: only {n_split} of the backward's shapes split over a "
+             f"cluster")
+    print(f"flash_attention training entry and flash_attention_bwd: match plain at "
+          f"{len(FLASH_BWD_CASES)} shapes (hd 80 and 256, groups 1-16, seq 1-300, windows under "
+          f"the sequence; tol 2e-5 abs/rel or 1e-5 of the tensor's max), {n_split} of them "
+          f"split over a cluster in the forward; out equal to the serving entry's bit for bit; "
+          f"two launches identical bit for bit")
+    return err_fwd, err_bwd
+
+
+# (b, s, d) of the RG-LRU backward at RecurrentGemma-9B's training shape
+RG_TRAIN = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 4096)
+
+
+def check_rg_lru_bwd(gen) -> float:
+    """``rg_lru_bwd`` against ``rg_lru_bwd_ref`` at the forward's 11 shapes
+    and the training shape, with and without h0, with dh and d(last), dh
+    alone and d(last) alone (fp32, 1e-5); two launches bit for bit. Returns
+    the max abs error at the training shape."""
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru.ref import rg_lru_bwd_ref, rg_lru_ref
+
+    err = 0.0
+    cases = RG_SERVED + RG_EDGES + RG_MORE + [RG_TRAIN]
+    for case in cases:
+        a, b, h0 = rg_inputs(*case, gen)
+        dh = torch.randn(*case, generator=gen).cuda()
+        dlast = torch.randn(case[0], case[2], generator=gen).cuda()
+        for init in (None, h0):
+            h, _ = rg_lru_ref(a, b, init)
+            for cot in ((dh, dlast), (dh, None), (None, dlast)):
+                got = rg_ops.rg_lru_bwd(a, h, init, *cot)
+                again = rg_ops.rg_lru_bwd(a, h, init, *cot)
+                torch.cuda.synchronize()
+                for g, r, w in zip(got, again, rg_lru_bwd_ref(a, h, init, *cot)):
+                    if w is None:
+                        if g is not None:
+                            fail(f"rg_lru_bwd {case}: a dh0 without h0")
+                        continue
+                    torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+                    if not torch.equal(g, r):
+                        fail(f"rg_lru_bwd {case}: two launches differ")
+                    if case == RG_TRAIN:
+                        err = max(err, (g - w).abs().max().item())
+    print(f"rg_lru_bwd: matches plain at {len(cases)} shapes with and without h0, with dh and "
+          f"d(last), either alone (tol 1e-5); two launches identical bit for bit")
+    return err
+
+
+def check_mlstm_grad_raises(gen) -> None:
+    """``mlstm_chunk_op`` on the card under grad raises (its backward kernel
+    is the next slice) and launches nothing."""
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+
+    q, k, v, i_gate, f_gate = mlstm_inputs(1, 8, 4, 64, gen)
+    c, n, m = mlstm_state(1, 4, 64, gen)
+    before = mlstm_ops.LAUNCHES["mlstm_chunk"]
+    with torch.enable_grad():
+        try:
+            mlstm_ops.mlstm_chunk_op(q.requires_grad_(True), k, v, i_gate, f_gate, c, n, m)
+        except NotImplementedError as e:
+            print(f"mlstm_chunk_op under grad on the card raises: {e}")
+        else:
+            fail("mlstm_chunk_op under grad on the card returned a tensor with no gradient")
+    if mlstm_ops.LAUNCHES["mlstm_chunk"] != before:
+        fail("mlstm_chunk_op under grad launched its kernel")
+
+
+def time_flash_bwd(gen, bw: float, flops: float) -> dict:
+    """The backward and the training entry at StableLM-3B's training shape,
+    both timers, beside their plain versions and bounds; the yardstick is
+    ``scaled_dot_product_attention``'s forward and backward (the port never
+    calls it), beside the kernels' forward and backward together."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_train_ref)
+
+    case = FLASH_BWD_CASES[0]
+    b, s, nq, nkv, hd = case[:5]
+    q, k, v, dout = flash_bwd_inputs(case, gen)
+    out, lse = flash_ops.flash_attention_train(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def library():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    for g, w in zip(library(), flash_attention_bwd_ref(q, k, v, out, lse, dout)):
+        torch.testing.assert_close(g.transpose(1, 2), w, rtol=1e-4, atol=1e-4)
+    pairs = b * nq * s * (s + 1) // 2  # causal (query, key) pairs
+    q_elems, kv_elems = b * s * nq * hd, b * s * nkv * hd
+    # backward: q, k, v, out, dout and lse read, dq, dk, dv written; 5
+    # products over the pairs (S again, dP, dV, dQ, dK)
+    bwd_bytes = 4 * (4 * q_elems + 4 * kv_elems + b * nq * s)
+    bwd_ops = 5 * 2 * hd * pairs
+    # training forward: q, k, v read, out and lse written; q.k and p.v
+    fwd_bytes = 4 * (2 * q_elems + 2 * kv_elems + b * nq * s)
+    fwd_ops = 2 * 2 * hd * pairs
+
+    def bound(n_bytes, n_ops):
+        return max(n_bytes / bw, n_ops / flops) * 1e3, \
+            "bytes" if n_bytes / bw >= n_ops / flops else "operations"
+
+    def bwd():
+        return flash_ops.flash_attention_bwd(q, k, v, out, lse, dout)
+
+    def fwd():
+        return flash_ops.flash_attention_train(q, k, v)
+
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
+    row = {"ms": device_ms(bwd), "ms_burst": device_ms_burst(bwd),
+           "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout)),
+           "library_ms": device_ms(library), "library_ms_burst": device_ms_burst(library),
+           "library": "scaled_dot_product_attention forward + backward",
+           "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes, "operations": bwd_ops,
+           "train_forward_ms": device_ms(fwd), "train_forward_ms_burst": device_ms_burst(fwd),
+           "train_forward_plain_ms": device_ms(lambda: flash_attention_train_ref(q, k, v)),
+           "train_forward_bound_ms": fwd_bound, "train_forward_bound_by": fwd_by,
+           "shape": list(case)}
+    row["forward_and_backward_ms"] = row["ms"] + row["train_forward_ms"]
+    print(f"flash_attention_bwd fp32 {case}: {json.dumps(row)}")
+    return row
+
+
+def time_rg_lru_bwd(gen, bw: float, flops: float) -> dict:
+    """The backward at RecurrentGemma-9B's training shape (dh given, no h0
+    and no d(last), as ``rglru_scan`` trains), both timers, beside its plain
+    version and bound. No single PyTorch call computes it."""
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.rg_lru.ref import rg_lru_bwd_ref, rg_lru_ref
+
+    b_, s, d = RG_TRAIN
+    a, b, _ = rg_inputs(b_, s, d, gen)
+    h, _ = rg_lru_ref(a, b)
+    dh = torch.randn(b_, s, d, generator=gen).cuda()
+    n_bytes, n_ops = 4 * 5 * b_ * s * d, 3 * b_ * s * d  # a, h, dh read; da, db written
+    row = {"ms": device_ms(lambda: rg_ops.rg_lru_bwd(a, h, None, dh, None)),
+           "ms_burst": device_ms_burst(lambda: rg_ops.rg_lru_bwd(a, h, None, dh, None)),
+           "plain_ms": device_ms(lambda: rg_lru_bwd_ref(a, h, None, dh, None)),
+           "library_ms": None,
+           "bound_ms": max(n_bytes / bw, n_ops / flops) * 1e3,
+           "bound_by": "bytes" if n_bytes / bw >= n_ops / flops else "operations",
+           "shape": list(RG_TRAIN)}
+    print(f"rg_lru_bwd fp32 {RG_TRAIN}: {json.dumps(row)}")
+    return row
+
+
+def lm_train_counters() -> dict[str, dict]:
+    """The launch counters the LM's train step reaches, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+
+    return {"flash_attention": flash_ops.LAUNCHES, "flash_attention_bwd": flash_ops.LAUNCHES,
+            "rg_lru": rg_ops.LAUNCHES, "rg_lru_bwd": rg_ops.LAUNCHES}
+
+
+def zero_counters(counters: dict[str, dict]) -> None:
+    for name, counter in counters.items():
+        counter[name] = 0
+
+
+def step_launches(kinds, steps: int, remat: bool = True) -> dict[str, int]:
+    """Each layer kind's forward kernel launches 1 + remat times a step
+    (the forward, then its recompute in the backward) and its backward
+    kernel once."""
+    n = {"flash_attention": kinds.count("attn"), "rg_lru": kinds.count("rglru")}
+    return {"flash_attention": n["flash_attention"] * (1 + remat) * steps,
+            "flash_attention_bwd": n["flash_attention"] * steps,
+            "rg_lru": n["rg_lru"] * (1 + remat) * steps, "rg_lru_bwd": n["rg_lru"] * steps}
+
+
+def lm_step_card_vs_cpu(arch: str) -> dict:
+    """One ``value_and_grad`` of ``LM.loss`` at ``arch``'s width cut to
+    ``CARD_VS_CPU_LAYERS`` layers, ``init_scale=1``, the same weights and
+    batch on the card and on the CPU: the loss at 1e-5 rel, every
+    gradient present, non-zero and within 1e-4 of its tensor's largest
+    element; the card's launches exact."""
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
+
+    small = dataclasses.replace(get(arch), n_layers=CARD_VS_CPU_LAYERS[arch], init_scale=1.0)
+    card = LM(small, "cuda", seed=SEED)
+    cpu = LM(small, "meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        4, small.vocab_size, size=(LM_TRAIN_CHECK_BATCH, LM_TRAIN_SEQ)).astype(np.int32))
+    counters = lm_train_counters()
+    zero_counters(counters)
+    loss_card, grads_card = value_and_grad(functional_loss(card))(params_of(card),
+                                                                  {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    launches = {name: counter[name] for name, counter in counters.items()}
+    grads_card = {k: g.cpu() for k, g in grads_card.items()}
+    del card
+    torch.cuda.empty_cache()
+    loss_cpu, grads_cpu = value_and_grad(functional_loss(cpu))(params_of(cpu), {"tokens": tokens})
+    want = step_launches(cpu.kinds, 1)
+    if launches != want:
+        fail(f"{small.name} card step: launches {launches}, expected {want}")
+    lc, lp = loss_card.item(), loss_cpu.item()
+    if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
+        fail(f"{small.name} train step loss card {lc} vs CPU {lp} (rtol 1e-5)")
+    worst = 0.0
+    for path, w in grads_cpu.items():
+        g = grads_card[path]
+        scale = w.abs().max().item()
+        if g.abs().max().item() == 0 or scale == 0:
+            fail(f"{small.name} train step: the gradient of {path} is zero on the card")
+        ratio = (g - w).abs().max().item() / scale
+        worst = max(worst, ratio)
+        if ratio > 1e-4:
+            fail(f"{small.name} train step: {path}'s gradient differs from the CPU's by "
+                 f"{ratio:.3e} of its largest element (limit 1e-4)")
+    print(f"{small.name} with {small.n_layers} layers at init_scale 1, one train step card vs "
+          f"CPU (batch {tuple(tokens.shape)}): loss {lc:.6f} vs {lp:.6f}; all {len(grads_cpu)} "
+          f"gradients present and non-zero, worst max|dg|/max|g| {worst:.3e} (limit 1e-4); "
+          f"launches {launches}")
+    return {"arch": small.name, "layers": small.n_layers, "loss_card": lc, "loss_cpu": lp,
+            "grad_tensors": len(grads_cpu), "grad_worst_rel": worst, "launches": launches}
+
+
+def lm_train_steps() -> dict:
+    """``LM_TRAIN_STEPS`` steps of ``make_train_step`` over ``LM.loss`` with
+    AdamW (``warmup_cosine``, the launcher's schedule) at StableLM-3B's full
+    width and ``LM_TRAIN_LAYERS`` layers, on rows from the launcher's
+    ``build_dataset`` built on the card; exact ``text_scan``, flash forward
+    and backward launches, finite losses that fall; seconds a step,
+    tokens/s, peak memory, and one more step traced for the card's idle
+    share."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.text_clean import ops as clean_ops
+    from repro_torch.launch.serve import profile
+    from repro_torch.launch.train import build_dataset
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.train_loop import functional_loss, make_train_step, params_of
+
+    cfg = dataclasses.replace(get(LM_TRAIN_ARCH), n_layers=LM_TRAIN_LAYERS)
+    clean_ops.LAUNCHES["text_scan"] = 0
+    t0 = time.perf_counter()
+    seqs = build_dataset(cfg, LM_TRAIN_SEQ, LM_TRAIN_CORPUS_MB, seed=SEED, device="cuda")
+    dataset_seconds = time.perf_counter() - t0
+    scans = clean_ops.LAUNCHES["text_scan"]
+    if scans != P3SAPP_SCANS[True]:
+        fail(f"build_dataset made {scans} text_scan launches, expected {P3SAPP_SCANS[True]} (one "
+             f"fused scan a column; fit_vocab reuses the frame)")
+    model = LM(cfg, "cuda", seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(LM_TRAIN_LR, 10, LM_TRAIN_STEPS))
+    step = make_train_step(functional_loss(model), opt)
+    params = params_of(model)
+    state = opt.init(params)
+    rng = np.random.default_rng(SEED)
+
+    def next_batch():
+        idx = rng.integers(0, len(seqs), size=LM_TRAIN_BATCH)
+        return {"tokens": torch.from_numpy(seqs[idx]).cuda()}
+
+    warm = {"tokens": torch.from_numpy(seqs[:LM_TRAIN_BATCH]).cuda()}
+    step(params, state, warm)  # warm-up: cuBLAS handles, the allocator; its result is dropped
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = lm_train_counters()
+    zero_counters(counters)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(LM_TRAIN_STEPS):
+        params, state, metrics = step(params, state, next_batch())
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: counter[name] for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = step_launches(model.kinds, LM_TRAIN_STEPS)
+    if launches != want:
+        fail(f"the LM train steps made launches {launches}, expected {want} (layers x (1 + "
+             f"remat) forward, layers backward, a step)")
+    if not np.isfinite(losses).all():
+        fail(f"a non-finite LM training loss: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"the LM loss did not fall over {LM_TRAIN_STEPS} steps: {losses}")
+    traced = profile(lambda: step(params, state, next_batch()), torch.device("cuda"),
+                     torch.cuda.synchronize, f"one {cfg.name} train step at {LM_TRAIN_LAYERS} "
+                     f"layers")
+    n_tokens = LM_TRAIN_STEPS * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"LM train: {cfg.name} at full width, {LM_TRAIN_LAYERS} of {get(LM_TRAIN_ARCH).n_layers} "
+          f"layers ({model.param_count()} parameters), {LM_TRAIN_STEPS} steps of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in {seconds:.3f} s ({seconds / LM_TRAIN_STEPS * 1e3:.1f} "
+          f"ms a step, {n_tokens / seconds:.0f} tokens/s); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak memory {peak / 1e9:.2f} GB; launches {launches}; "
+          f"{len(seqs)} rows from build_dataset in {dataset_seconds:.2f} s ({scans} text_scan)")
+    line = {"arch": cfg.name, "layers": LM_TRAIN_LAYERS, "params": model.param_count(),
+            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "steps": LM_TRAIN_STEPS,
+            "seconds": seconds, "seconds_per_step": seconds / LM_TRAIN_STEPS,
+            "tokens_per_s": n_tokens / seconds, "peak_memory_bytes": peak,
+            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+            "launches": launches, "rows": len(seqs), "build_dataset_seconds": dataset_seconds,
+            "build_dataset_text_scan_launches": scans, "traced_step": traced}
+    del model, params, state
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_launcher() -> dict:
+    """``repro_torch.launch.train.main`` at ``--smoke`` on the card, twice
+    on one ``--ckpt``: to step 10, then resumed to step 20. The second run
+    must print ``resumed from step 10`` and start from the state the first
+    saved, bit for bit; each run's ``text_scan`` and flash launches exact;
+    every loss finite."""
+    import contextlib
+    import io
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.checkpoint.tree import flatten_with_paths, map_with_paths
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.text_clean import ops as clean_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm import layer_kinds
+
+    controllers = []
+
+    class Recording(launch_train.TrainController):
+        """The launcher's controller, keeping a copy of its starting state."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.start = map_with_paths(lambda _, t: t.clone(), (self.params, self.opt_state))
+            controllers.append(self)
+
+    counters = {"text_scan": clean_ops.LAUNCHES, **lm_train_counters()}
+    kinds = layer_kinds(get_smoke("stablelm_3b"))
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        done = 0
+        for steps in LAUNCHER_STEPS:
+            zero_counters(counters)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with mock.patch.object(launch_train, "TrainController", Recording), \
+                    contextlib.redirect_stdout(out):
+                history = launch_train.main(LAUNCHER_FLAGS + ["--ckpt", ckpt, "--steps",
+                                                              str(steps)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {name: counter[name] for name, counter in counters.items()}
+            text = out.getvalue()
+            print("  " + text.strip().replace("\n", "\n  "))
+            want = {"text_scan": P3SAPP_SCANS[True], **step_launches(kinds, steps - done)}
+            if launches != want:
+                fail(f"the launcher to step {steps} made launches {launches}, expected {want}")
+            if [h["step"] for h in history] != list(range(done + 1, steps + 1)):
+                fail(f"the launcher to step {steps} ran steps {[h['step'] for h in history]}")
+            if not all(np.isfinite(h["loss"]) for h in history):
+                fail(f"a non-finite loss in the launcher's run to step {steps}")
+            resumed = f"resumed from step {done}" in text
+            if resumed != bool(done):
+                fail(f"the launcher's run to step {steps} printed {text!r}")
+            runs.append({"steps": steps, "seconds": seconds, "launches": launches,
+                         "losses": [h["loss"] for h in history], "resumed": resumed})
+            done = steps
+    first, second = controllers
+    for (path, got), (_, saved) in zip(flatten_with_paths(second.start),
+                                       flatten_with_paths((first.params, first.opt_state)),
+                                       strict=True):
+        if got.dtype != saved.dtype or not torch.equal(got, saved):
+            fail(f"the resumed launcher's {path} differs from the state saved at step "
+                 f"{LAUNCHER_STEPS[0]}")
+    print(f"launcher: --smoke on the card to step {LAUNCHER_STEPS[0]}, then resumed from it to "
+          f"step {LAUNCHER_STEPS[1]} with params, moments and count equal bit for bit to those "
+          f"saved; launches {[r['launches'] for r in runs]}")
+    return {"runs": runs, "restored_bit_equal": True}
+
+
+def lm_train(bw: float, flops: float) -> tuple[dict, dict]:
+    """The lm_train phase; returns its line and the new kernels' rows."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 2)  # the earlier checks' draws unchanged
+    fwd_err, bwd_err = check_flash_bwd(gen)
+    rg_err = check_rg_lru_bwd(gen)
+    check_mlstm_grad_raises(gen)
+    rows = {"flash_attention_bwd": {**time_flash_bwd(gen, bw, flops), "max_abs_err": bwd_err,
+                                    "train_forward_max_abs_err": fwd_err},
+            "rg_lru_bwd": {**time_rg_lru_bwd(gen, bw, flops), "max_abs_err": rg_err}}
+    torch.cuda.empty_cache()
+    checked = [lm_step_card_vs_cpu(arch) for arch in LM_TRAIN_CHECKED]
+    line = {"card_vs_cpu": checked, **lm_train_steps(), "launcher": lm_train_launcher()}
+    line["phase_seconds"] = time.perf_counter() - t0
+    print(f"lm_train phase: {line['phase_seconds']:.1f} s")
+    return line, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2707,8 +3226,13 @@ def main() -> int:
 
     # 13. training: card vs CPU, 40 steps with a checkpoint, resume
     train_line = train(cleaned)
+    torch.cuda.empty_cache()
 
-    # 14. report
+    # 14. the LM launcher's training path: backward kernels, card vs CPU,
+    # StableLM-3B at full width, the launcher with a resume
+    lm_train_line, lm_rows = lm_train(bw, flops)
+
+    # 15. report
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -2738,7 +3262,12 @@ def main() -> int:
         {**lm_kernel("flash_attention", flash_err,
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/flash_attention.py:27"),
-         "serve_text_launches": serve_text_launches["flash_attention"]},
+         "serve_text_launches": serve_text_launches["flash_attention"],
+         "lm_train_launches": lm_train_line["launches"]["flash_attention"],
+         "train_forward": {k: lm_rows["flash_attention_bwd"][k] for k in
+                           ("train_forward_ms", "train_forward_ms_burst", "train_forward_plain_ms",
+                            "train_forward_bound_ms", "train_forward_bound_by",
+                            "train_forward_max_abs_err", "shape")}},
         lm_kernel("rg_lru", rg_err, "src/repro_torch/kernels/csrc/rg_lru.cu",
                   "src/repro/kernels/rg_lru/rg_lru.py:28"),
         {**lm_kernel("mlstm_chunk", mlstm_err, "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
@@ -2756,7 +3285,24 @@ def main() -> int:
          "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t,
          "dataset_launches": dataset_launches["lstm_cell_bwd"],
          "executors_launches": executors_launches["lstm_cell_bwd"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "none: XLA differentiates src/repro/models/attention.py:97 sdpa",
+         "launches": lm_train_line["launches"]["flash_attention_bwd"],
+         "launches_by_path": {"lm_train_steps": lm_train_line["launches"]["flash_attention_bwd"],
+                              **{c["arch"]: c["launches"]["flash_attention_bwd"]
+                                 for c in lm_train_line["card_vs_cpu"]}},
+         **lm_rows["flash_attention_bwd"]},
+        # StableLM-3B's steps have no RG-LRU layer: its launches are the
+        # RecurrentGemma-9B step's, counted from 0 around that step
+        {"name": "rg_lru_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rg_lru_bwd.cu",
+         "replaces": "none: XLA differentiates src/repro/models/rglru.py:82 rglru_scan",
+         "launches": sum(c["launches"]["rg_lru_bwd"] for c in lm_train_line["card_vs_cpu"]),
+         **lm_rows["rg_lru_bwd"]},
     ]
+    for entry in kernels:
+        if not entry["launches"]:
+            fail(f"{entry['name']} was launched no time on its path")
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
         now = entry[row]["ms"] if row else entry["ms"]
@@ -2779,6 +3325,7 @@ def main() -> int:
     print(json.dumps({"dataset": {**dataset_line, "card": card}}))
     print(json.dumps({"executors": {**executors_line, "card": card}}))
     print(json.dumps({"serve_text": {**serve_text_line, "card": card}}))
+    print(json.dumps({"lm_train": {**lm_train_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

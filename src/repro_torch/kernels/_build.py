@@ -54,8 +54,16 @@ SIGNATURES = {
     # blocks of a cluster; scale; stream
     "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
     "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
+    # as flash_attention_f32, with lse after out
+    "flash_attention_train_f32": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv; b, sq, skv, nq, nkv, hd;
+    # causal, window; scale; stream
+    "flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 8 + (_F, _P),
     # a, b, h0 (or null), out, h_last; dtype (0 fp32, 1 bf16), batch, seq, d; stream
     "rg_lru": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # a, h, h0, dh, dlast (each of the last three or null), da, db, dh0 (or
+    # null); batch, seq, d; stream
+    "rg_lru_bwd_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
     # q, k, v, i, f, C (in place), n_in, m_in, n_out, m_out, out; b, s, H, dh; stream
     "mlstm_chunk_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
 }

@@ -16,6 +16,16 @@ of the cluster and a warp of the block walk, as the kernel computes them
 on the card; the CPU tests hold the specification to covering every
 visible key exactly once, and ``chip_smoke.py`` holds the kernel to the
 plain version at planned splits.
+
+With grad mode on and q, k or v requiring grad, the op is
+``FlashAttentionFunction``: its forward is the kernel's training entry
+(``flash_attention_train_f32``, which also writes each row's log-sum-exp),
+its backward ``csrc/flash_attention_bwd.cu``; on the CPU the two plain
+versions ``flash_attention_train_ref`` and ``flash_attention_bwd_ref``.
+Only the full sequence (``q_offset == 0``, ``kv_len is None``) takes a
+gradient, in fp32. ``LAUNCHES["flash_attention"]`` counts the serving and
+the training entry's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
+backward call (its D pass, dK/dV kernel and dQ kernel).
 """
 
 from __future__ import annotations
@@ -26,9 +36,9 @@ import math
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref, flash_attention_train_ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 MAX_HEAD_DIM = 256  # two 4-wide chunks of the head a lane in the kernel's p . v
@@ -135,13 +145,29 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
     position ``q_offset + i``; only keys before ``kv_len`` (all when None)
     are seen, with the causal and sliding-window masks on top. Every query
     row must see at least one key; ``attend`` never makes a row that does
-    not."""
+    not. Differentiable (fp32, full sequence) when grad mode is on and q,
+    k or v requires grad."""
     _check(q, k, v, q_offset, kv_len)
     if q.shape[1]:
         _check_every_row_sees_a_key(q.shape[1], k.shape[1], causal, window, q_offset, kv_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset != 0 or kv_len is not None:
+            raise ValueError("flash_attention_op: a call with q_offset or kv_len (a KV cache) "
+                             "takes no gradient; only the full sequence trains")
+        if q.dtype != torch.float32:
+            raise TypeError(f"flash_attention_op: gradients are fp32 only, got {q.dtype} "
+                            "(bf16 training is ROADMAP Queue 1)")
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
+    return _launch(q, k, v, causal, window, q_offset, kv_len)
+
+
+def _launch(q, k, v, causal, window, q_offset, kv_len, lse=None) -> torch.Tensor:
+    """Launch ``flash_attention.cu`` on CUDA tensors: a serving entry, or
+    the training entry (fp32) when ``lse`` is the ``(b, nq, sq)`` fp32
+    buffer for each row's log-sum-exp."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
     if q.dtype not in _ENTRY:
@@ -159,12 +185,87 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                   n_keys=n_keys)
     if launch.tiles > 65535:
         raise ValueError(f"flash_attention_op: {sq} query rows exceed the grid")
-    fn = getattr(_build.library(), _ENTRY[q.dtype])
-    stream = _build.current_stream(q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, sq, skv, nq, nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is not None:
+        fn, args = _build.library().flash_attention_train_f32, args + (lse.data_ptr(),)
+    else:
+        fn = getattr(_build.library(), _ENTRY[q.dtype])
+    err = fn(*args, b, sq, skv, nq, nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              int(causal), window, q_offset, n_keys, launch.rows, launch.split,
-             1.0 / math.sqrt(hd), stream)
+             1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
+    """The forward of a training step over the full sequence, fp32 -> (out
+    ``(b, sq, nq, hd)``, lse ``(b, nq, sq)`` fp32): the kernel's training
+    entry on the card, ``flash_attention_train_ref`` on the CPU."""
+    _check(q, k, v, 0, None)
+    if q.device.type == "cpu":
+        return flash_attention_train_ref(q, k, v, causal=causal, window=window)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_train: the training entry takes float32, got {q.dtype}")
+    b, sq, nq, _ = q.shape
+    lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, 0, None, lse), lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
+    """The backward of ``flash_attention_train``, fp32 -> (dq, dk, dv) in
+    the shapes of q, k, v: ``flash_attention_bwd.cu`` on the card (one
+    launch of its entry: the D pass, the dK/dV kernel, the dQ kernel),
+    ``flash_attention_bwd_ref`` on the CPU."""
+    _check(q, k, v, 0, None)
+    b, sq, nq, hd = q.shape
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+                           ("lse", lse, (b, nq, sq))):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected float32 {tuple(shape)} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: the kernel takes float32, got {q.dtype}")
+    skv, nkv = k.shape[1], k.shape[2]
+    if b * nq > 2**31 - 1 or -(-max(sq, skv) // 32) > 65535:
+        raise ValueError(f"flash_attention_bwd: {b} x {nq} heads or {max(sq, skv)} positions "
+                         "exceed the grid")
+    q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
+    err = _build.library().flash_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, skv, nq, nkv, hd, int(causal), window, 1.0 / math.sqrt(hd),
+        _build.current_stream(q.device))
+    _build.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention_op`` over the full sequence with a gradient: the
+    training forward saves q, k, v, out and each row's log-sum-exp; the
+    backward recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_train(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                         window=ctx.window)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
+                None, None)

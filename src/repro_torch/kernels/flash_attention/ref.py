@@ -8,6 +8,13 @@ fp32 scores divided by √hd, masked keys set to ``-1e30`` (a row that sees
 no key gets a uniform softmax), fp32 softmax, probabilities cast to the
 input dtype before ``p·v``. Query head ``h`` reads kv head
 ``h // (nq // nkv)``.
+
+``flash_attention_train_ref`` and ``flash_attention_bwd_ref`` are the
+plain versions of the training entry and of the backward kernel
+(``csrc/flash_attention_bwd.cu``), fp32 over a full sequence (query ``i``
+at position ``i``): the forward also returns each row's log-sum-exp, and
+the backward writes the softmax's gradient out, as the kernel computes it,
+not through autograd.
 """
 
 from __future__ import annotations
@@ -42,3 +49,59 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bngst,btnk->bsngk", probs, v)
     return out.reshape(b, sq, nq, hd)
+
+
+def _mask(sq: int, skv: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(sq, skv): True where query position i sees key j."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _scaled_scores(q, k, causal: bool, window: int):
+    """fp32 scores · 1/√hd ``(b, nkv, group, sq, skv)``, -inf where masked."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, nkv, nq // nkv, hd)
+    s = torch.einsum("bsngk,btnk->bngst", qg, k.float()) / math.sqrt(hd)
+    return torch.where(_mask(sq, skv, causal, window, q.device), s, -math.inf)
+
+
+def flash_attention_train_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """The forward of a training step, fp32 -> (out ``(b, sq, nq, hd)``,
+    lse ``(b, nq, sq)``): lse is the log of each row's sum of
+    exp(score · 1/√hd) over its visible keys."""
+    b, sq, nq, hd = q.shape
+    s = _scaled_scores(q, k, causal, window)
+    lse = torch.logsumexp(s, dim=-1)  # (b, nkv, group, sq)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bngst,btnk->bsngk", p, v.float()).reshape(b, sq, nq, hd)
+    return out, lse.reshape(b, nq, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
+    """The backward of ``flash_attention_train_ref``, fp32 -> (dq, dk, dv)
+    in the shapes of q, k, v. With P = exp(S·scale − lse) (0 where masked)
+    and D = rowsum(dO∘O): dV = Σ Pᵀ dO, dS = P∘(dO Vᵀ − D),
+    dQ = dS K·scale, dK = dSᵀ Q·scale; dK and dV sum over the query
+    heads of each kv group."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    group = (b, sq, nkv, nq // nkv, hd)
+    qg, og, dog = (t.float().reshape(group) for t in (q, out, dout))
+    kf, vf = k.float(), v.float()
+    p = torch.exp(_scaled_scores(q, k, causal, window)
+                  - lse.float().reshape(b, nkv, nq // nkv, sq)[..., None])
+    delta = torch.einsum("bsngk,bsngk->bngs", dog, og)
+    dv = torch.einsum("bngst,bsngk->btnk", p, dog)
+    dp = torch.einsum("bsngk,btnk->bngst", dog, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bngst,btnk->bsngk", ds, kf).reshape(b, sq, nq, hd) * scale
+    dk = torch.einsum("bngst,bsngk->btnk", ds, qg) * scale
+    return dq, dk, dv

@@ -7,7 +7,9 @@ block prefill and a one-token decode step. C is updated IN PLACE (the
 returned C is the tensor given), as the KV cache is; n and m come back as
 fresh tensors. CPU tensors go to the plain version in ``ref.py``; CUDA
 tensors go to the kernel or raise. ``LAUNCHES["mlstm_chunk"]`` counts
-kernel launches and nothing else.
+kernel launches and nothing else. The kernel has no backward yet: on the
+card a call under grad with an input that requires grad raises (on the CPU
+the plain version's autograd gives the gradient).
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def mlstm_chunk_op(q, k, v, i_gate, f_gate, c, n, m):
         return h.to(q.dtype), c, n_new, m_new
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk_op: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_gate, f_gate, c, n, m)):
+        raise NotImplementedError("mlstm_chunk_op: the kernel has no backward yet, so it takes "
+                                  "no gradient on the card (ROADMAP Queue 1 item 1)")
     b, s, H, dh = q.shape
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"mlstm_chunk_op: head dim {dh} exceeds {MAX_HEAD_DIM}")

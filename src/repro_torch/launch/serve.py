@@ -146,8 +146,9 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 
 # kernel names of csrc/*.cu, as the profiler lists them
 HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "text_scan_kernel",
-                "flash_attention_kernel", "rg_lru_kernel", "mlstm_chunk_kernel",
-                "mlstm_decode_kernel")
+                "flash_attention_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel", "rg_lru_kernel", "rg_lru_bwd_kernel",
+                "mlstm_chunk_kernel", "mlstm_decode_kernel")
 # substrings of cuBLAS's matrix-product kernel names, lower-cased
 GEMM = ("gemm", "gemv")
 
@@ -157,9 +158,10 @@ def _where(device: torch.device) -> str:
 
 
 def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], None],
-            label: str) -> None:
+            label: str) -> dict:
     """Trace one call of ``fn``; print device time by kernel and the share
-    of its wall time in which the device ran a kernel."""
+    of its wall time in which the device ran a kernel, and return the wall
+    and busy milliseconds and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -188,6 +190,7 @@ def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], N
               f"({gemm_us / busy_us:.2%} of the device time)")
     print(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / wall_us}
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ version on the CPU. It stands where the JAX package calls ``sdpa`` or
 ``chunked_sdpa``, in all three uses of ``attend``: the full sequence
 without a cache, block prefill into the cache at ``cache_pos = 0``, and a
 one-token decode step at ``cache_pos = pos``; with a sliding window the
-cache may be the ring of ``_ring_attend``.
+cache may be the ring of ``_ring_attend``. Under grad a full-sequence
+call is differentiable through the kernel's backward; a call over the
+cache (``q_offset`` or ``kv_len`` set) raises.
 """
 
 from __future__ import annotations

@@ -153,3 +153,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# -- loss -------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood over ``mask``, accumulated in fp32 and
+    divided by max(Σmask, 1). Counterpart of
+    ``repro/models/blocks.py:171 cross_entropy_loss``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    mask = mask.float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -11,20 +11,29 @@ units, so each layer keeps its own parameters
 (``repro_torch.bridge.lm_params_from_jax`` splits the JAX package's
 stacked tree). MoE and the frontends raise ``NotImplementedError`` naming
 their ROADMAP item.
+
+``loss`` is the causal next-token cross entropy of
+``repro/models/lm.py:302 LM.loss``, differentiable through the attention
+and RG-LRU kernels' backward kernels on the card (the mLSTM kernel has none
+yet and raises under grad there). With ``remat`` each layer runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as
+``jax.checkpoint`` wraps each unit of the reference (``:291``); a layer's
+kernel forward then launches twice a step.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..bridge import lm_params_from_jax
 from ..device import resolve
 from . import rglru as RG
 from . import xlstm as XL
 from .attention import attend, init_attention, init_kv_cache
-from .blocks import (apply_mlp, apply_norm, embed_tokens, init_embed, init_mlp, init_norm,
-                     lm_logits)
+from .blocks import (apply_mlp, apply_norm, cross_entropy_loss, embed_tokens, init_embed,
+                     init_mlp, init_norm, lm_logits)
 
 BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
@@ -67,19 +76,23 @@ class LM(nn.Module):
     """Parameters, with the JAX package's names per layer:
     ``embed.{embedding,lm_head}``, ``layers.<i>.*`` (``{norm1,attn,norm2,mlp}``
     for ``attn``, ``{norm1,rec,norm2,mlp}`` for ``rglru``, ``{norm1,mix}``
-    for ``mlstm`` and ``slstm``), ``final_norm.*``. Forward-only:
-    parameters do not require grad."""
+    for ``mlstm`` and ``slstm``), ``final_norm.*``. Parameters do not
+    require grad: a train step differentiates ``loss`` with respect to a
+    ``{path: tensor}`` tree through ``runtime.train_loop.functional_loss``."""
 
-    def __init__(self, cfg, device=None, *, dtype=torch.float32, seed: int = 0):
+    def __init__(self, cfg, device=None, *, dtype=torch.float32, seed: int = 0,
+                 remat: bool = True):
         """Random weights drawn from a ``torch.Generator`` seeded with
         ``seed`` on ``device`` itself: the card unless the caller names
         another (``"meta"`` makes the shapes only). The same seed gives
         other weights on another kind of device; copy a state dict to
-        compare devices."""
+        compare devices. ``remat`` recomputes each layer in ``loss``'s
+        backward instead of keeping its activations."""
         super().__init__()
         _supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.kinds = layer_kinds(cfg)
         device = resolve(device)
         g = torch.Generator(device="cpu" if device.type == "meta" else device)
@@ -124,25 +137,53 @@ class LM(nn.Module):
         x = x + h
         return x + apply_mlp(layer["mlp"], apply_norm(layer["norm2"], x, cfg.norm), cfg), new_cache
 
-    @torch.no_grad()
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The residual stream after the last layer, before the final norm:
-        ``(b, s, d_model)`` for ``tokens`` ``(b, s)``."""
+    def _trunk(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``hidden`` without ``no_grad``: under grad with ``remat`` each
+        layer is a checkpoint. The checkpointed function gets the layer's
+        tensors as a plain dict made here, so that its recompute in the
+        backward reads the tensors this call saw (``functional_call``'s,
+        which are gone from the module by then)."""
         tokens = tokens.to(self.device)
         x = embed_tokens(self.embed, tokens, self.cfg)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
+        remat = self.remat and torch.is_grad_enabled()
         for layer, kind in zip(self.layers, self.kinds):
-            x, _ = self._block(layer, kind, x, positions)
+            if remat:
+                tensors = {name: dict(sub.items()) for name, sub in layer.items()}
+                x = checkpoint(self._layer, tensors, kind, x, positions, use_reentrant=False)
+            else:
+                x, _ = self._block(layer, kind, x, positions)
         return x
+
+    def _layer(self, layer, kind, x, positions) -> torch.Tensor:
+        return self._block(layer, kind, x, positions)[0]
+
+    @torch.no_grad()
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The residual stream after the last layer, before the final norm:
+        ``(b, s, d_model)`` for ``tokens`` ``(b, s)``."""
+        return self._trunk(tokens)
+
+    def _logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = apply_norm(self.final_norm, self._trunk(tokens), self.cfg.norm)
+        return lm_logits(self.embed, x, self.cfg)
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
         """Logits ``(b, s, vocab)`` for ``batch["tokens"]`` ``(b, s)``.
         Counterpart of ``repro/models/lm.py:270 LM.forward`` without its
         MoE auxiliary loss, which is 0 for these configurations."""
-        x = apply_norm(self.final_norm, self.hidden(batch["tokens"]), self.cfg.norm)
-        return lm_logits(self.embed, x, self.cfg)
+        return self._logits(batch["tokens"])
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """The mean next-token cross entropy of ``batch["tokens"]`` ``(b,
+        s)``, fp32 0-d. Counterpart of ``repro/models/lm.py:302 LM.loss``
+        for the causal configurations (the encoder-only one has a frontend,
+        which the port does not take); its MoE term is 0 here."""
+        targets = batch["tokens"].to(self.device)[:, 1:]
+        logits = self._logits(batch["tokens"])[:, :-1]
+        return cross_entropy_loss(logits, targets, torch.ones_like(targets))
 
     def init_decode_state(self, batch: int, max_seq: int) -> list:
         """One state per layer, of its kind: a zeroed KV cache (a ring of

@@ -6,7 +6,8 @@ h_t = a_t·h_{t−1} + b_t is ``rg_lru_op`` in every use of the block (a full
 sequence, a block prefill from a state, a one-token decode step): the
 hand-written CUDA kernel on the card, its plain version on the CPU. The
 reference runs ``jax.lax.associative_scan`` there and one elementwise step
-at decode.
+at decode. Under grad the recurrence is differentiable through its
+backward kernel (``rg_lru_bwd.cu``), with or without a state.
 """
 
 from __future__ import annotations
