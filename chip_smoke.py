@@ -11,7 +11,8 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (fp32 at 1e-5, bf16 at 2e-2, bytes
    identical); ``lstm_cell`` also at its tiling's edges and unaligned
-   inputs; ``flash_attention`` also at long caches split over a cluster,
+   inputs; ``flash_attention`` also at DeepSeek-MoE-16B's heads (16/16 of
+   128: prefill, decode, its training step), at long caches split over a cluster,
    prefills whose planned splits leave ranges empty or fully masked for
    some rows, and strided K/V; ``rg_lru`` in fp32 and bf16; ``mlstm_chunk``
    over three draws of a grid of lengths (the decode path at 1), head
@@ -34,9 +35,10 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    of 64 through ``serve_abstracts``, with the launch counters set to 0
    just before and read just after; then rerun one batch on the CPU with
    the plain versions and compare logits and tokens;
-6. for each LM of ``LM_ARCHS`` (StableLM-3B, RecurrentGemma-9B, xLSTM-1.3B)
-   at its published width and depth (random weights from seed 0 built on
-   the card): serve 8 requests through ``serve_requests``, 4 slots, 12 new
+6. for each LM of ``LM_ARCHS`` (StableLM-3B, RecurrentGemma-9B, xLSTM-1.3B,
+   DeepSeek-MoE-16B) at its published width and depth (DeepSeek-MoE-16B cut
+   to ``SERVE_LM_LAYERS``: 8 of its 28 layers; random weights from seed 0
+   built on the card): serve 8 requests through ``serve_requests``, 4 slots, 12 new
    tokens, a 128-long cache, with the LM kernels' launch counters set to 0
    just before and read just after (each layer launches its kind's kernel
    once per generated token); then a model of the same width cut to
@@ -128,10 +130,15 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    and the training shape with and without h0 (1e-5), each launched twice
    and held equal bit for bit, and timed beside its plain version, bound and
    (flash) SDPA's forward and backward; ``mlstm_chunk_op`` under grad
-   raising; one ``value_and_grad`` of ``LM.loss`` card against CPU for
-   StableLM-3B and RecurrentGemma-9B at ``CARD_VS_CPU_LAYERS`` full-width
-   layers, ``init_scale=1`` (loss 1e-5 rel, every gradient present,
-   non-zero and within 1e-4 of its tensor's max, launches exact); 20 steps
+   (``MLSTMFunction``: the training entry of ``mlstm_chunk`` and
+   ``mlstm_chunk_bwd``) at xLSTM-1.3B's heads (s 1-200) and narrow ones
+   from a carried state, against the plain versions, fp64 autograd and
+   itself bit for bit, and timed; one ``value_and_grad`` of ``LM.loss``
+   card against CPU for StableLM-3B, RecurrentGemma-9B, xLSTM-1.3B (with
+   and without remat) and DeepSeek-MoE-16B at ``CARD_VS_CPU_LAYERS``
+   full-width layers, ``init_scale=1`` (loss 1e-5 rel, every gradient
+   present, non-zero and within 1e-4 of its tensor's max, launches exact,
+   expert ids equal); 20 steps
    of ``make_train_step`` with AdamW at StableLM-3B's full width cut to 4
    layers, batch 8, seq 64, on rows of the launcher's ``build_dataset``
    built on the card (exactly 2 ``text_scan`` launches; flash forward
@@ -139,7 +146,8 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    falling; seconds a step, tokens/s, peak memory, one step traced for the
    idle share); then ``launch.train.main`` at ``--smoke`` on the card to
    step 10 and resumed to step 20, the restored state bit-equal to the
-   saved one;
+   saved one, and 20 steps of it for xLSTM-1.3B, DeepSeek-MoE-16B and
+   Kimi-K2 (launches exact, the loss falling);
 15. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
    line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
    ``dataset``, ``executors``, ``serve_text`` and ``lm_train`` lines, the
@@ -166,10 +174,17 @@ N_CORPUS = 2000
 N_REQUESTS = 512
 BATCH = 64
 # LM serving: the JAX launcher's defaults (src/repro/launch/serve.py:25-28)
-LM_ARCHS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b")
+LM_ARCHS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b", "deepseek_moe_16b")
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_SEQ = 8, 4, 12, 128
+# Served at full width but cut in depth: DeepSeek-MoE-16B to 8 of its 28
+# layers (1 dense + 7 MoE, 4.6 B parameters, 18.5 GB in fp32). All 28 are
+# 16.38 B parameters, 65.5 GB in fp32: too little of the card's 80 GB would
+# be left beside the other phases, and too little of the run's time.
+SERVE_LM_LAYERS = {"deepseek_moe_16b": 8}
 # layers of the card-vs-CPU model: one layer of every kind of the pattern
-CARD_VS_CPU_LAYERS = {"stablelm_3b": 2, "recurrentgemma_9b": 3, "xlstm_1_3b": 8}
+# (DeepSeek-MoE-16B: its dense first layer and one MoE layer)
+CARD_VS_CPU_LAYERS = {"stablelm_3b": 2, "recurrentgemma_9b": 3, "xlstm_1_3b": 8,
+                      "deepseek_moe_16b": 2}
 # the kernel each kind of LM layer launches once per model pass
 KERNEL_OF_KIND = {"attn": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm_chunk"}
 # Per-card peaks from NVIDIA's data sheets: (name substring, device memory
@@ -1925,6 +1940,15 @@ FLASH_EDGES = [
     (1, 64, 2048, 8, 2, 128, True, 0, 1200, 1264),
     (1, 3, 600, 4, 2, 64, True, 100, 450, 453),  # a windowed block deep in a cache
 ]
+# DeepSeek-MoE-16B's attention (16 query and kv heads of 128): a block
+# prefill, decode steps into the 128-long cache, and the training step's
+# full causal pass (LM_TRAIN_CHECK_BATCH sequences of 64). Drawn from a
+# generator of their own, so the earlier shapes' draws are unchanged.
+FLASH_SERVED_MOE = (
+    [(1, sq, LM_MAX_SEQ, 16, 16, 128, True, 0, 0, sq) for sq in (4, 9, 16)]
+    + [(1, 1, LM_MAX_SEQ, 16, 16, 128, True, 0, pos, pos + 1) for pos in (0, 4, 15, 77, 126)]
+    + [(2, 64, 64, 16, 16, 128, True, 0, 0, None)]
+)
 # Shapes at which flash_attention/ops.py:plan splits each tile's keys over a
 # cluster (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len)
 FLASH_SPLITS = [
@@ -1949,12 +1973,16 @@ FLASH_SPLITS = [
     (1, 1, 2048, 16, 1, 256, False, 0, 0, 2048),
     (1, 7, 512, 6, 2, 30, True, 0, 400, 407),
 ]
-# timed shapes: StableLM-3B's heads (hd 80), then RecurrentGemma-9B's (MQA, hd 256)
+# timed shapes: StableLM-3B's heads (hd 80), RecurrentGemma-9B's (MQA, hd
+# 256), then DeepSeek-MoE-16B's (16/16 heads of 128) at decode and at the
+# training step's forward
 FLASH_TIMED = {
     "decode": (1, 1, LM_MAX_SEQ, 32, 32, 80, True, 0, 15, 16),
     "prefill": (1, 10, LM_MAX_SEQ, 32, 32, 80, True, 0, 0, 10),
     "decode_hd256": (1, 1, LM_MAX_SEQ, 16, 1, 256, True, 2048, 15, 16),
     "prefill_hd256": (1, 10, LM_MAX_SEQ, 16, 1, 256, True, 2048, 0, 10),
+    "decode_hd128": (1, 1, LM_MAX_SEQ, 16, 16, 128, True, 0, 15, 16),
+    "train_hd128": (2, 64, 64, 16, 16, 128, True, 0, 0, 64),
 }
 
 
@@ -1988,6 +2016,7 @@ def check_flash_attention(gen) -> float:
     err = 0.0
     cases = [(c, False) for c in FLASH_SERVED + FLASH_EDGES + FLASH_SPLITS] + \
         [(FLASH_SERVED[-1], True), (FLASH_EDGES[1], True), (FLASH_SPLITS[1], True)]
+    moe_gen = torch.Generator().manual_seed(SEED + 3)
     for case in FLASH_SPLITS:
         b, sq, skv, nq, nkv = case[:5]
         launch = plan(b, sq, nq, nkv, causal=case[6], window=case[7], q_offset=case[8],
@@ -2006,9 +2035,20 @@ def check_flash_attention(gen) -> float:
                 fail(f"flash_attention {dtype} {case} strided {strided}: two launches differ")
             if dtype == torch.float32 and case in FLASH_SERVED:
                 err = max(err, (got - want).abs().max().item())
-        print(f"flash_attention {dtype}: matches plain at {len(cases)} shapes (tol {tol}), "
-              f"{len(FLASH_SPLITS) + 1} of them at a cluster split; two launches identical "
-              f"bit for bit")
+        for case in FLASH_SERVED_MOE:
+            q, k, v = flash_inputs(case, dtype, moe_gen)
+            got = flash_attention_op(q, k, v, **flash_kwargs(case))
+            again = flash_attention_op(q, k, v, **flash_kwargs(case))
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, **flash_kwargs(case))
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            if not torch.equal(got, again):
+                fail(f"flash_attention {dtype} {case}: two launches differ")
+            if dtype == torch.float32:
+                err = max(err, (got - want).abs().max().item())
+        print(f"flash_attention {dtype}: matches plain at {len(cases) + len(FLASH_SERVED_MOE)} "
+              f"shapes (tol {tol}), {len(FLASH_SERVED_MOE)} of them DeepSeek-MoE-16B's, "
+              f"{len(FLASH_SPLITS) + 1} at a cluster split; two launches identical bit for bit")
     return err
 
 
@@ -2551,7 +2591,35 @@ def serve_lm(cfg):
             "seconds": seconds, "requests_per_s": len(out) / seconds,
             "tokens_per_s": n_tokens / seconds,
             "launches": {name: launches[name] for name, n in per_pass.items() if n}}
+    if cfg.moe is not None:
+        line.update(moe_serving_costs(model, requests, kw))
     return launches, line
+
+
+def moe_serving_costs(model, requests, kw) -> dict:
+    """For a MoE LM: the expert loop's host syncs (one a MoE layer a model
+    pass) over the served run again, with the seconds the host waited in
+    them, and one request traced for the card's idle share."""
+    from repro_torch.launch.serve import profile
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve_loop import serve_requests
+
+    moe.HOST_SYNCS.update(count=0, seconds=0.0)
+    t0 = time.perf_counter()
+    serve_requests(model, requests, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    syncs = dict(moe.HOST_SYNCS)
+    n_moe = sum(model.moe)
+    traced = profile(lambda: serve_requests(model, requests[:1], slots=1, max_seq=LM_MAX_SEQ),
+                     torch.device("cuda"), torch.cuda.synchronize,
+                     f"one {model.cfg.name} request at {model.cfg.n_layers} layers")
+    print(f"{model.cfg.name}: {syncs['count']} host syncs of the expert loop ({n_moe} a model "
+          f"pass) in a served run of {seconds:.3f} s, waiting {syncs['seconds']:.3f} s in them "
+          f"({syncs['seconds'] / seconds:.2%})")
+    return {"host_syncs": syncs["count"], "host_sync_wait_s": syncs["seconds"],
+            "host_sync_run_s": seconds, "host_sync_wait_share": syncs["seconds"] / seconds,
+            "traced_request": traced}
 
 
 def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
@@ -2630,8 +2698,14 @@ def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
 # once.
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = "stablelm_3b", 4, 8, 64
 LM_TRAIN_STEPS, LM_TRAIN_CORPUS_MB, LM_TRAIN_LR = 20, 2.0, 3e-3
-# one step card vs CPU at CARD_VS_CPU_LAYERS full-width layers, batch 2, seq 64
-LM_TRAIN_CHECKED, LM_TRAIN_CHECK_BATCH = ("stablelm_3b", "recurrentgemma_9b"), 2
+# one step card vs CPU at CARD_VS_CPU_LAYERS full-width layers, batch 2, seq
+# 64, by (arch, remat): xLSTM-1.3B with and without remat
+LM_TRAIN_CHECKED = (("stablelm_3b", True), ("recurrentgemma_9b", True), ("xlstm_1_3b", True),
+                    ("xlstm_1_3b", False), ("deepseek_moe_16b", True))
+LM_TRAIN_CHECK_BATCH = 2
+# the launcher at --smoke on the card for the recurrent and MoE LMs: 20
+# steps each, the loss falling
+LAUNCHER_ARCHS, LAUNCHER_ARCH_STEPS = ("xlstm_1_3b", "deepseek_moe_16b", "kimi_k2_1t_a32b"), 20
 # the launcher at --smoke on the card: to step 10 saving every 5, then resumed to step 20
 LAUNCHER_FLAGS = ["--arch", "stablelm_3b", "--smoke", "--device", "cuda", "--corpus-mb", "0.5",
                   "--save-every", "5"]
@@ -2643,6 +2717,7 @@ LAUNCHER_STEPS = (10, 20)
 FLASH_BWD_CASES = [
     (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 32, 80, True, 0),  # StableLM-3B's training step
     (LM_TRAIN_CHECK_BATCH, 64, 16, 1, 256, True, 2048),  # RecurrentGemma-9B's checked step
+    (LM_TRAIN_CHECK_BATCH, 64, 16, 16, 128, True, 0),  # DeepSeek-MoE-16B's checked step
     (1, 1, 32, 32, 80, True, 0),
     (1, 1, 16, 1, 256, True, 2048),
     (3, 63, 16, 1, 256, True, 20),
@@ -2769,23 +2844,153 @@ def check_rg_lru_bwd(gen) -> float:
     return err
 
 
-def check_mlstm_grad_raises(gen) -> None:
-    """``mlstm_chunk_op`` on the card under grad raises (its backward kernel
-    is the next slice) and launches nothing."""
-    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+# (b, s, H, dh) of the mLSTM backward: xLSTM-1.3B's 4 heads of 512 at a
+# decode step, a prompt, one chunk, a chunk and a step, two chunks and a
+# ragged third, and three; then narrow heads (the products' ragged column
+# tiles) and the training step's shape (LM_TRAIN_CHECK_BATCH of seq 64)
+MLSTM_BWD_SERVED = [(1, s, 4, 512) for s in (1, 7, 64, 65, 130, 200)]
+MLSTM_BWD_EDGES = [(2, 65, 2, 16), (1, 130, 4, 64), (3, 1, 2, 64), (2, 7, 4, 16), (2, 64, 4, 512)]
+MLSTM_BWD_TIMED = (8, 64, 4, 512)  # batch 8, seq 64: the launcher's training step
 
-    q, k, v, i_gate, f_gate = mlstm_inputs(1, 8, 4, 64, gen)
-    c, n, m = mlstm_state(1, 4, 64, gen)
-    before = mlstm_ops.LAUNCHES["mlstm_chunk"]
+
+def mlstm_grads(args, state, cts, *, fp64: bool = False):
+    """The gradients of (q, k, v, i, f, C, n, m) for the cotangents ``cts``
+    of (h, C, n, m) (None: not differentiated): through ``mlstm_chunk_op``
+    under grad (on the card, ``MLSTMFunction``: the training entry and the
+    backward kernel), or with ``fp64`` by autograd of the plain version in
+    fp64."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk_op
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+
+    dtype = torch.float64 if fp64 else torch.float32
+    ins = [t.detach().to(dtype).clone().requires_grad_(True) for t in (*args, *state)]
     with torch.enable_grad():
-        try:
-            mlstm_ops.mlstm_chunk_op(q.requires_grad_(True), k, v, i_gate, f_gate, c, n, m)
-        except NotImplementedError as e:
-            print(f"mlstm_chunk_op under grad on the card raises: {e}")
-        else:
-            fail("mlstm_chunk_op under grad on the card returned a tensor with no gradient")
-    if mlstm_ops.LAUNCHES["mlstm_chunk"] != before:
-        fail("mlstm_chunk_op under grad launched its kernel")
+        out = mlstm_chunk_ref(*ins, dtype=dtype) if fp64 else mlstm_chunk_op(*ins)
+        used = [(o, c.to(dtype)) for o, c in zip(out, cts) if c is not None]
+        return torch.autograd.grad([o for o, _ in used], ins, [c for _, c in used])
+
+
+def check_mlstm_bwd(gen) -> tuple[float, float]:
+    """``mlstm_chunk_op`` under grad on the card (``MLSTMFunction``): the
+    training entry's h, C, n, m and chunk states against
+    ``mlstm_chunk_train_ref`` (output 2e-5, state 1e-4 relative and 1e-6
+    absolute) with the input C untouched; the backward's eight gradients
+    against ``mlstm_chunk_bwd_ref`` on the same saved tensors
+    (``held_fp32``), and against fp64 autograd of ``mlstm_chunk_ref``
+    within 5e-5 of each tensor's largest element (the CPU tests' limit);
+    every input gets a gradient; two runs of the backward identical bit for
+    bit. From a carried state, with cotangents for h alone (the train
+    step's) and for h and the whole returned state. Returns the max abs
+    errors of the gradients and of the training entry's h at the served
+    shapes."""
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref, mlstm_chunk_train_ref
+
+    bwd_err = fwd_err = 0.0
+    worst_fp64 = 0.0
+    names = ("dq", "dk", "dv", "di", "df", "dC", "dn", "dm")
+    for case in MLSTM_BWD_SERVED + MLSTM_BWD_EDGES:
+        b, s, H, dh = case
+        args = mlstm_inputs(b, s, H, dh, gen)
+        state = mlstm_state(b, H, dh, gen)
+        c_before = state[0].clone()
+        got = mlstm_ops.mlstm_chunk_train(*args, *state)
+        want = mlstm_chunk_train_ref(*args, *state)
+        exact = mlstm_chunk_train_ref(*args, *state, dtype=torch.float64)
+        torch.cuda.synchronize()
+        if not torch.equal(state[0], c_before):
+            fail(f"mlstm_chunk_train {case} wrote its input C")
+        for name, g, w, x in zip(("h", "C", "n", "m", "C_in", "n_in", "m_in"), got, want, exact):
+            tol = (2e-5, 2e-5) if name == "h" else (1e-4, 1e-6)
+            held_to_plain(g, w, x, *tol, f"mlstm_chunk_train {case} {name}")
+        if case in MLSTM_BWD_SERVED:
+            fwd_err = max(fwd_err, (got[0] - want[0]).abs().max().item())
+        h, c_st, n_st, m_st = got[0], *got[4:]
+        dh_out = torch.randn(b, s, H, dh, generator=gen).cuda()
+        d_state = (torch.randn(b, H, dh, dh, generator=gen).cuda(),
+                   torch.randn(b, H, dh, generator=gen).cuda(), torch.randn(b, H, generator=gen).cuda())
+        for label, cts in (("dh", (dh_out, None, None, None)), ("dh+state", (dh_out, *d_state))):
+            runs = [mlstm_ops.mlstm_chunk_bwd(*args, c_st, n_st, m_st, h, *cts) for _ in range(2)]
+            plain = mlstm_chunk_bwd_ref(*args, c_st, n_st, m_st, h, *cts)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                fail(f"mlstm_chunk_bwd {case} {label}: two launches differ")
+            for name, g, w in zip(names, runs[0], plain):
+                e = held_fp32(g, w, f"mlstm_chunk_bwd {case} {label} {name}")
+                if case in MLSTM_BWD_SERVED:
+                    bwd_err = max(bwd_err, e)
+            through = mlstm_grads(args, state, cts)
+            exact = mlstm_grads(args, state, cts, fp64=True)
+            for name, g, x in zip(names, through, exact):
+                scale = x.abs().max().item()
+                if g is None or (scale > 0 and g.abs().max().item() == 0):
+                    fail(f"mlstm_chunk_op under grad {case} {label}: no gradient for {name}")
+                ratio = (g.double() - x).abs().max().item() / max(scale, 1e-30)
+                worst_fp64 = max(worst_fp64, ratio)
+                if ratio > 5e-5:
+                    fail(f"mlstm_chunk_op under grad {case} {label} {name}: {ratio:.3e} of the "
+                         f"largest element from fp64 autograd (limit 5e-5)")
+    print(f"mlstm_chunk training entry: h, C, n, m and the chunk states match plain at "
+          f"{len(MLSTM_BWD_SERVED + MLSTM_BWD_EDGES)} shapes from a carried state, input C "
+          f"untouched; h max abs err {fwd_err:.3e} at the served shapes")
+    print(f"mlstm_chunk_bwd fp32: 8 gradients match plain (2e-5 abs/rel or 1e-5 of the largest) "
+          f"with cotangents of h and of h and the state; max abs err {bwd_err:.3e} at the served "
+          f"shapes; through MLSTMFunction within {worst_fp64:.3e} of fp64 autograd (limit 5e-5); "
+          f"two launches identical bit for bit")
+    return bwd_err, fwd_err
+
+
+def mlstm_bwd_work(b, s, H, dh) -> tuple[int, int]:
+    """(bytes, operations) of the backward in fp32 with a cotangent of h
+    alone, as a train step gives it: q, k, v, h, dh and the gates read,
+    each chunk's input C, n and m read once; dq, dk, dv, the gates'
+    gradients, dC, dn, dm of the input state written. Per chunk of L steps
+    and head, five products of L x dh x dh (q C_in, dC_in, dq, dk, dv),
+    five of L(L+1)/2 x dh (the scores q.k and dh.v, dS K, dS^T Q, W^T dnum),
+    and dC_out . C_in."""
+    n_chunks = -(-s // 64)
+    bH = b * H
+    n_bytes = 4 * (bH * s * (8 * dh + 4) + n_chunks * bH * (dh * dh + dh + 1)
+                   + bH * (dh * dh + dh + 1))
+    n_ops = 0
+    for c0 in range(0, s, 64):
+        L = min(64, s - c0)
+        n_ops += bH * (10 * L * dh * dh + 5 * L * (L + 1) * dh + 2 * dh * dh)
+    return n_bytes, n_ops
+
+
+def time_mlstm_bwd(gen, bw: float, flops: float) -> dict:
+    """The backward and the training entry at ``MLSTM_BWD_TIMED``, both
+    timers, beside their plain versions and bounds. No single PyTorch call
+    computes either."""
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref, mlstm_chunk_train_ref
+
+    b, s, H, dh = MLSTM_BWD_TIMED
+    args = mlstm_inputs(b, s, H, dh, gen)
+    state = mlstm_state(b, H, dh, gen)
+    h, _, _, _, c_st, n_st, m_st = mlstm_ops.mlstm_chunk_train(*args, *state)
+    dout = torch.randn(b, s, H, dh, generator=gen).cuda()
+    saved = (*args, c_st, n_st, m_st, h, dout, None, None, None)
+    n_bytes, n_ops = mlstm_bwd_work(b, s, H, dh)
+    f_bytes, f_ops = mlstm_work(b, s, H, dh)
+    f_bytes += 4 * b * H * (dh * dh + dh + 1) * -(-s // 64)  # the chunk states written
+    row = {"ms": device_ms(lambda: mlstm_ops.mlstm_chunk_bwd(*saved)),
+           "ms_burst": device_ms_burst(lambda: mlstm_ops.mlstm_chunk_bwd(*saved)),
+           "plain_ms": device_ms(lambda: mlstm_chunk_bwd_ref(*saved)),
+           "library_ms": None, "library": "none: no single PyTorch call",
+           "bound_ms": max(n_bytes / bw, n_ops / flops) * 1e3,
+           "bound_by": "bytes" if n_bytes / bw >= n_ops / flops else "operations",
+           "bytes": n_bytes, "operations": n_ops,
+           "train_forward_ms": device_ms(lambda: mlstm_ops.mlstm_chunk_train(*args, *state)),
+           "train_forward_ms_burst": device_ms_burst(
+               lambda: mlstm_ops.mlstm_chunk_train(*args, *state)),
+           "train_forward_plain_ms": device_ms(lambda: mlstm_chunk_train_ref(*args, *state)),
+           "train_forward_bound_ms": max(f_bytes / bw, f_ops / flops) * 1e3,
+           "train_forward_bound_by": "bytes" if f_bytes / bw >= f_ops / flops else "operations",
+           "shape": list(MLSTM_BWD_TIMED)}
+    print(f"mlstm_chunk_bwd fp32 {MLSTM_BWD_TIMED}: {json.dumps(row)}")
+    return row
 
 
 def time_flash_bwd(gen, bw: float, flops: float) -> dict:
@@ -2874,10 +3079,12 @@ def time_rg_lru_bwd(gen, bw: float, flops: float) -> dict:
 def lm_train_counters() -> dict[str, dict]:
     """The launch counters the LM's train step reaches, by kernel name."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
     from repro_torch.kernels.rg_lru import ops as rg_ops
 
     return {"flash_attention": flash_ops.LAUNCHES, "flash_attention_bwd": flash_ops.LAUNCHES,
-            "rg_lru": rg_ops.LAUNCHES, "rg_lru_bwd": rg_ops.LAUNCHES}
+            "rg_lru": rg_ops.LAUNCHES, "rg_lru_bwd": rg_ops.LAUNCHES,
+            "mlstm_chunk": mlstm_ops.LAUNCHES, "mlstm_chunk_bwd": mlstm_ops.LAUNCHES}
 
 
 def zero_counters(counters: dict[str, dict]) -> None:
@@ -2889,42 +3096,80 @@ def step_launches(kinds, steps: int, remat: bool = True) -> dict[str, int]:
     """Each layer kind's forward kernel launches 1 + remat times a step
     (the forward, then its recompute in the backward) and its backward
     kernel once."""
-    n = {"flash_attention": kinds.count("attn"), "rg_lru": kinds.count("rglru")}
-    return {"flash_attention": n["flash_attention"] * (1 + remat) * steps,
-            "flash_attention_bwd": n["flash_attention"] * steps,
-            "rg_lru": n["rg_lru"] * (1 + remat) * steps, "rg_lru_bwd": n["rg_lru"] * steps}
+    n = {"flash_attention": kinds.count("attn"), "rg_lru": kinds.count("rglru"),
+         "mlstm_chunk": kinds.count("mlstm")}
+    out = {}
+    for name, layers in n.items():
+        out[name] = layers * (1 + remat) * steps
+        out[f"{name}_bwd"] = layers * steps
+    return out
 
 
-def lm_step_card_vs_cpu(arch: str) -> dict:
+@contextlib.contextmanager
+def recorded_routes():
+    """Every expert id ``models.moe._route`` picks while inside, in call
+    order (a list of CPU tensors)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    ids, route = [], moe._route
+
+    def recording(*args, **kwargs):
+        out = route(*args, **kwargs)
+        ids.append(out[0].detach().cpu())
+        return out
+
+    with mock.patch.object(moe, "_route", recording):
+        yield ids
+
+
+def lm_step_card_vs_cpu(arch: str, remat: bool = True) -> dict:
     """One ``value_and_grad`` of ``LM.loss`` at ``arch``'s width cut to
     ``CARD_VS_CPU_LAYERS`` layers, ``init_scale=1``, the same weights and
     batch on the card and on the CPU: the loss at 1e-5 rel, every
     gradient present, non-zero and within 1e-4 of its tensor's largest
-    element; the card's launches exact."""
+    element; the card's launches exact; a MoE model's expert ids equal on
+    both, call by call."""
     from repro_torch.configs import get
     from repro_torch.models.lm import LM
     from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
 
     small = dataclasses.replace(get(arch), n_layers=CARD_VS_CPU_LAYERS[arch], init_scale=1.0)
-    card = LM(small, "cuda", seed=SEED)
-    cpu = LM(small, "meta")
+    card = LM(small, "cuda", seed=SEED, remat=remat)
+    cpu = LM(small, "meta", remat=remat)
     cpu.to_empty(device="cpu")
     cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         4, small.vocab_size, size=(LM_TRAIN_CHECK_BATCH, LM_TRAIN_SEQ)).astype(np.int32))
     counters = lm_train_counters()
     zero_counters(counters)
-    loss_card, grads_card = value_and_grad(functional_loss(card))(params_of(card),
-                                                                  {"tokens": tokens.cuda()})
+    with recorded_routes() as routes_card:
+        loss_card, grads_card = value_and_grad(functional_loss(card))(params_of(card),
+                                                                      {"tokens": tokens.cuda()})
     torch.cuda.synchronize()
     launches = {name: counter[name] for name, counter in counters.items()}
     grads_card = {k: g.cpu() for k, g in grads_card.items()}
+    traced = None
+    if small.moe is not None:  # one more step traced for the card's idle share
+        from repro_torch.launch.serve import profile
+
+        traced = profile(lambda: value_and_grad(functional_loss(card))(
+            params_of(card), {"tokens": tokens.cuda()}), torch.device("cuda"),
+            torch.cuda.synchronize, f"one {small.name} train step at {small.n_layers} layers")
     del card
     torch.cuda.empty_cache()
-    loss_cpu, grads_cpu = value_and_grad(functional_loss(cpu))(params_of(cpu), {"tokens": tokens})
-    want = step_launches(cpu.kinds, 1)
+    with recorded_routes() as routes_cpu:
+        loss_cpu, grads_cpu = value_and_grad(functional_loss(cpu))(params_of(cpu),
+                                                                   {"tokens": tokens})
+    want = step_launches(cpu.kinds, 1, remat)
     if launches != want:
-        fail(f"{small.name} card step: launches {launches}, expected {want}")
+        fail(f"{small.name} card step (remat {remat}): launches {launches}, expected {want}")
+    if len(routes_card) != len(routes_cpu) or not all(
+            torch.equal(a, b) for a, b in zip(routes_card, routes_cpu)):
+        fail(f"{small.name} train step: the expert ids differ between the card and the CPU")
+    if small.moe is not None and not routes_card:
+        fail(f"{small.name} train step routed no token")
     lc, lp = loss_card.item(), loss_cpu.item()
     if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
         fail(f"{small.name} train step loss card {lc} vs CPU {lp} (rtol 1e-5)")
@@ -2939,12 +3184,14 @@ def lm_step_card_vs_cpu(arch: str) -> dict:
         if ratio > 1e-4:
             fail(f"{small.name} train step: {path}'s gradient differs from the CPU's by "
                  f"{ratio:.3e} of its largest element (limit 1e-4)")
-    print(f"{small.name} with {small.n_layers} layers at init_scale 1, one train step card vs "
-          f"CPU (batch {tuple(tokens.shape)}): loss {lc:.6f} vs {lp:.6f}; all {len(grads_cpu)} "
-          f"gradients present and non-zero, worst max|dg|/max|g| {worst:.3e} (limit 1e-4); "
-          f"launches {launches}")
-    return {"arch": small.name, "layers": small.n_layers, "loss_card": lc, "loss_cpu": lp,
-            "grad_tensors": len(grads_cpu), "grad_worst_rel": worst, "launches": launches}
+    print(f"{small.name} with {small.n_layers} layers at init_scale 1, remat {remat}, one train "
+          f"step card vs CPU (batch {tuple(tokens.shape)}): loss {lc:.6f} vs {lp:.6f}; all "
+          f"{len(grads_cpu)} gradients present and non-zero, worst max|dg|/max|g| {worst:.3e} "
+          f"(limit 1e-4); {len(routes_card)} routings with equal expert ids; launches {launches}")
+    return {"arch": small.name, "label": f"{small.name}{'' if remat else ' no remat'}",
+            "layers": small.n_layers, "remat": remat, "loss_card": lc, "loss_cpu": lp,
+            "grad_tensors": len(grads_cpu), "grad_worst_rel": worst,
+            "routings_equal": len(routes_card), "launches": launches, "traced_step": traced}
 
 
 def lm_train_steps() -> dict:
@@ -3098,19 +3345,71 @@ def lm_train_launcher() -> dict:
     return {"runs": runs, "restored_bit_equal": True}
 
 
+def lm_train_launcher_archs() -> list[dict]:
+    """``repro_torch.launch.train.main`` at ``--smoke`` on the card for each
+    of ``LAUNCHER_ARCHS``, ``LAUNCHER_ARCH_STEPS`` steps: exact
+    ``text_scan``, flash and mLSTM launches (forward and backward), finite
+    losses whose last five average below the first five."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.text_clean import ops as clean_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm import layer_kinds
+
+    counters = {"text_scan": clean_ops.LAUNCHES, **lm_train_counters()}
+    runs = []
+    for arch in LAUNCHER_ARCHS:
+        with tempfile.TemporaryDirectory() as ckpt:
+            zero_counters(counters)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                history = launch_train.main(
+                    ["--arch", arch, "--smoke", "--device", "cuda", "--corpus-mb", "0.5",
+                     "--steps", str(LAUNCHER_ARCH_STEPS), "--ckpt", ckpt])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = {name: counter[name] for name, counter in counters.items()}
+        want = {"text_scan": P3SAPP_SCANS[True],
+                **step_launches(layer_kinds(get_smoke(arch)), LAUNCHER_ARCH_STEPS)}
+        if launches != want:
+            fail(f"the launcher for {arch} made launches {launches}, expected {want}")
+        losses = [h["loss"] for h in history]
+        if len(losses) != LAUNCHER_ARCH_STEPS or not np.isfinite(losses).all():
+            fail(f"the launcher for {arch} gave losses {losses}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            fail(f"the launcher's loss for {arch} did not fall: {losses}")
+        print(f"launcher --arch {arch} --smoke on the card: {LAUNCHER_ARCH_STEPS} steps in "
+              f"{seconds:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+        runs.append({"arch": arch, "steps": LAUNCHER_ARCH_STEPS, "seconds": seconds,
+                     "losses": losses, "launches": launches})
+    return runs
+
+
 def lm_train(bw: float, flops: float) -> tuple[dict, dict]:
     """The lm_train phase; returns its line and the new kernels' rows."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 2)  # the earlier checks' draws unchanged
     fwd_err, bwd_err = check_flash_bwd(gen)
     rg_err = check_rg_lru_bwd(gen)
-    check_mlstm_grad_raises(gen)
+    mlstm_gen = torch.Generator().manual_seed(SEED + 4)  # the draws above unchanged
+    mlstm_bwd_err, mlstm_fwd_err = check_mlstm_bwd(mlstm_gen)
     rows = {"flash_attention_bwd": {**time_flash_bwd(gen, bw, flops), "max_abs_err": bwd_err,
                                     "train_forward_max_abs_err": fwd_err},
-            "rg_lru_bwd": {**time_rg_lru_bwd(gen, bw, flops), "max_abs_err": rg_err}}
+            "rg_lru_bwd": {**time_rg_lru_bwd(gen, bw, flops), "max_abs_err": rg_err},
+            "mlstm_chunk_bwd": {**time_mlstm_bwd(mlstm_gen, bw, flops),
+                                "max_abs_err": mlstm_bwd_err,
+                                "train_forward_max_abs_err": mlstm_fwd_err}}
     torch.cuda.empty_cache()
-    checked = [lm_step_card_vs_cpu(arch) for arch in LM_TRAIN_CHECKED]
-    line = {"card_vs_cpu": checked, **lm_train_steps(), "launcher": lm_train_launcher()}
+    checked = []
+    for arch, remat in LM_TRAIN_CHECKED:
+        checked.append(lm_step_card_vs_cpu(arch, remat))
+        torch.cuda.empty_cache()
+    line = {"card_vs_cpu": checked, **lm_train_steps(), "launcher": lm_train_launcher(),
+            "launcher_archs": lm_train_launcher_archs()}
     line["phase_seconds"] = time.perf_counter() - t0
     print(f"lm_train phase: {line['phase_seconds']:.1f} s")
     return line, rows
@@ -3182,7 +3481,13 @@ def main() -> int:
     serve_lm_lines = []
     for arch in LM_ARCHS:
         cfg = get(arch)
+        if arch in SERVE_LM_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_LM_LAYERS[arch])
         counts, line = serve_lm(cfg)
+        if arch in SERVE_LM_LAYERS:
+            line["published_layers"] = get(arch).n_layers
+            line["reduced"] = (f"depth {SERVE_LM_LAYERS[arch]} of {get(arch).n_layers} layers "
+                               f"(fp32 weights of all of them fill too much of the card)")
         for kernel, n in counts.items():
             if n:
                 lm_launches[kernel][cfg.name] = n
@@ -3233,6 +3538,13 @@ def main() -> int:
     lm_train_line, lm_rows = lm_train(bw, flops)
 
     # 15. report
+    def train_paths(name):
+        """A kernel's launches on each LM training path that reached it."""
+        paths = {c["label"]: c["launches"][name] for c in lm_train_line["card_vs_cpu"]}
+        paths.update({f"launcher {r['arch']}": r["launches"][name]
+                      for r in lm_train_line["launcher_archs"]})
+        return {label: n for label, n in paths.items() if n}
+
     def lm_kernel(name, err, source, replaces):
         """Headline: the decode row, most of a serving run's launches; all
         timed rows nested; launches summed over the served LMs."""
@@ -3264,6 +3576,7 @@ def main() -> int:
                      "src/repro/kernels/flash_attention/flash_attention.py:27"),
          "serve_text_launches": serve_text_launches["flash_attention"],
          "lm_train_launches": lm_train_line["launches"]["flash_attention"],
+         "lm_train_launches_by_path": train_paths("flash_attention"),
          "train_forward": {k: lm_rows["flash_attention_bwd"][k] for k in
                            ("train_forward_ms", "train_forward_ms_burst", "train_forward_plain_ms",
                             "train_forward_bound_ms", "train_forward_bound_by",
@@ -3272,7 +3585,12 @@ def main() -> int:
                   "src/repro/kernels/rg_lru/rg_lru.py:28"),
         {**lm_kernel("mlstm_chunk", mlstm_err, "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                      "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:32"),
-         "state_max_rel_err": mlstm_state_err},
+         "state_max_rel_err": mlstm_state_err,
+         "lm_train_launches_by_path": train_paths("mlstm_chunk"),
+         "train_forward": {k: lm_rows["mlstm_chunk_bwd"][k] for k in
+                           ("train_forward_ms", "train_forward_ms_burst", "train_forward_plain_ms",
+                            "train_forward_bound_ms", "train_forward_bound_by",
+                            "train_forward_max_abs_err", "shape")}},
         {"name": "text_clean", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/text_clean.cu",
          "replaces": "src/repro/kernels/text_clean/text_clean.py:34",
@@ -3290,8 +3608,7 @@ def main() -> int:
          "replaces": "none: XLA differentiates src/repro/models/attention.py:97 sdpa",
          "launches": lm_train_line["launches"]["flash_attention_bwd"],
          "launches_by_path": {"lm_train_steps": lm_train_line["launches"]["flash_attention_bwd"],
-                              **{c["arch"]: c["launches"]["flash_attention_bwd"]
-                                 for c in lm_train_line["card_vs_cpu"]}},
+                              **train_paths("flash_attention_bwd")},
          **lm_rows["flash_attention_bwd"]},
         # StableLM-3B's steps have no RG-LRU layer: its launches are the
         # RecurrentGemma-9B step's, counted from 0 around that step
@@ -3299,6 +3616,13 @@ def main() -> int:
          "replaces": "none: XLA differentiates src/repro/models/rglru.py:82 rglru_scan",
          "launches": sum(c["launches"]["rg_lru_bwd"] for c in lm_train_line["card_vs_cpu"]),
          **lm_rows["rg_lru_bwd"]},
+        # xLSTM-1.3B's steps card vs CPU (with and without remat) and the
+        # launcher's xLSTM run, each counted from 0 around it
+        {"name": "mlstm_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+         "replaces": "none: XLA differentiates src/repro/models/xlstm.py:130 _mlstm_chunked",
+         "launches": sum(train_paths("mlstm_chunk_bwd").values()),
+         "launches_by_path": train_paths("mlstm_chunk_bwd"), **lm_rows["mlstm_chunk_bwd"]},
     ]
     for entry in kernels:
         if not entry["launches"]:

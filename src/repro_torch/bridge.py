@@ -7,13 +7,16 @@ becomes ``{path: tensor}`` with the paths of
 sorted order, list indices, joined by ``/``, e.g. ``encoder/0/wx``), and a
 model or such a mapping turns back into the nested tree.
 
-The LM's tree (``repro/models/lm.py:206 LM.init``) keeps one stacked tree
-per position of the block pattern under ``units/<j>/...``, each with a
-leading ``n_units`` axis, and the unrolled remainder under ``tail/<t>/...``.
+The LM's tree (``repro/models/lm.py:206 LM.init``) keeps its unrolled
+leading layers under ``head/<h>/...`` (a MoE configuration's
+``first_k_dense`` dense layers; empty otherwise), one stacked tree per
+position of the block pattern under ``units/<j>/...``, each with a leading
+``n_units`` axis, and the unrolled remainder under ``tail/<t>/...``.
 ``lm_params_from_jax`` turns them into one ``layers/<i>/...`` entry per
-layer (position j of unit u is layer ``u·len(pattern) + j``, ``tail[t]``
-is layer ``n_units·len(pattern) + t``) and ``lm_params_to_jax`` stacks
-them back.
+layer (``head[h]`` is layer h; position j of unit u is layer
+``n_head + u·len(pattern) + j``; ``tail[t]`` follows the units) and
+``lm_params_to_jax`` stacks them back. A MoE layer's ``moe`` subtree keeps
+its paths (``moe/router``, ``moe/w_gate``, ``moe/shared/gate``, ...).
 
 The optimizer state crosses too (``adamw_state_from_jax``,
 ``adamw_state_to_jax``). The key paths are the checkpoint's
@@ -87,39 +90,48 @@ def adamw_state_to_jax(state: AdamWState) -> AdamWState:
                       to_jax_params(state.m), to_jax_params(state.v))
 
 
-def _layout(cfg) -> tuple[int, int, int]:
-    """(pattern length, stacked units, tail layers) of the JAX ``LM``."""
+def _layout(cfg) -> tuple[int, int, int, int]:
+    """(head layers, pattern length, stacked units, tail layers) of the JAX
+    ``LM``: a MoE configuration's ``first_k_dense`` layers make the head
+    and the rest one stacked unit of period 1."""
+    if cfg.moe is not None:
+        k = cfg.moe.first_k_dense
+        return k, 1, cfg.n_layers - k, 0
     period = len(cfg.block_pattern)
     n_units, n_tail = divmod(cfg.n_layers, period)
-    return period, n_units, n_tail
+    return 0, period, n_units, n_tail
 
 
 def lm_params_from_jax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
     """``{"embed/embedding": ..., "layers/0/attn/wq": ..., ...}`` from a
-    JAX ``LM.init`` tree of a configuration without MoE (empty ``head``)."""
-    period, n_units, n_tail = _layout(cfg)
-    if tree["head"] or len(tree["units"]) != period or len(tree["tail"]) != n_tail:
-        raise ValueError(f"expected an empty head, {period} stacked units and {n_tail} "
+    JAX ``LM.init`` tree: ``head[h]`` is layer h, position j of stacked unit
+    u is layer ``n_head + u·period + j``, then the tail."""
+    n_head, period, n_units, n_tail = _layout(cfg)
+    if len(tree["head"]) != n_head or len(tree["units"]) != period or \
+            len(tree["tail"]) != n_tail:
+        raise ValueError(f"expected {n_head} head layers, {period} stacked units and {n_tail} "
                          f"tail layers")
     out = from_jax_params({"embed": tree["embed"], "final_norm": tree["final_norm"]})
+    for h, block in enumerate(tree["head"]):
+        for path, leaf in from_jax_params(block).items():
+            out[f"layers/{h}/{path}"] = leaf
     for j, unit in enumerate(tree["units"]):
         for path, stacked in from_jax_params(unit).items():
             if stacked.shape[0] != n_units:
                 raise ValueError(f"units/{j}/{path} stacks {stacked.shape[0]} layers, "
                                  f"expected {n_units}")
             for u, layer in enumerate(stacked):
-                out[f"layers/{u * period + j}/{path}"] = layer.clone()
+                out[f"layers/{n_head + u * period + j}/{path}"] = layer.clone()
     for t, block in enumerate(tree["tail"]):
         for path, leaf in from_jax_params(block).items():
-            out[f"layers/{n_units * period + t}/{path}"] = leaf
+            out[f"layers/{n_head + n_units * period + t}/{path}"] = leaf
     return out
 
 
 def lm_params_to_jax(model: nn.Module) -> dict:
     """The JAX ``LM.init`` tree (numpy leaves) of a port ``LM``: its
-    layers stacked back under ``units/<j>`` and ``tail``, an empty
-    ``head``."""
-    period, n_units, n_tail = _layout(model.cfg)
+    layers back under ``head``, stacked under ``units/<j>`` and ``tail``."""
+    n_head, period, n_units, n_tail = _layout(model.cfg)
     rest: dict[str, torch.Tensor] = {}
     layers: list[dict[str, torch.Tensor]] = [{} for _ in range(model.cfg.n_layers)]
     for name, p in model.named_parameters():
@@ -130,11 +142,12 @@ def lm_params_to_jax(model: nn.Module) -> dict:
         else:
             rest[path] = p
     tree = to_jax_params(rest)
-    tree["head"] = []
+    tree["head"] = [to_jax_params(layers[h]) for h in range(n_head)]
     tree["units"] = [
-        to_jax_params({sub: torch.stack([layers[u * period + j][sub] for u in range(n_units)])
-                       for sub in layers[j]})
+        to_jax_params({sub: torch.stack([layers[n_head + u * period + j][sub]
+                                         for u in range(n_units)])
+                       for sub in layers[n_head + j]})
         for j in range(period)
     ]
-    tree["tail"] = [to_jax_params(layers[n_units * period + t]) for t in range(n_tail)]
+    tree["tail"] = [to_jax_params(layers[n_head + n_units * period + t]) for t in range(n_tail)]
     return tree

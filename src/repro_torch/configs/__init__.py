@@ -6,8 +6,9 @@ Copy of ``repro/configs/__init__.py:19-197``: ``MoEConfig``, ``ArchConfig``
 exports ``CONFIG`` (the published configuration) and ``SMOKE`` (a reduced
 same-family configuration for CPU tests). ``ARCH_IDS`` lists only the
 configurations whose modules the port has: the attention-only dense
-models and the recurrent ones (RG-LRU with local attention, xLSTM), which
-run through ``models/lm.py``. MoE and the frontends are not ported yet.
+models, the recurrent ones (RG-LRU with local attention, xLSTM) and the
+MoE ones (DeepSeek-MoE-16B, Kimi-K2), which run through ``models/lm.py``.
+The frontends (Qwen2-VL-72B, HuBERT-XLarge) are not ported yet.
 """
 
 from __future__ import annotations
@@ -142,6 +143,8 @@ ARCH_IDS = [
     "qwen2_5_32b",
     "recurrentgemma_9b",
     "xlstm_1_3b",
+    "deepseek_moe_16b",
+    "kimi_k2_1t_a32b",
 ]
 
 

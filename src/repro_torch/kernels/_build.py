@@ -66,7 +66,16 @@ SIGNATURES = {
     "rg_lru_bwd_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
     # q, k, v, i, f, C (in place), n_in, m_in, n_out, m_out, out; b, s, H, dh; stream
     "mlstm_chunk_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
+    # q, k, v, i, f, C_in, n_in, m_in, C_out, n_out, m_out, out, the chunks'
+    # input C, n and m; b, s, H, dh; stream
+    "mlstm_chunk_train_f32": (_P,) * 15 + (_I,) * 4 + (_P,),
+    # q, k, v, i, f, the chunks' input C, n, m, h, dh, dC, dn, dm (each of
+    # the last three or null); dq, dk, dv, di, df, dC0, dn0, dm0; workspace;
+    # b, s, H, dh; stream
+    "mlstm_chunk_bwd_f32": (_P,) * 22 + (_I,) * 4 + (_P,),
 }
+# entry points that return a size, not an error code
+SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -165,6 +174,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             lib.repro_cuda_error_string.argtypes = (ctypes.c_int,)
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

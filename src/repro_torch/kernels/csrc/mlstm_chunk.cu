@@ -28,6 +28,13 @@
 // contiguous fp32; C (b, H, dh, dh) with C[v][k] as the reference keeps it,
 // n (b, H, dh), m (b, H).
 //
+// Two entries. mlstm_chunk_f32 serves: C in place, the decode path at one
+// step. mlstm_chunk_train_f32 is the forward of a training step: it always
+// takes the chunked pass, reads C_in and writes C_out, a separate buffer
+// (it writes no input), and also writes the state each chunk starts from,
+// (nC, b, H, dh, dh) for C, (nC, b, H, dh) for n and (nC, b, H) for m, which
+// mlstm_chunk_bwd.cu reads instead of running the forward again.
+//
 // Two paths, one launch each.
 //
 // Decode (s = 1, every step after a prompt): a rank-1 update that reads C
@@ -224,10 +231,11 @@ template <int V, int NC>
 __global__ void __launch_bounds__(kThreads)
 mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ ig,
-                   const float* __restrict__ fg, float* __restrict__ C,
+                   const float* __restrict__ fg, const float* C_in, float* C_out,
                    const float* __restrict__ n_in, const float* __restrict__ m_in,
                    float* __restrict__ n_out, float* __restrict__ m_out,
-                   float* __restrict__ out, int s, int H, int dh) {
+                   float* __restrict__ out, float* __restrict__ c_st, float* __restrict__ n_st,
+                   float* __restrict__ m_st, int s, int H, int dh) {
   extern __shared__ __align__(16) double smem[];
   double* wj = smem;                 // kChunk: e^{b_L - b_j + i_j - m_out}, fp64
   double* s_out = wj + kChunk;       // e^{b_L + m_in - m_out}, fp64 (then a double of padding)
@@ -252,7 +260,8 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long t_stride = static_cast<long long>(H) * dh;  // one step of q, k, v, out
   const long long qkv0 = static_cast<long long>(bi) * s * t_stride + static_cast<long long>(hh) * dh;
   const long long g0 = static_cast<long long>(bi) * s * H + hh;
-  float* Cb = C + static_cast<long long>(bh) * dh * dh;
+  const long long head = static_cast<long long>(bh) * dh * dh;
+  const float* Cb = C_in + head;
 
   float cr[NC][V];  // C[row] in registers from the first chunk to the last
 #pragma unroll
@@ -266,6 +275,21 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int c0 = 0; c0 < s; c0 += kChunk) {
     const int L = min(kChunk, s - c0);
+    if (c_st != nullptr) {  // training: the state this chunk starts from
+      const long long rec = static_cast<long long>(c0 / kChunk) * gridDim.x + bh;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int e = (i * 16 + ks) * V;
+        if (row < dh && e < dh) {
+#pragma unroll
+          for (int x = 0; x < V; ++x) c_st[rec * dh * dh + static_cast<long long>(row) * dh + e + x] = cr[i][x];
+        }
+      }
+      if (blockIdx.y == 0) {
+        for (int i = tid; i < dh; i += kThreads) n_st[rec * dh + i] = ns[i];
+        if (tid == 0) m_st[rec] = *m_sh;
+      }
+    }
 
     // Gates: a cumulative sum and a running max over the chunk's real steps,
     // scanned across warp 0, which holds steps lane and lane + 32.
@@ -454,7 +478,7 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < NC; ++i) {
     const int e = (i * 16 + ks) * V;
     if (row >= dh || e >= dh) continue;
-    float* dst = Cb + static_cast<long long>(row) * dh + e;
+    float* dst = C_out + head + static_cast<long long>(row) * dh + e;
     if constexpr (V == 4) {
       *reinterpret_cast<float4*>(dst) = make_float4(cr[i][0], cr[i][1], cr[i][2], cr[i][3]);
     } else {
@@ -470,9 +494,11 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 struct Args {
   const float *q, *k, *v, *ig, *fg;
-  float* C;
+  const float* C_in;
+  float* C_out;  // C_in itself when serving
   const float *n_in, *m_in;
   float *n_out, *m_out, *out;
+  float *c_st, *n_st, *m_st;  // null when serving
 };
 
 template <int V, int NC>
@@ -480,7 +506,8 @@ int chunked_as(const Args& a, int b, int s, int H, int dh, cudaStream_t stream) 
   const size_t smem = smem_bytes(dh);  // under 48 KB for dh <= 1024
   const dim3 grid(b * H, (dh + kTV - 1) / kTV);
   mlstm_chunk_kernel<V, NC><<<grid, kThreads, smem, stream>>>(
-      a.q, a.k, a.v, a.ig, a.fg, a.C, a.n_in, a.m_in, a.n_out, a.m_out, a.out, s, H, dh);
+      a.q, a.k, a.v, a.ig, a.fg, a.C_in, a.C_out, a.n_in, a.m_in, a.n_out, a.m_out, a.out, a.c_st,
+      a.n_st, a.m_st, s, H, dh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,7 +530,7 @@ template <int V, int NC>
 int decode_as(const Args& a, int bH, int dh, cudaStream_t stream) {
   const dim3 grid(bH, (dh + kDecodeRows - 1) / kDecodeRows);
   mlstm_decode_kernel<V, NC><<<grid, kThreads, 0, stream>>>(
-      a.q, a.k, a.v, a.ig, a.fg, a.C, a.n_in, a.m_in, a.n_out, a.m_out, a.out, dh);
+      a.q, a.k, a.v, a.ig, a.fg, a.C_out, a.n_in, a.m_in, a.n_out, a.m_out, a.out, dh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -536,11 +563,38 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v, cons
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(ig),
-               static_cast<const float*>(fg), static_cast<float*>(C),
-               static_cast<const float*>(n_in), static_cast<const float*>(m_in),
-               static_cast<float*>(n_out), static_cast<float*>(m_out), static_cast<float*>(out)};
+               static_cast<const float*>(fg), static_cast<const float*>(C),
+               static_cast<float*>(C), static_cast<const float*>(n_in),
+               static_cast<const float*>(m_in), static_cast<float*>(n_out),
+               static_cast<float*>(m_out), static_cast<float*>(out), nullptr, nullptr, nullptr};
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(C) &&
                    aligned16(n_in);
   if (s == 1) return vec ? decode<4>(a, b * H, dh, st) : decode<1>(a, b * H, dh, st);
+  return vec ? chunked<4>(a, b, s, H, dh, st) : chunked<1>(a, b, s, H, dh, st);
+}
+
+// q, k, v, i, f, C_in, n_in, m_in, C_out, n_out, m_out, out, and the chunks'
+// input states C (nC, b, H, dh, dh), n (nC, b, H, dh), m (nC, b, H); b, s,
+// H, dh; stream. The chunked pass at every length; no input is written.
+extern "C" int mlstm_chunk_train_f32(const void* q, const void* k, const void* v,
+                                     const void* ig, const void* fg, const void* C_in,
+                                     const void* n_in, const void* m_in, void* C_out,
+                                     void* n_out, void* m_out, void* out, void* c_st,
+                                     void* n_st, void* m_st, int b, int s, int H, int dh,
+                                     void* stream) {
+  if (b < 0 || s < 1 || H < 0 || dh < 1 || dh > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || H == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const float*>(ig),
+               static_cast<const float*>(fg), static_cast<const float*>(C_in),
+               static_cast<float*>(C_out), static_cast<const float*>(n_in),
+               static_cast<const float*>(m_in), static_cast<float*>(n_out),
+               static_cast<float*>(m_out), static_cast<float*>(out), static_cast<float*>(c_st),
+               static_cast<float*>(n_st), static_cast<float*>(m_st)};
+  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(C_in) &&
+                   aligned16(C_out) && aligned16(n_in);
   return vec ? chunked<4>(a, b, s, H, dh, st) : chunked<1>(a, b, s, H, dh, st);
 }

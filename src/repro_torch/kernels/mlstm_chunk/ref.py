@@ -9,6 +9,12 @@ JAX wrapper zero-pads instead, ``repro/kernels/mlstm_chunk/ops.py:17-31``,
 which decays a returned state by log σ(0) per padded step). Everything is
 fp32, in the model layout. ``mlstm_step_ref`` is the one-step case in
 closed form, the plain version of the CUDA kernel's decode path.
+
+``mlstm_chunk_train_ref`` is the plain version of the kernel's training
+entry (it also returns each chunk's input state) and
+``mlstm_chunk_bwd_ref`` that of the backward kernel
+(``csrc/mlstm_chunk_bwd.cu``): the gradient of ``mlstm_chunk_ref``
+written out in the chunk algebra, walking the chunks in reverse.
 """
 
 from __future__ import annotations
@@ -24,7 +30,22 @@ def mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
     """q, k, v ``(b, s, H, dh)``, gate pre-activations ``(b, s, H)``, state
     C ``(b, H, dh, dh)`` (``C[v][k]``), n ``(b, H, dh)``, m ``(b, H)`` ->
     (h ``(b, s, H, dh)``, C, n, m), fresh, computed in ``dtype`` (fp32 as
-    the kernel; fp64 gives a yardstick of the fp32 versions' rounding)."""
+    the kernel; fp64 gives a yardstick of the fp32 versions' rounding).
+    Writes none of its inputs."""
+    return _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, None)
+
+
+def mlstm_chunk_train_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
+                          dtype=torch.float32):
+    """``mlstm_chunk_ref`` that also returns the state each chunk starts
+    from: (h, C, n, m, C_in ``(nC, b, H, dh, dh)``, n_in ``(nC, b, H, dh)``,
+    m_in ``(nC, b, H)``), in ``dtype``, nC = ⌈s / chunk⌉."""
+    states: list = []
+    out = _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states)
+    return (*out, *(torch.stack(t) for t in zip(*states)))
+
+
+def _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states):
     qf, kf, vf = (t.to(dtype).transpose(1, 2) for t in (q, k, v))  # (b, H, s, dh)
     ig, fg = (t.to(dtype).transpose(1, 2) for t in (i_gate, f_gate))  # (b, H, s)
     C, n, m = c.to(dtype), n.to(dtype), m.to(dtype)
@@ -33,6 +54,8 @@ def mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
         qb, kb, vb = (t[:, :, c0 : c0 + chunk] for t in (qf, kf, vf))
         ib, fb = ig[:, :, c0 : c0 + chunk], fg[:, :, c0 : c0 + chunk]
         L = qb.shape[2]
+        if states is not None:
+            states.append((C, n, m))
         b_cum = torch.cumsum(F.logsigmoid(fb), dim=-1)
         x = ib - b_cum
         rmax = torch.cummax(x, dim=-1).values
@@ -76,3 +99,104 @@ def mlstm_step_ref(q, k, v, i_gate, f_gate, c, n, m):
     C_new = decay[..., None, None] * C + vf[..., :, None] * kw[..., None, :]
     n_new = decay[..., None] * n + kw
     return (num / den[..., None])[:, None], C_new, n_new, m_new
+
+
+def _maximum_weights(a, b):
+    """The share of ``torch.maximum(a, b)``'s gradient that goes to a: 1
+    where a is larger, 1/2 at a tie, as autograd splits it."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0)).to(a.dtype)
+
+
+def mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc=None, dn=None,
+                        dm=None, *, chunk: int = CHUNK, dtype=torch.float32):
+    """The gradient of ``mlstm_chunk_ref``. Takes the forward's inputs, the
+    state each chunk started from (``c_in``, ``n_in``, ``m_in`` as
+    ``mlstm_chunk_train_ref`` returns them), its output ``h`` and the
+    incoming gradients of h and of the returned C, n and m (None: zero) ->
+    (dq, dk, dv, d i_gate, d f_gate, and dC, dn, dm of the input state),
+    computed in ``dtype``.
+
+    The chunks are walked in reverse, carrying dC, dn and dm; each chunk
+    recomputes its gates, D, W, the denominators, s_out and w from its
+    input state. With g_t = max(|den_t|, 1) and a max's gradient split at
+    a tie as autograd splits it (the running max's to the latest index):
+    dnum_t = dh_t / g_t, dden_t = -(dh_t · h_t) / g_t · sign(den_t)
+    [|den_t| >= 1], dW = dnum V^T + dden (j <= t), and the state's
+    C_out = s_out C_in + Σ_j w_j v_j k_j^T gives dC_in = s_out dC_out +
+    Σ_t inter_t dnum_t q_t^T."""
+    b, s, H, d = q.shape
+    qf, kf, vf, hf = (t.to(dtype).transpose(1, 2) for t in (q, k, v, h))  # (b, H, s, dh)
+    ig, fg = (t.to(dtype).transpose(1, 2) for t in (i_gate, f_gate))  # (b, H, s)
+    dhf = torch.zeros_like(qf) if dh is None else dh.to(dtype).transpose(1, 2)
+    dC = torch.zeros(b, H, d, d, dtype=dtype, device=q.device) if dc is None else dc.to(dtype)
+    dN = torch.zeros(b, H, d, dtype=dtype, device=q.device) if dn is None else dn.to(dtype)
+    dM = torch.zeros(b, H, dtype=dtype, device=q.device) if dm is None else dm.to(dtype)
+    grads = {name: torch.zeros_like(t) for name, t in (("q", qf), ("k", kf), ("v", vf),
+                                                       ("i", ig), ("f", fg))}
+    starts = list(range(0, s, chunk))
+    for ci in reversed(range(len(starts))):
+        sl = slice(starts[ci], starts[ci] + chunk)
+        C, n, m = c_in[ci].to(dtype), n_in[ci].to(dtype), m_in[ci].to(dtype)
+        qb, kb, vb, hb, dhb = (t[:, :, sl] for t in (qf, kf, vf, hf, dhf))
+        ib, fb = ig[:, :, sl], fg[:, :, sl]
+        L = qb.shape[2]
+        # the forward's chunk algebra again
+        b_cum = torch.cumsum(F.logsigmoid(fb), dim=-1)
+        x = ib - b_cum
+        rmax, ridx = torch.cummax(x, dim=-1)
+        m_a, m_b = b_cum + m[..., None], rmax + b_cum
+        m_t = torch.maximum(m_a, m_b)
+        inter = torch.exp(b_cum + m[..., None] - m_t)
+        tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+        D = torch.where(tri, torch.exp((b_cum - m_t)[..., :, None] + x[..., None, :]), 0.0)
+        W = D * (qb @ kb.transpose(-1, -2))
+        qn = (qb @ n[..., None])[..., 0]
+        den = inter * qn + W.sum(-1)
+        g = torch.clamp(den.abs(), min=1.0)
+        b_last = b_cum[..., -1]
+        o_a, o_b = b_last + m, rmax[..., -1] + b_last
+        m_out = torch.maximum(o_a, o_b)
+        s_out = torch.exp(b_last + m - m_out)
+        w = torch.exp(b_last[..., None] - b_cum + ib - m_out[..., None])
+        # h_t = num_t / g_t
+        dnum = dhb / g[..., None]
+        dden = -(dhb * hb).sum(-1) / g * torch.sign(den) * (den.abs() >= 1.0)
+        dW = torch.where(tri, dnum @ vb.transpose(-1, -2) + dden[..., None], 0.0)
+        dS, P = dW * D, dW * W
+        dinter = (dnum * (qb @ C.transpose(-1, -2))).sum(-1) + dden * qn
+        a_t = inter[..., None] * dnum
+        dq = a_t @ C + (inter * dden)[..., None] * n[..., None, :] + dS @ kb
+        dk = dS.transpose(-1, -2) @ qb
+        dv = W.transpose(-1, -2) @ dnum
+        # the state's update C_out = s_out C_in + Σ_j w_j v_j k_j^T, n likewise
+        dCk = kb @ dC.transpose(-1, -2)  # (L, dh): row j is dC_out k_j
+        dw = (vb * dCk).sum(-1) + (kb @ dN[..., None])[..., 0]
+        dv = dv + w[..., None] * dCk
+        dk = dk + w[..., None] * (vb @ dC + dN[..., None, :])
+        ds = (dC * C).sum((-1, -2)) + (dN * n).sum(-1)
+        dC = s_out[..., None, None] * dC + a_t.transpose(-1, -2) @ qb
+        dN = s_out[..., None] * dN + ((inter * dden)[..., None, :] @ qb)[..., 0, :]
+        # the gates, through the exponents of inter, D, s_out and w and the maxima
+        Q, R, Pw = dinter * inter, ds * s_out, dw * w
+        rows = P.sum(-1) + Q
+        db = rows.clone()
+        dx = P.sum(-2) + Pw
+        dm_t = -rows
+        dmo = dM - R - Pw.sum(-1)
+        db[..., -1] += R + Pw.sum(-1) + dmo
+        share = _maximum_weights(o_a, o_b)
+        dm_in = Q.sum(-1) + R + share * dmo
+        dr = torch.zeros_like(x)
+        dr[..., -1] = (1 - share) * dmo
+        share_t = _maximum_weights(m_a, m_b)
+        db = db + dm_t
+        dm_in = dm_in + (share_t * dm_t).sum(-1)
+        dr = dr + (1 - share_t) * dm_t
+        dx = dx.scatter_add(-1, ridx, dr)
+        db = db - dx
+        dlf = torch.flip(torch.cumsum(torch.flip(db, (-1,)), -1), (-1,))
+        grads["q"][:, :, sl], grads["k"][:, :, sl], grads["v"][:, :, sl] = dq, dk, dv
+        grads["i"][:, :, sl], grads["f"][:, :, sl] = dx, dlf * torch.sigmoid(-fb)
+        dM = dm_in
+    out = [grads[name].transpose(1, 2) for name in "qkvif"]
+    return (*out, dC, dN, dM)

@@ -148,7 +148,9 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "text_scan_kernel",
                 "flash_attention_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel", "rg_lru_kernel", "rg_lru_bwd_kernel",
-                "mlstm_chunk_kernel", "mlstm_decode_kernel")
+                "mlstm_chunk_kernel", "mlstm_decode_kernel", "mlstm_bwd_gates_kernel",
+                "mlstm_bwd_state_kernel", "mlstm_bwd_products_kernel",
+                "mlstm_bwd_scalars_kernel")
 # substrings of cuBLAS's matrix-product kernel names, lower-cased
 GEMM = ("gemm", "gemv")
 

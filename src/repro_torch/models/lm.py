@@ -1,24 +1,27 @@
-"""The LM of the port: attention, RG-LRU and xLSTM blocks.
+"""The LM of the port: attention, MoE, RG-LRU and xLSTM blocks.
 
-Counterpart of ``repro/models/lm.py:180 LM`` without MoE or a frontend:
-the attention-only dense configurations (StableLM-3B, Granite-20B,
-Qwen2.5-32B, Command R+), Griffin (RecurrentGemma-9B: ``rglru, rglru,
-attn`` with local attention) and xLSTM (xLSTM-1.3B: 7 mLSTM + 1 sLSTM).
-Layer ``i`` has kind ``block_pattern[i % len(block_pattern)]``, the order
-of the reference's stacked ``units`` followed by its unrolled ``tail``. A
+Counterpart of ``repro/models/lm.py:180 LM`` without a frontend: the
+attention-only dense configurations (StableLM-3B, Granite-20B,
+Qwen2.5-32B, Command R+), the MoE ones (DeepSeek-MoE-16B, Kimi-K2: the
+first ``first_k_dense`` layers dense attention blocks with an MLP of
+``d_ff_dense``, the rest attention and MoE), Griffin (RecurrentGemma-9B:
+``rglru, rglru, attn`` with local attention) and xLSTM (xLSTM-1.3B: 7
+mLSTM + 1 sLSTM). Layer ``i`` has kind
+``block_pattern[i % len(block_pattern)]``, the order of the reference's
+unrolled ``head``, its stacked ``units`` and its unrolled ``tail``. A
 Python loop over the layers takes the place of ``lax.scan`` over the
 units, so each layer keeps its own parameters
 (``repro_torch.bridge.lm_params_from_jax`` splits the JAX package's
-stacked tree). MoE and the frontends raise ``NotImplementedError`` naming
-their ROADMAP item.
+stacked tree). The frontends raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 ``loss`` is the causal next-token cross entropy of
-``repro/models/lm.py:302 LM.loss``, differentiable through the attention
-and RG-LRU kernels' backward kernels on the card (the mLSTM kernel has none
-yet and raises under grad there). With ``remat`` each layer runs under
-``torch.utils.checkpoint`` and is recomputed in the backward, as
-``jax.checkpoint`` wraps each unit of the reference (``:291``); a layer's
-kernel forward then launches twice a step.
+``repro/models/lm.py:302 LM.loss`` plus ``router_aux_weight`` times the
+MoE layers' summed load-balance terms, differentiable through the
+attention, RG-LRU and mLSTM kernels' backward kernels on the card. With
+``remat`` each layer runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward, as ``jax.checkpoint`` wraps each unit of the
+reference (``:291``); a layer's kernel forward then launches twice a step.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..bridge import lm_params_from_jax
 from ..device import resolve
+from . import moe as MOE
 from . import rglru as RG
 from . import xlstm as XL
 from .attention import attend, init_attention, init_kv_cache
@@ -39,9 +43,7 @@ BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def _supported(cfg) -> None:
-    todo = "ROADMAP.md Queue 1: the rest of the LM family"
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks wait for models/moe.py ({todo})")
+    todo = "ROADMAP.md Queue 1: the rest of the LM family, its next slice"
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend waits for {todo}")
     unknown = set(cfg.block_pattern) - set(BLOCK_KINDS)
@@ -55,11 +57,24 @@ def layer_kinds(cfg) -> list[str]:
     return [pat[i % len(pat)] for i in range(cfg.n_layers)]
 
 
-def _init_block(cfg, kind: str, g: torch.Generator, **kw) -> dict[str, dict]:
-    """Counterpart of ``repro/models/lm.py:77 _init_block`` without MoE."""
+def moe_layers(cfg) -> list[bool]:
+    """Whether each layer's feed-forward is MoE: every layer after the
+    first ``first_k_dense`` of a MoE configuration."""
+    first = cfg.moe.first_k_dense if cfg.moe is not None else cfg.n_layers
+    return [i >= first for i in range(cfg.n_layers)]
+
+
+def _init_block(cfg, kind: str, moe_layer: bool, g: torch.Generator, **kw) -> dict[str, dict]:
+    """Counterpart of ``repro/models/lm.py:77 _init_block``."""
     if kind == "attn":
-        return {"norm1": init_norm(cfg, **kw), "attn": init_attention(cfg, g, **kw),
-                "norm2": init_norm(cfg, **kw), "mlp": init_mlp(cfg, g, **kw)}
+        p = {"norm1": init_norm(cfg, **kw), "attn": init_attention(cfg, g, **kw),
+             "norm2": init_norm(cfg, **kw)}
+        if moe_layer:
+            p["moe"] = MOE.init_moe(cfg, g, **kw)
+        else:
+            d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else None
+            p["mlp"] = init_mlp(cfg, g, d_ff=d_ff, **kw)
+        return p
     if kind == "rglru":
         return {"norm1": init_norm(cfg, **kw), "rec": RG.init_rglru(cfg, g, **kw),
                 "norm2": init_norm(cfg, **kw), "mlp": init_mlp(cfg, g, **kw)}
@@ -67,16 +82,24 @@ def _init_block(cfg, kind: str, g: torch.Generator, **kw) -> dict[str, dict]:
     return {"norm1": init_norm(cfg, **kw), "mix": init_mix(cfg, g, **kw)}
 
 
-def _params(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+def _params(tensors: dict) -> nn.ParameterDict:
+    """Frozen parameters; a nested dict (MoE's ``shared``) nests."""
+    return nn.ParameterDict({k: _params(t) if isinstance(t, dict)
+                             else nn.Parameter(t, requires_grad=False)
                              for k, t in tensors.items()})
+
+
+def _plain(sub: nn.ParameterDict) -> dict:
+    """A layer's tensors as plain (nested) dicts, as they are now."""
+    return {k: _plain(t) if isinstance(t, nn.ParameterDict) else t for k, t in sub.items()}
 
 
 class LM(nn.Module):
     """Parameters, with the JAX package's names per layer:
     ``embed.{embedding,lm_head}``, ``layers.<i>.*`` (``{norm1,attn,norm2,mlp}``
-    for ``attn``, ``{norm1,rec,norm2,mlp}`` for ``rglru``, ``{norm1,mix}``
-    for ``mlstm`` and ``slstm``), ``final_norm.*``. Parameters do not
+    for ``attn``, ``{norm1,attn,norm2,moe}`` for an MoE layer,
+    ``{norm1,rec,norm2,mlp}`` for ``rglru``, ``{norm1,mix}`` for ``mlstm``
+    and ``slstm``), ``final_norm.*``. Parameters do not
     require grad: a train step differentiates ``loss`` with respect to a
     ``{path: tensor}`` tree through ``runtime.train_loop.functional_loss``."""
 
@@ -94,14 +117,16 @@ class LM(nn.Module):
         self.dtype = dtype
         self.remat = remat
         self.kinds = layer_kinds(cfg)
+        self.moe = moe_layers(cfg)
         device = resolve(device)
         g = torch.Generator(device="cpu" if device.type == "meta" else device)
         g.manual_seed(seed)
         kw = dict(dtype=dtype, device=device)
         self.embed = _params(init_embed(cfg, g, **kw))
         self.layers = nn.ModuleList(
-            nn.ModuleDict({name: _params(t) for name, t in _init_block(cfg, kind, g, **kw).items()})
-            for kind in self.kinds
+            nn.ModuleDict({name: _params(t)
+                           for name, t in _init_block(cfg, kind, moe, g, **kw).items()})
+            for kind, moe in zip(self.kinds, self.moe)
         )
         self.final_norm = _params(init_norm(cfg, **kw))
 
@@ -121,8 +146,9 @@ class LM(nn.Module):
             {path.replace("/", "."): t for path, t in lm_params_from_jax(tree, self.cfg).items()}
         )
 
-    def _block(self, layer, kind, x, positions, cache=None, cache_pos=0):
-        """``repro/models/lm.py:118 _apply_block`` without MoE."""
+    def _block(self, layer, kind, moe, x, positions, cache=None, cache_pos=0):
+        """``repro/models/lm.py:118 _apply_block`` -> (x, the new cache or
+        state, the MoE layer's load-balance term or None)."""
         cfg = self.cfg
         h_in = apply_norm(layer["norm1"], x, cfg.norm)
         if kind == "attn":
@@ -133,57 +159,75 @@ class LM(nn.Module):
         else:
             scan = XL.mlstm_scan if kind == "mlstm" else XL.slstm_scan
             h, new_cache = scan(layer["mix"], h_in, cfg, state=cache)
-            return x + h, new_cache  # an xLSTM block has no MLP
+            return x + h, new_cache, None  # an xLSTM block has no MLP
         x = x + h
-        return x + apply_mlp(layer["mlp"], apply_norm(layer["norm2"], x, cfg.norm), cfg), new_cache
+        h2 = apply_norm(layer["norm2"], x, cfg.norm)
+        if moe:
+            ff, aux = MOE.apply_moe(layer["moe"], h2, cfg)
+            return x + ff, new_cache, aux
+        return x + apply_mlp(layer["mlp"], h2, cfg), new_cache, None
 
-    def _trunk(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``hidden`` without ``no_grad``: under grad with ``remat`` each
-        layer is a checkpoint. The checkpointed function gets the layer's
-        tensors as a plain dict made here, so that its recompute in the
-        backward reads the tensors this call saw (``functional_call``'s,
+    def _trunk(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``hidden`` without ``no_grad``, and the MoE layers' summed
+        load-balance term (None without MoE): under grad with ``remat``
+        each layer is a checkpoint. The checkpointed function gets the
+        layer's tensors as plain dicts made here, so that its recompute in
+        the backward reads the tensors this call saw (``functional_call``'s,
         which are gone from the module by then)."""
         tokens = tokens.to(self.device)
         x = embed_tokens(self.embed, tokens, self.cfg)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
         remat = self.remat and torch.is_grad_enabled()
-        for layer, kind in zip(self.layers, self.kinds):
+        aux_total = None
+        for layer, kind, moe in zip(self.layers, self.kinds, self.moe):
             if remat:
-                tensors = {name: dict(sub.items()) for name, sub in layer.items()}
-                x = checkpoint(self._layer, tensors, kind, x, positions, use_reentrant=False)
+                x, aux = checkpoint(self._layer, _plain(layer), kind, moe, x, positions,
+                                    use_reentrant=False)
             else:
-                x, _ = self._block(layer, kind, x, positions)
-        return x
+                x, _, aux = self._block(layer, kind, moe, x, positions)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, aux_total
 
-    def _layer(self, layer, kind, x, positions) -> torch.Tensor:
-        return self._block(layer, kind, x, positions)[0]
+    def _layer(self, layer, kind, moe, x, positions):
+        x, _, aux = self._block(layer, kind, moe, x, positions)
+        return x, aux
 
     @torch.no_grad()
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """The residual stream after the last layer, before the final norm:
         ``(b, s, d_model)`` for ``tokens`` ``(b, s)``."""
-        return self._trunk(tokens)
+        return self._trunk(tokens)[0]
 
-    def _logits(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = apply_norm(self.final_norm, self._trunk(tokens), self.cfg.norm)
-        return lm_logits(self.embed, x, self.cfg)
+    def _logits(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        x, aux = self._trunk(tokens)
+        return lm_logits(self.embed, apply_norm(self.final_norm, x, self.cfg.norm), self.cfg), aux
 
     @torch.no_grad()
-    def forward(self, batch: dict) -> torch.Tensor:
-        """Logits ``(b, s, vocab)`` for ``batch["tokens"]`` ``(b, s)``.
-        Counterpart of ``repro/models/lm.py:270 LM.forward`` without its
-        MoE auxiliary loss, which is 0 for these configurations."""
-        return self._logits(batch["tokens"])
+    def forward(self, batch: dict, *, with_aux: bool = False):
+        """Logits ``(b, s, vocab)`` for ``batch["tokens"]`` ``(b, s)``; with
+        ``with_aux`` also the MoE layers' summed load-balance term (fp32
+        0-d, 0 without MoE), as ``repro/models/lm.py:270 LM.forward``
+        returns (logits, moe_aux)."""
+        logits, aux = self._logits(batch["tokens"])
+        if not with_aux:
+            return logits
+        return logits, torch.zeros((), device=logits.device) if aux is None else aux
 
     def loss(self, batch: dict) -> torch.Tensor:
         """The mean next-token cross entropy of ``batch["tokens"]`` ``(b,
-        s)``, fp32 0-d. Counterpart of ``repro/models/lm.py:302 LM.loss``
-        for the causal configurations (the encoder-only one has a frontend,
-        which the port does not take); its MoE term is 0 here."""
+        s)`` plus ``router_aux_weight`` times the MoE layers' summed
+        load-balance term, fp32 0-d. Counterpart of
+        ``repro/models/lm.py:302 LM.loss`` for the causal configurations
+        (the encoder-only one has a frontend, which the port does not
+        take)."""
         targets = batch["tokens"].to(self.device)[:, 1:]
-        logits = self._logits(batch["tokens"])[:, :-1]
-        return cross_entropy_loss(logits, targets, torch.ones_like(targets))
+        logits, aux = self._logits(batch["tokens"])
+        ce = cross_entropy_loss(logits[:, :-1], targets, torch.ones_like(targets))
+        if aux is None:
+            return ce
+        return ce + self.cfg.moe.router_aux_weight * aux
 
     def init_decode_state(self, batch: int, max_seq: int) -> list:
         """One state per layer, of its kind: a zeroed KV cache (a ring of
@@ -220,8 +264,8 @@ class LM(nn.Module):
         b, s = tokens.shape
         positions = pos + torch.arange(s, device=self.device).expand(b, s)
         new_state = []
-        for layer, kind, cache in zip(self.layers, self.kinds, state):
-            x, cache = self._block(layer, kind, x, positions, cache, pos)
+        for layer, kind, moe, cache in zip(self.layers, self.kinds, self.moe, state):
+            x, cache, _ = self._block(layer, kind, moe, x, positions, cache, pos)  # aux unused
             new_state.append(cache)
         x = apply_norm(self.final_norm, x, self.cfg.norm)
         return lm_logits(self.embed, x[:, -1:], self.cfg), new_state

@@ -2,10 +2,12 @@
 
 Counterpart of ``repro/models/xlstm.py``. The mLSTM recurrence is
 ``mlstm_chunk_op`` in every use of the block (a full sequence, a block
-prefill from a state, a one-token decode step): the hand-written CUDA
-kernel on the card, its plain version on the CPU, both computing the
+prefill from a state, a one-token decode step, a training step): the
+hand-written CUDA kernels on the card (under grad the training entry and
+the backward kernel), their plain versions on the CPU, all computing the
 chunkwise form that the reference takes from 128 tokens on (its per-step
-``lax.scan`` below that computes the same function). The sLSTM has no
+``lax.scan`` below that computes the same function, and XLA differentiates
+either). The sLSTM has no
 kernel in the reference either: its step is PyTorch operators in a Python
 loop over time.
 """
@@ -27,7 +29,7 @@ NEG_INF = -1e30
 class MLSTMState(NamedTuple):
     """Counterpart of ``repro/models/xlstm.py:31 MLSTMState``."""
 
-    c: torch.Tensor  # (b, H, dh, dh), C[v][k]; written in place by mlstm_scan
+    c: torch.Tensor  # (b, H, dh, dh), C[v][k]; mlstm_scan writes it in place without grad
     n: torch.Tensor  # (b, H, dh)
     m: torch.Tensor  # (b, H)
 
@@ -86,8 +88,10 @@ def _mlstm_inputs(p, x: torch.Tensor, cfg):
 def mlstm_scan(p, x: torch.Tensor, cfg, state: MLSTMState | None = None
                ) -> tuple[torch.Tensor, MLSTMState]:
     """The mLSTM sub-layer over ``x`` ``(b, s, d)`` from ``state`` (a fresh
-    one when None) -> (y, the new state). The state's C is updated IN
-    PLACE, as the KV cache is. Counterpart of
+    one when None) -> (y, the new state). Without a gradient the state's C
+    is updated IN PLACE, as the KV cache is; when one is taken (a training
+    step) the new C is a fresh tensor and nothing is written, so autograd
+    keeps the C it saved. Counterpart of
     ``repro/models/xlstm.py:115 mlstm_scan``."""
     b, s = x.shape[0], x.shape[1]
     if state is None:

@@ -2,9 +2,11 @@
 configurations of ``ARCH_IDS``: the four attention-only dense ones
 (StableLM-3B: LayerNorm, SiLU GLU; Granite-20B: MQA, GELU, no GLU;
 Qwen2.5-32B: GQA, qkv bias, RMSNorm, θ=1e6; Command R+: GQA, tied
-embeddings) and the two recurrent ones (RecurrentGemma-9B: two RG-LRU
+embeddings), the two recurrent ones (RecurrentGemma-9B: two RG-LRU
 blocks and one local-attention block per unit, a ring KV cache of the
-16-token window, two tail layers; xLSTM-1.3B: mLSTM and sLSTM blocks),
+16-token window, two tail layers; xLSTM-1.3B: mLSTM and sLSTM blocks)
+and the two MoE ones (DeepSeek-MoE-16B, Kimi-K2: a dense head layer, then
+attention and routed experts),
 with parameters made by the JAX ``init`` at ``init_scale=1`` and carried
 across by ``repro_torch.bridge``. At that scale, with the norms' scales and
 biases, the qkv biases and the recurrent gates' biases drawn at random,
@@ -82,10 +84,15 @@ def tokens(cfg, b, s, seed=0):
 
 
 def jax_layer(tree, cfg, i):
-    """Layer ``i`` out of a JAX tree of parameters or decode state: position
-    ``i % len(pattern)`` of stacked unit ``i // len(pattern)``, or the tail."""
-    period = len(cfg.block_pattern)
-    n_units = cfg.n_layers // period
+    """Layer ``i`` out of a JAX tree of parameters or decode state: the
+    head (a MoE configuration's dense layers), position ``i % len(pattern)``
+    of stacked unit ``i // len(pattern)`` after it, or the tail."""
+    n_head = len(tree["head"])
+    if i < n_head:
+        return tree["head"][i]
+    i -= n_head
+    period = len(tree["units"])
+    n_units = (cfg.n_layers - n_head) // period
     if i >= n_units * period:
         return tree["tail"][i - n_units * period]
     return jax.tree_util.tree_map(lambda a: a[i // period], tree["units"][i % period])
@@ -237,12 +244,11 @@ def test_config_parameter_count_on_meta(name):
 
 
 def test_unported_blocks_raise():
-    """What the port does not take yet raises, naming its ROADMAP item: MoE,
-    the vision and audio frontends, M-RoPE, and a block of several tokens
-    into a ring KV cache at a position past 0."""
+    """What the port does not take yet raises, naming its ROADMAP item: the
+    vision and audio frontends, M-RoPE, and a block of several tokens into a
+    ring KV cache at a position past 0."""
     base = get_smoke("stablelm_3b")
-    for cfg in (dataclasses.replace(base, moe=object()),
-                dataclasses.replace(base, frontend="vision"),
+    for cfg in (dataclasses.replace(base, frontend="vision"),
                 dataclasses.replace(base, frontend="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(cfg, "cpu")

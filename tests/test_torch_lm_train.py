@@ -1,15 +1,14 @@
 """The port's LM training path against the JAX package's: ``LM.loss``
 (``repro/models/lm.py:302``) and its gradient through the train step,
-at the SMOKE StableLM-3B (attention) and RecurrentGemma-9B (RG-LRU and
-local attention), with the port's ``remat`` on and off (against the JAX
+at the SMOKE StableLM-3B (attention), RecurrentGemma-9B (RG-LRU and
+local attention), xLSTM-1.3B (mLSTM and sLSTM) and DeepSeek-MoE-16B (a
+dense head layer, then attention and routed experts, the loss with its
+load-balance term), with the port's ``remat`` on and off (against the JAX
 model with ``remat``: ``jax.checkpoint`` changes no value) and 1 or 2
-microbatches, and
-xLSTM-1.3B where the CPU path gives gradients (with ``remat``: without it
-the mLSTM plain version's in-place state write trips autograd, ROADMAP
-Queue 3). Parameters are made by the JAX ``init`` at ``init_scale=1``
+microbatches. Parameters are made by the JAX ``init`` at ``init_scale=1``
 with the constant leaves drawn at random (``test_torch_lm.py``) and
 carried across by ``repro_torch.bridge``; tokens are numpy draws from a
-seed. On the CPU the attention and RG-LRU Functions run their plain
+seed. On the CPU the attention, RG-LRU and mLSTM Functions run their plain
 versions, the algebra the CUDA kernels implement.
 
 Tolerances: the loss at rtol 1e-5 (fp32, sums in another order); each
@@ -35,6 +34,7 @@ from repro.runtime.train_loop import make_train_step as jax_make_train_step
 from repro_torch.bridge import lm_params_from_jax
 from repro_torch.configs import get_smoke
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.kernels.rg_lru import ops as rg_ops
 from repro_torch.models.blocks import cross_entropy_loss
 from repro_torch.models.lm import LM
@@ -47,7 +47,7 @@ from repro_torch.runtime.train_loop import (
 )
 from test_torch_lm import randomize_constants
 
-TRAINED = ("stablelm_3b", "recurrentgemma_9b")
+TRAINED = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b", "deepseek_moe_16b")
 BATCH, SEQ = 4, 24
 
 
@@ -191,9 +191,10 @@ def test_cross_entropy_loss_matches_jax():
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6, atol=1e-6)
 
 
-def test_the_cpu_path_counts_no_launch(reference):
-    before = {**flash_ops.LAUNCHES, **rg_ops.LAUNCHES}
-    (_, tree, model, tokens), _ = reference("recurrentgemma_9b", 1)
+@pytest.mark.parametrize("name", ("recurrentgemma_9b", "xlstm_1_3b"))
+def test_the_cpu_path_counts_no_launch(reference, name):
+    before = {**flash_ops.LAUNCHES, **rg_ops.LAUNCHES, **mlstm_ops.LAUNCHES}
+    (_, tree, model, tokens), _ = reference(name, 1)
     value_and_grad(functional_loss(model))(lm_params_from_jax(tree, model.cfg),
                                            {"tokens": torch.from_numpy(tokens)})
-    assert {**flash_ops.LAUNCHES, **rg_ops.LAUNCHES} == before
+    assert {**flash_ops.LAUNCHES, **rg_ops.LAUNCHES, **mlstm_ops.LAUNCHES} == before
