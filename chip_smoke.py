@@ -79,8 +79,8 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    0, and the reference's hit and miss pattern; warm batches equal to
    cold); 20 ``TrainController`` steps at CONFIG width fed by
    ``make_input_pipeline(overlap=True)`` with exact ``lstm_cell`` and
-   ``lstm_cell_bwd`` counts; each part's wall time, ``StageTimings`` and
-   the feeds' ``OverlapReport``;
+   ``lstm_layer_bwd`` counts (and no ``lstm_cell_bwd``); each part's wall
+   time, ``StageTimings`` and the feeds' ``OverlapReport``;
 10. the process shard executor against the thread executor on the same
    corpus (``executors``), 4 workers, the ``device`` backend, the chain
    without its dedup, the counters set to 0 just before each part and read
@@ -92,7 +92,7 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    process workers' launches counted in the workers and added by the
    caller; then 20 ``TrainController`` steps fed by
    ``make_input_pipeline`` on each executor with exact ``lstm_cell`` and
-   ``lstm_cell_bwd`` counts;
+   ``lstm_layer_bwd`` counts (and no ``lstm_cell_bwd``);
 11. text serving (``serve_text``): a row program of the abstract plan
    (``Dataset.row_program``, vocabulary fitted on the corpus), StableLM-3B
    at its published width and depth with that vocabulary (random weights
@@ -111,16 +111,23 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
 13. training (the example's, ``examples/train_summarizer_torch.py``):
    ``lstm_cell_bwd`` against its plain version at the training shape and
    its grid's edges, two launches bit for bit, the training entry of
-   ``lstm_cell`` bit-equal to the serving entry, and both timed; one train
+   ``lstm_cell`` bit-equal to the serving entry, and both timed;
+   ``lstm_layer_bwd`` (a layer's backward through time in one launch)
+   against its plain version at T 1-128, B 1-64, H 8-264, with and without
+   the final state's cotangents (fp64 decides a miss), two launches bit for
+   bit, and timed beside its bound, serial floor and cuDNN's one-layer LSTM
+   forward and backward (the port never calls it); one train
    step at CONFIG width (``init_scale=1``) on the card against the CPU
    (loss, every gradient present and within 1e-4 of its tensor's largest
    element, grad norm, updated params); then 40 steps of 32 cleaned
    records through ``DeviceFeed`` on the 2-D bucket grid under
    ``TrainController`` (checkpoint at step 20), the counters set to 0 just
-   before and read just after (``lstm_cell`` and ``lstm_cell_bwd`` each
-   exactly the sum of snapped encoder width x 3 + decoder width - 1), the
-   loss falling; a second controller resumes at step 20 with the saved
-   state bit for bit and tracks the first run's losses at 1e-4;
+   before and read just after (``lstm_cell`` exactly the sum of snapped
+   encoder width x 3 + decoder width - 1, ``lstm_layer_bwd`` exactly 4 a
+   step, ``lstm_cell_bwd`` 0), the loss falling; a second controller
+   resumes at step 20 with the saved state bit for bit and tracks the first
+   run's losses at 1e-4; one more step traced (idle share, ``aten::mm``
+   calls);
 14. the LM's training (``lm_train``, the path of ``python -m
    repro_torch.launch.train``): the training entry of ``flash_attention``
    (which also writes each row's log-sum-exp) and ``flash_attention_bwd``
@@ -129,7 +136,8 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    1e-5 of the tensor's max), ``rg_lru_bwd`` at the forward's 11 shapes
    and the training shape with and without h0 (1e-5), each launched twice
    and held equal bit for bit, and timed beside its plain version, bound and
-   (flash) SDPA's forward and backward; ``mlstm_chunk_op`` under grad
+   (flash) SDPA's forward alone and with its backward; ``mlstm_chunk_op``
+   under grad
    (``MLSTMFunction``: the training entry of ``mlstm_chunk`` and
    ``mlstm_chunk_bwd``) at xLSTM-1.3B's heads (s 1-200) and narrow ones
    from a carried state, against the plain versions, fp64 autograd and
@@ -203,22 +211,23 @@ ADVERSARIAL = [
     "nested ((deep (er))) out", "<<< (((", ")))) >>>>", "naïve café 漢字 🙂 (ñé) <Ω>", "",
     "Giant <b>Row</b> " + "Lorem IPSUM (drop me) " * 200, "<" + "x" * 3000 + ">tail",
 ]
-# Per-launch times before the current designs of flash_attention and
-# rg_lru and the fp64 state sum of mlstm_chunk's chunked pass (PERF.md §6
-# lists them; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
-# (kernel, timed row) -> ms.
+# Per-launch times before the current designs of flash_attention, its
+# backward and rg_lru and the fp64 state sum of mlstm_chunk's chunked pass
+# (PERF.md §6 lists them; NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's: (kernel, timed row) -> ms.
 BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
              ("flash_attention", "decode"): 0.01395, ("flash_attention", "prefill"): 0.01411,
              ("flash_attention", "decode_hd256"): 0.02643,
              ("flash_attention", "prefill_hd256"): 0.02603, ("rg_lru", "decode"): 0.005248,
              ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.007040,
              ("mlstm_chunk", "prefill"): 0.02070, ("text_clean", "matrix"): 0.01133,
-             ("text_clean", "abstracts"): 0.10571}
-# The byte kernels before their current designs by the back-to-back timer
-# (tools/byte_kernel_times.py against a git archive of the tree before
-# them; PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W): (kernel, row) -> ms.
+             ("text_clean", "abstracts"): 0.10571, ("flash_attention_bwd", None): 0.1347}
+# The byte kernels (tools/byte_kernel_times.py against a git archive of the
+# tree before them) and flash's backward (this script, before its tensor-core
+# design) by the back-to-back timer (PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W): (kernel, row) -> ms.
 BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.008276,
-                   ("text_clean", "abstracts"): 0.103428}
+                   ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326}
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -1010,7 +1019,7 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         controller = TrainController(ckpt_dir, fed_step, init_state, save_every=10 ** 6)
-        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        zero_lstm_counts()
         t0 = time.perf_counter()
         try:
             history = controller.run(iter(feed), n_steps=DATASET_STEPS)
@@ -1018,11 +1027,10 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
             feed.close()
         walls["train"] = time.perf_counter() - t0
         step_launches = dict(lstm_ops.LAUNCHES)
-    want_steps = sum(e * CONFIG.n_encoder_layers + d - 1 for e, d in widths)
-    if len(history) != DATASET_STEPS or step_launches != {"lstm_cell": want_steps,
-                                                          "lstm_cell_bwd": want_steps}:
+    want_steps = summarizer_launches(widths, CONFIG.n_encoder_layers)
+    if len(history) != DATASET_STEPS or step_launches != want_steps:
         fail(f"dataset: {len(history)} planner-fed steps and launches {step_launches}, "
-             f"expected {DATASET_STEPS} and {want_steps} of each")
+             f"expected {DATASET_STEPS} and {want_steps}")
     losses = [h["loss"] for h in history]
     if not np.isfinite(losses).all():
         fail(f"dataset: a non-finite loss {losses}")
@@ -1031,17 +1039,36 @@ def dataset(workdir: Path, p3sapp_records: list) -> tuple[dict, dict]:
     line["train"] = {"steps": len(history), "batch": DATASET_BATCH, "widths": widths,
                      "lstm_cell_launches": step_launches["lstm_cell"],
                      "lstm_cell_bwd_launches": step_launches["lstm_cell_bwd"],
+                     "lstm_layer_bwd_launches": step_launches["lstm_layer_bwd"],
                      "losses": losses, "feed": report.as_dict(),
                      "executor": train_stats.get("executor", "thread")}
     line.update({"seconds": walls, "text_scan_launches": launches})
     print(f"dataset: {len(history)} steps of {DATASET_BATCH} fed by make_input_pipeline in "
-          f"{walls['train']:.3f} s; lstm_cell and lstm_cell_bwd launches "
-          f"{step_launches['lstm_cell']} each (= sum of encoder width x "
-          f"{CONFIG.n_encoder_layers} + decoder width - 1); loss {losses[0]:.4f} -> "
+          f"{walls['train']:.3f} s; lstm_cell launches {step_launches['lstm_cell']} (= sum of "
+          f"encoder width x {CONFIG.n_encoder_layers} + decoder width - 1), lstm_layer_bwd "
+          f"{step_launches['lstm_layer_bwd']} ({CONFIG.n_encoder_layers + 1} a step), "
+          f"lstm_cell_bwd {step_launches['lstm_cell_bwd']}; loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; feed report {json.dumps(report.as_dict())}")
     print(f"dataset: phase wall {walls['phase']:.3f} s")
     return {"text_scan": launches, "lstm_cell": step_launches["lstm_cell"],
-            "lstm_cell_bwd": step_launches["lstm_cell_bwd"]}, line
+            "lstm_cell_bwd": step_launches["lstm_cell_bwd"],
+            "lstm_layer_bwd": step_launches["lstm_layer_bwd"]}, line
+
+
+def summarizer_launches(widths, n_layers: int) -> dict[str, int]:
+    """The summarizer's launch counts over train steps at these snapped
+    (encoder, decoder) widths: ``lstm_cell`` once a step of every layer
+    (encoder width x layers + decoder width - 1), one ``lstm_layer_bwd``
+    a layer a step (every layer's backward), no ``lstm_cell_bwd``."""
+    return {"lstm_cell": sum(e * n_layers + d - 1 for e, d in widths), "lstm_cell_bwd": 0,
+            "lstm_layer_bwd": len(widths) * (n_layers + 1)}
+
+
+def zero_lstm_counts() -> None:
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+
+    for key in lstm_ops.LAUNCHES:
+        lstm_ops.LAUNCHES[key] = 0
 
 
 def grid_batches(ds, tok, specs):
@@ -1260,7 +1287,7 @@ def executors(workdir: Path) -> tuple[dict, dict]:
 
         with tempfile.TemporaryDirectory() as ckpt_dir, timed_executors(made):
             controller = TrainController(ckpt_dir, fed_step, init_state, save_every=10 ** 6)
-            lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+            zero_lstm_counts()
             t0 = time.perf_counter()
             feed = make_input_pipeline(batched(chain(executor), tok), epochs=None,
                                        overlap=True)
@@ -1270,11 +1297,10 @@ def executors(workdir: Path) -> tuple[dict, dict]:
                 feed.close()
             walls[f"train_{executor}"] = time.perf_counter() - t0
             got = dict(lstm_ops.LAUNCHES)
-        want_cells = sum(e * CONFIG.n_encoder_layers + d - 1 for e, d in widths)
-        if len(history) != DATASET_STEPS or got != {"lstm_cell": want_cells,
-                                                    "lstm_cell_bwd": want_cells}:
+        want_cells = summarizer_launches(widths, CONFIG.n_encoder_layers)
+        if len(history) != DATASET_STEPS or got != want_cells:
             fail(f"executors: {len(history)} steps fed on {executor} and launches {got}, "
-                 f"expected {DATASET_STEPS} and {want_cells} of each")
+                 f"expected {DATASET_STEPS} and {want_cells}")
         if [m["name"] for m in made] != [executor]:
             fail(f"executors: the steps fed on {executor} ran on {made}")
         losses = [h["loss"] for h in history]
@@ -1283,21 +1309,23 @@ def executors(workdir: Path) -> tuple[dict, dict]:
         train[executor] = {"steps": len(history), "widths": widths,
                            "lstm_cell_launches": got["lstm_cell"],
                            "lstm_cell_bwd_launches": got["lstm_cell_bwd"],
+                           "lstm_layer_bwd_launches": got["lstm_layer_bwd"],
                            "ms_a_step": 1e3 * walls[f"train_{executor}"] / len(history),
                            "step_ms_median": 1e3 * statistics.median(step_s),
                            "losses": losses, "feed": feed.report().as_dict(),
                            "start": made[0]}
         print(f"executors: {len(history)} steps fed on {executor} in "
               f"{walls[f'train_{executor}']:.3f} s ({train[executor]['ms_a_step']:.1f} ms a "
-              f"step, median step {train[executor]['step_ms_median']:.1f} ms); lstm_cell and "
-              f"lstm_cell_bwd launches {want_cells} each; loss {losses[0]:.4f} -> "
+              f"step, median step {train[executor]['step_ms_median']:.1f} ms); launches "
+              f"{json.dumps(got)}; loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}")
     walls["phase"] = time.perf_counter() - started
     line.update({"train": train, "seconds": walls, "text_scan_launches": launches})
     print(f"executors: phase wall {walls['phase']:.3f} s")
     return {"text_scan": launches,
             "lstm_cell": {k: v["lstm_cell_launches"] for k, v in train.items()},
-            "lstm_cell_bwd": {k: v["lstm_cell_bwd_launches"] for k, v in train.items()}}, line
+            "lstm_cell_bwd": {k: v["lstm_cell_bwd_launches"] for k, v in train.items()},
+            "lstm_layer_bwd": {k: v["lstm_layer_bwd_launches"] for k, v in train.items()}}, line
 
 
 class FirstResult:
@@ -1711,6 +1739,148 @@ def time_lstm_cell_bwd(gen, bw: float, flops: float) -> dict:
     return row
 
 
+# lstm_layer_bwd: (T, B, H, d_in) covering T 1, 2, 24 and 128, B 1, 32, 33
+# and 64 (rows split over clusters, a ragged last cluster), H 8, 256 and
+# 264 (a unit past 32 a block, more units than threads) and the widest it
+# takes, d_in 128 and 256; each with and without the final state's
+# cotangents. The first is timed.
+LAYER_WIDEST = 320  # ROADMAP Queue 3's limit: a block holds an eighth of wh
+LAYER_SHAPES = [(128, TRAIN_BATCH, 256, 256), (128, 64, 256, 128), (24, 33, 264, 128),
+                (2, 1, 8, 256), (1, TRAIN_BATCH, 256, 128), (24, 64, 8, 128),
+                (128, 1, 264, 256), (2, 33, 256, 256), (1, 64, 264, 128), (24, 1, 256, 256),
+                (2, 3, LAYER_WIDEST, 128)]
+LAYER_TINY = (128, 1, 8, 128)  # the same T at the smallest work: the serial floor
+
+
+def layer_bwd_inputs(T, B, H, d_in, gen, last=True):
+    """What a layer's training forward saves (gates, cs) from the plain
+    forward on random inputs on the card, wh, and random cotangents of hs
+    and (with ``last``) of the final state."""
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_train_ref
+
+    x, h, c, wx, wh, b = lstm_inputs(B, d_in, H, torch.float32, gen)
+    wx, wh = wx * 8, wh * 8  # gates spread over their range
+    xs = torch.randn(T, B, d_in, generator=gen).cuda()
+    cs, gates = [c], []
+    for t in range(T):
+        h, c, g = lstm_cell_train_ref(xs[t], h, c, wx, wh, b)
+        cs.append(c)
+        gates.append(g)
+    dhs = torch.randn(T, B, H, generator=gen).cuda()
+    dh, dc = (torch.randn(B, H, generator=gen).cuda() if last else None for _ in range(2))
+    return dhs, dh, dc, torch.stack(gates), torch.stack(cs), wh
+
+
+def check_lstm_layer_bwd(gen) -> float:
+    """``lstm_layer_bwd`` against ``lstm_layer_bwd_ref`` on the card at
+    ``LAYER_SHAPES``, with and without the final state's cotangents: each
+    of dz, dh0 and dc0 within 1e-5 of its tensor's max, or, where the
+    kernel misses, both versions held against the fp64 plain version (the
+    kernel within 1e-5 of the max, or no further than the fp32 plain
+    version); two launches identical bit for bit. Returns the max abs
+    error at the timed shape."""
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_layer_bwd_ref
+
+    err, by_fp64 = 0.0, []
+    for shape in LAYER_SHAPES:
+        for last in (True, False):
+            args = layer_bwd_inputs(*shape, gen, last=last)
+            got = ops.lstm_layer_bwd(*args)
+            again = ops.lstm_layer_bwd(*args)
+            torch.cuda.synchronize()
+            want = lstm_layer_bwd_ref(*args)
+            exact = None
+            for name, g, r, w in zip(("dz", "dh0", "dc0"), got, again, want):
+                if not torch.equal(g, r):
+                    fail(f"lstm_layer_bwd {shape} last={last}: two launches differ in {name}")
+                scale = w.abs().max().item()
+                e = (g - w).abs().max().item()
+                if e > 1e-5 * scale:
+                    if exact is None:
+                        exact = lstm_layer_bwd_ref(*(None if t is None else t.double()
+                                                     for t in args))
+                    t64 = exact[("dz", "dh0", "dc0").index(name)]
+                    e_k = (g.double() - t64).abs().max().item()
+                    e_p = (w.double() - t64).abs().max().item()
+                    if e_k > max(1e-5 * scale, e_p):
+                        fail(f"lstm_layer_bwd {shape} last={last} {name}: {e:.3e} from plain, "
+                             f"{e_k:.3e} from fp64 (plain {e_p:.3e}; max {scale:.3e}, tol "
+                             f"1e-5 of the max)")
+                    by_fp64.append([list(shape), last, name, e_k, e_p])
+                if shape == LAYER_SHAPES[0] and last:
+                    err = max(err, e)
+    widest = ops._entry("lstm_layer_bwd_max_hidden")()
+    if widest != LAYER_WIDEST:
+        fail(f"lstm_layer_bwd takes hidden up to {widest}, documented {LAYER_WIDEST}")
+    try:
+        ops.lstm_layer_bwd(*layer_bwd_inputs(2, 3, LAYER_WIDEST + 8, 128, gen))
+        fail(f"lstm_layer_bwd took hidden {LAYER_WIDEST + 8}, past its limit")
+    except ValueError as exc:
+        if f"({LAYER_WIDEST}:" not in str(exc):
+            fail(f"lstm_layer_bwd's refusal does not name its limit: {exc}")
+    print(f"lstm_layer_bwd: matches plain at {len(LAYER_SHAPES)} shapes x 2 (T 1-128, B 1-64, "
+          f"H 8-{LAYER_WIDEST}; tol 1e-5 of each tensor's max), fp64 decided {by_fp64}; two "
+          f"launches identical bit for bit; hidden {LAYER_WIDEST + 8} refused")
+    return err
+
+
+def time_lstm_layer_bwd(gen, bw: float, flops: float) -> dict:
+    """The layer backward at T 128, B 32, d_in 256, H 256, both timers,
+    beside its plain version, its bound (bytes and serial products) and
+    serial floor (the kernel measured at B 1, H 8, where the products
+    vanish and T cluster barriers remain); the yardstick is
+    ``torch.nn.LSTM``'s forward and backward for one layer (cuDNN, TF32
+    off), beside the port's pair: ``lstm_layer_op``'s T forward launches
+    and its backward."""
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_layer_bwd_ref
+
+    T, B, H, d_in = LAYER_SHAPES[0]
+    args = layer_bwd_inputs(T, B, H, d_in, gen)
+    tiny = layer_bwd_inputs(*LAYER_TINY, gen)
+    # reads dhs, dh_last, dc_last, the gates, c (T + 1) and wh; writes dz, dh0, dc0
+    n_bytes = 4 * (T * B * H + 2 * B * H + T * B * 4 * H + (T + 1) * B * H + H * 4 * H
+                   + T * B * 4 * H + 2 * B * H)
+    n_ops = 2 * T * B * H * 4 * H  # the serial products dz[t+1] wh^T, dh0 included
+    x, h0, c0, wx, wh, b = lstm_inputs(B, d_in, H, torch.float32, gen)
+    xs = torch.randn(T, B, d_in, generator=gen).cuda()
+    leaves = [t.requires_grad_(True) for t in (xs, h0, c0, wx, wh, b)]
+    cts = [torch.randn(T, B, H, generator=gen).cuda(), torch.randn(B, H, generator=gen).cuda(),
+           torch.randn(B, H, generator=gen).cuda()]
+
+    def port_pair():
+        torch.autograd.backward(ops.lstm_layer_op(*leaves), cts)
+
+    lstm = torch.nn.LSTM(d_in, H).cuda()
+    inp = xs.detach().requires_grad_(True)
+    state = (h0.detach()[None], c0.detach()[None])
+
+    def library():
+        out, (hn, cn) = lstm(inp, state)
+        torch.autograd.backward((out, hn[0], cn[0]), cts)
+
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = device_ms(library, n=20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    row = {"ms": device_ms(lambda: ops.lstm_layer_bwd(*args)),
+           "ms_burst": device_ms_burst(lambda: ops.lstm_layer_bwd(*args), n=50),
+           "plain_ms": device_ms(lambda: lstm_layer_bwd_ref(*args), n=10),
+           "bound_ms": max(n_bytes / bw, n_ops / flops) * 1e3,
+           "bound_by": "bytes" if n_bytes / bw >= n_ops / flops else "operations",
+           "bytes": n_bytes, "operations": n_ops,
+           "serial_floor_ms": device_ms(lambda: ops.lstm_layer_bwd(*tiny)),
+           "serial_floor_shape": list(LAYER_TINY),
+           "library_ms": library_ms,
+           "library": "torch.nn.LSTM forward + backward, one layer (cuDNN, allow_tf32 False)",
+           "pair_ms": device_ms(port_pair, n=20), "shape": [T, B, H, d_in]}
+    print(f"lstm_layer_bwd fp32 T={T} B={B} H={H} d_in={d_in}: {json.dumps(row)}")
+    return row
+
+
 def train_card_vs_cpu(host_batch, grid) -> dict:
     """One train step at CONFIG width, ``init_scale=1``, the same weights
     and batch on the card and on the CPU: the loss at 1e-5, every gradient
@@ -1831,7 +2001,7 @@ def train(cleaned):
         return history, feed.report(), time.perf_counter() - t0
 
     def want_launches(widths):
-        return sum(w_enc * CONFIG.n_encoder_layers + w_dec - 1 for w_enc, w_dec in widths)
+        return summarizer_launches(widths, CONFIG.n_encoder_layers)
 
     # warm-up: the first step's kernels, cuBLAS handles and allocator
     warm = {k: torch.from_numpy(v).cuda() for k, v in grid.snap(hosts[0]).items()}
@@ -1843,13 +2013,13 @@ def train(cleaned):
     with tempfile.TemporaryDirectory() as ckpt_dir:
         saved = {}
         controller, feed, widths = controller_over(ckpt_dir, hosts, saved)
-        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        zero_lstm_counts()
         history, report, seconds = run(controller, feed)
         launches = dict(lstm_ops.LAUNCHES)
         want = want_launches(widths)
-        if len(history) != TRAIN_STEPS or launches != {"lstm_cell": want, "lstm_cell_bwd": want}:
+        if len(history) != TRAIN_STEPS or launches != want:
             fail(f"the train run made {len(history)} steps and launches {launches}, expected "
-                 f"{TRAIN_STEPS} steps and {want} of each")
+                 f"{TRAIN_STEPS} steps and {want}")
         losses = [h["loss"] for h in history]
         if not np.isfinite(losses).all():
             fail(f"a non-finite training loss: {losses}")
@@ -1866,14 +2036,23 @@ def train(cleaned):
                                             strict=True):
             if got.dtype != want_t.dtype or not torch.equal(got, want_t):
                 fail(f"the restored {path} differs from the state saved at step {TRAIN_SAVE_AT}")
-        lstm_ops.LAUNCHES["lstm_cell"] = lstm_ops.LAUNCHES["lstm_cell_bwd"] = 0
+        zero_lstm_counts()
         history2, _, seconds2 = run(resumed, feed2)
         resume_launches = dict(lstm_ops.LAUNCHES)
+    # one more step traced, as examples/train_summarizer_torch.py --profile does
+    from repro_torch.launch.serve import profile
+
+    traced_batch = {k: torch.from_numpy(v).cuda() for k, v in grid.snap(hosts[0]).items()}
+    params, state = init_state()
+    line["traced_step"] = profile(lambda: train_step(params, state, traced_batch),
+                                  torch.device("cuda"), torch.cuda.synchronize,
+                                  f"one train step at CONFIG, batch {TRAIN_BATCH}")
+    del params, state, traced_batch
     if [h["step"] for h in history2] != list(range(TRAIN_SAVE_AT + 1, TRAIN_STEPS + 1)):
         fail(f"the resumed run took steps {[h['step'] for h in history2]}")
     want2 = want_launches(widths2)
-    if resume_launches != {"lstm_cell": want2, "lstm_cell_bwd": want2}:
-        fail(f"the resumed run made launches {resume_launches}, expected {want2} of each")
+    if resume_launches != want2:
+        fail(f"the resumed run made launches {resume_launches}, expected {want2}")
     rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
               for a, b in zip(history2, history[TRAIN_SAVE_AT:]))
     if rel > 1e-4:
@@ -1889,6 +2068,7 @@ def train(cleaned):
         "feed_wait_share": report.device_idle_fraction,
         "lstm_cell_launches": launches["lstm_cell"],
         "lstm_cell_bwd_launches": launches["lstm_cell_bwd"],
+        "lstm_layer_bwd_launches": launches["lstm_layer_bwd"],
         "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
         "resumed_at": TRAIN_SAVE_AT, "resume_max_rel_loss_diff": rel,
         "resume_seconds": seconds2, "resume_launches": resume_launches,
@@ -1898,11 +2078,12 @@ def train(cleaned):
           f"({seconds / len(history) * 1e3:.1f} ms a step, {n_tokens / seconds:.0f} training "
           f"tokens/s); loss {losses[0]:.4f} -> {losses[-1]:.4f}; feed wait "
           f"{report.device_idle_fraction:.2%} of the steps (the feed's OverlapReport; the "
-          f"card's idle share is traced by examples/train_summarizer_torch.py --profile), "
+          f"card's idle share is the traced step's, {line['traced_step']['idle_share']:.2%}), "
           f"{line['wall_idle_share']:.2%} of the wall clock outside the steps")
-    print(f"train: lstm_cell launches {launches['lstm_cell']} and lstm_cell_bwd launches "
-          f"{launches['lstm_cell_bwd']} = sum of snapped (encoder width x "
-          f"{CONFIG.n_encoder_layers} + decoder width - 1) over the steps")
+    print(f"train: lstm_cell launches {launches['lstm_cell']} = sum of snapped (encoder width "
+          f"x {CONFIG.n_encoder_layers} + decoder width - 1) over the steps; lstm_layer_bwd "
+          f"{launches['lstm_layer_bwd']} = {CONFIG.n_encoder_layers + 1} a step; lstm_cell_bwd "
+          f"{launches['lstm_cell_bwd']}")
     print(f"train: resumed at step {TRAIN_SAVE_AT} with params, moments and count equal bit "
           f"for bit to those saved; steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} track the "
           f"uninterrupted run's losses within {rel:.3e} relative (rtol 1e-4: the run does not "
@@ -2712,8 +2893,10 @@ LAUNCHER_FLAGS = ["--arch", "stablelm_3b", "--smoke", "--device", "cuda", "--cor
 LAUNCHER_STEPS = (10, 20)
 # (b, s, nq, nkv, hd, causal, window) of the flash backward: the training
 # shapes, then hd 80 and 256, groups of 1, 4 and 16, lengths on both sides
-# of the backward's 32- and 64-key tiles, windows under the sequence, and
-# forwards that the plan splits over a cluster (lse from the combine)
+# of the backward's 32- and 64-key tiles, windows under the sequence,
+# forwards that the plan splits over a cluster (lse from the combine), and
+# backwards that split a kv group's heads over blocks, one of them over 16
+# rounds of partial dQ
 FLASH_BWD_CASES = [
     (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 32, 80, True, 0),  # StableLM-3B's training step
     (LM_TRAIN_CHECK_BATCH, 64, 16, 1, 256, True, 2048),  # RecurrentGemma-9B's checked step
@@ -2729,6 +2912,7 @@ FLASH_BWD_CASES = [
     (2, 300, 16, 1, 256, True, 100),
     (1, 300, 2, 2, 256, False, 0),  # non-causal, split
     (8, 65, 4, 1, 256, False, 9),  # a non-causal window
+    (2, 2048, 16, 1, 256, True, 2048),  # RecurrentGemma-9B at 2048 positions: 16 rounds
 ]
 
 
@@ -2766,11 +2950,14 @@ def check_flash_bwd(gen) -> tuple[float, float]:
                                                          flash_attention_train_ref)
 
     err_fwd = err_bwd = 0.0
-    n_split = 0
+    n_split = n_heads_split = n_rounds = 0
     for case in FLASH_BWD_CASES:
         b, s, nq, nkv, hd, causal, window = case
         kw = dict(causal=causal, window=window)
         n_split += flash_ops.plan(b, s, nq, nkv, q_offset=0, n_keys=s, **kw).split > 1
+        n_heads_split += flash_ops.bwd_head_split(b, s, s, nq, nkv, hd) > 1
+        tiles = -(-s // flash_ops.bwd_key_tile(hd))
+        n_rounds += 0 < flash_ops.bwd_part_tiles(b, s, s, nq, hd) < tiles
         q, k, v, dout = flash_bwd_inputs(case, gen)
         out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
         out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
@@ -2797,11 +2984,15 @@ def check_flash_bwd(gen) -> tuple[float, float]:
     if n_split < 2:
         fail(f"flash_attention_train: only {n_split} of the backward's shapes split over a "
              f"cluster")
+    if n_heads_split < 2 or n_rounds < 1:
+        fail(f"flash_attention_bwd: {n_heads_split} shapes split a kv group's heads and "
+             f"{n_rounds} sum partial dQ in rounds (want 2 and 1)")
     print(f"flash_attention training entry and flash_attention_bwd: match plain at "
-          f"{len(FLASH_BWD_CASES)} shapes (hd 80 and 256, groups 1-16, seq 1-300, windows under "
-          f"the sequence; tol 2e-5 abs/rel or 1e-5 of the tensor's max), {n_split} of them "
-          f"split over a cluster in the forward; out equal to the serving entry's bit for bit; "
-          f"two launches identical bit for bit")
+          f"{len(FLASH_BWD_CASES)} shapes (hd 80 and 256, groups 1-16, seq 1-2048, windows "
+          f"under the sequence; tol 2e-5 abs/rel or 1e-5 of the tensor's max), {n_split} of "
+          f"them split over a cluster in the forward, {n_heads_split} split a kv group's heads "
+          f"in the backward, {n_rounds} sum partial dQ in rounds; out equal to the serving "
+          f"entry's bit for bit; two launches identical bit for bit")
     return err_fwd, err_bwd
 
 
@@ -3015,6 +3206,10 @@ def time_flash_bwd(gen, bw: float, flops: float) -> dict:
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         return torch.autograd.grad(o, (qt, kt, vt), dt)
 
+    def library_forward():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
     for g, w in zip(library(), flash_attention_bwd_ref(q, k, v, out, lse, dout)):
         torch.testing.assert_close(g.transpose(1, 2), w, rtol=1e-4, atol=1e-4)
     pairs = b * nq * s * (s + 1) // 2  # causal (query, key) pairs
@@ -3043,6 +3238,8 @@ def time_flash_bwd(gen, bw: float, flops: float) -> dict:
            "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout)),
            "library_ms": device_ms(library), "library_ms_burst": device_ms_burst(library),
            "library": "scaled_dot_product_attention forward + backward",
+           "library_forward_ms": device_ms(library_forward),
+           "library_forward_ms_burst": device_ms_burst(library_forward),
            "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes, "operations": bwd_ops,
            "train_forward_ms": device_ms(fwd), "train_forward_ms_burst": device_ms_burst(fwd),
            "train_forward_plain_ms": device_ms(lambda: flash_attention_train_ref(q, k, v)),
@@ -3462,6 +3659,8 @@ def main() -> int:
     clean_err = check_text_clean(gen)
     train_gen = torch.Generator().manual_seed(SEED + 1)  # the earlier checks' draws unchanged
     bwd_err = check_lstm_cell_bwd(train_gen)
+    layer_gen = torch.Generator().manual_seed(SEED + 5)  # the draws above unchanged
+    layer_err = check_lstm_layer_bwd(layer_gen)
 
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
@@ -3470,6 +3669,7 @@ def main() -> int:
              "rg_lru": time_rg_lru(gen, bw, flops),
              "mlstm_chunk": time_mlstm_chunk(gen, bw, flops)}
     bwd_t = time_lstm_cell_bwd(train_gen, bw, flops)
+    layer_t = time_lstm_layer_bwd(layer_gen, bw, flops)
 
     # 5. the summarizer at CONFIG width
     launches, serve_line = serve(abstracts, titles)
@@ -3597,12 +3797,21 @@ def main() -> int:
          "launches": clean_launches, "max_abs_err": clean_err,
          **{k: clean_t["matrix"][k] for k in
             ("ms", "ms_burst", "plain_ms", "library_ms", "bound_ms", "bound_by")}, **clean_t},
+        # off the main path since lstm_layer_bwd: only lstm_cell_op called
+        # alone under grad reaches it (its launches above are 0 by design)
         {"name": "lstm_cell_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
          "replaces": "none: XLA differentiates src/repro/models/seq2seq.py:63 lstm_cell",
          "launches": train_line["lstm_cell_bwd_launches"], "max_abs_err": bwd_err, **bwd_t,
+         "on_main_path": False,
          "dataset_launches": dataset_launches["lstm_cell_bwd"],
          "executors_launches": executors_launches["lstm_cell_bwd"]},
+        {"name": "lstm_layer_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lstm_layer_bwd.cu",
+         "replaces": "none: XLA differentiates src/repro/models/seq2seq.py:73 lstm_scan",
+         "launches": train_line["lstm_layer_bwd_launches"], "max_abs_err": layer_err,
+         **layer_t, "dataset_launches": dataset_launches["lstm_layer_bwd"],
+         "executors_launches": executors_launches["lstm_layer_bwd"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "none: XLA differentiates src/repro/models/attention.py:97 sdpa",
@@ -3625,8 +3834,11 @@ def main() -> int:
          "launches_by_path": train_paths("mlstm_chunk_bwd"), **lm_rows["mlstm_chunk_bwd"]},
     ]
     for entry in kernels:
-        if not entry["launches"]:
+        if entry.get("on_main_path", True) and not entry["launches"]:
             fail(f"{entry['name']} was launched no time on its path")
+        if entry["name"] == "lstm_cell_bwd" and entry["launches"]:
+            fail(f"lstm_cell_bwd was launched {entry['launches']} times on the train path, "
+                 f"which lstm_layer_bwd now takes")
     for (kernel, row), before in BEFORE_MS.items():
         entry = next(k for k in kernels if k["name"] == kernel)
         now = entry[row]["ms"] if row else entry["ms"]

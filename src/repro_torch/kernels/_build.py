@@ -46,6 +46,9 @@ SIGNATURES = {
     "lstm_cell_train_f32": (_P,) * 9 + (_I,) * 3 + (_P,),
     # dh (or null), dc (or null), gates, c, c_new, dz, dc_prev; B, H; stream
     "lstm_cell_bwd_f32": (_P,) * 7 + (_I,) * 2 + (_P,),
+    # dhs, dh_last, dc_last (each or null), gates, cs, wh, dz, dh0, dc0; T, B,
+    # H; stream
+    "lstm_layer_bwd_f32": (_P,) * 9 + (_I,) * 3 + (_P,),
     "text_scan": (_P, _P, _P, _I, _I, _I, _I, _P),
     # in, out, offsets (or null); n_rows, width (rows of null offsets); strip_html; stream
     "text_clean": (_P, _P, _P, _I, _L, _I, _P),
@@ -56,9 +59,10 @@ SIGNATURES = {
     "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
     # as flash_attention_f32, with lse after out
     "flash_attention_train_f32": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
-    # q, k, v, out, dout, lse, delta, dq, dk, dv; b, sq, skv, nq, nkv, hd;
-    # causal, window; scale; stream
-    "flash_attention_bwd_f32": (_P,) * 10 + (_I,) * 8 + (_F, _P),
+    # q, k, v, out, dout, lse, delta, dq_part, dkv_part (each or null), dq,
+    # dk, dv; b, sq, skv, nq, nkv, hd; causal, window; the tiles dq_part
+    # holds; the head split; scale; stream
+    "flash_attention_bwd_f32": (_P,) * 12 + (_I,) * 10 + (_F, _P),
     # a, b, h0 (or null), out, h_last; dtype (0 fp32, 1 bf16), batch, seq, d; stream
     "rg_lru": (_P,) * 5 + (_I,) * 4 + (_P,),
     # a, h, h0, dh, dlast (each of the last three or null), da, db, dh0 (or
@@ -75,7 +79,7 @@ SIGNATURES = {
     "mlstm_chunk_bwd_f32": (_P,) * 22 + (_I,) * 4 + (_P,),
 }
 # entry points that return a size, not an error code
-SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4}
+SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4, "lstm_layer_bwd_max_hidden": ()}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

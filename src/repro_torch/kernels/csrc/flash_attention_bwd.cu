@@ -11,63 +11,62 @@
 //   dV = sum P^T dO,  dS = P o (dO V^T - D),
 //   dQ = dS K * scale,  dK = dS^T Q * scale,
 // dK and dV summed over the query heads of each kv group. The plain version
-// is kernels/flash_attention/ref.py:flash_attention_bwd_ref.
+// is kernels/flash_attention/ref.py:flash_attention_bwd_ref; its
+// split_tf32=True form computes the products as this kernel does.
 //
 // Layout: q, out, dout, dq (b, sq, nq, hd) and k, v, dk, dv (b, skv, nkv,
-// hd), all contiguous; lse and the D pass's delta (b, nq, sq).
+// hd), all contiguous; lse and D (b, nq, sq).
 //
 // What bounds it: at the training shape (StableLM-3B, batch 8, seq 64, 32
 // heads of 80, causal) it must read q, k, v, O and dO and write dq, dk, dv,
 // 41.9 MB, 0.0125 ms at 3.35 TB/s; its five products over the causal half
-// are 0.42 GFLOP, 0.0063 ms at 67 TFLOP/s. So memory, at the bound; this
-// kernel recomputes S in both passes and runs its products from shared
-// memory in fp32 on the CUDA cores (no tensor cores, no TF32: parity with
-// the plain version at 2e-5), so it sits above it.
+// are 0.42 GFLOP, 0.0063 ms at 67 TFLOP/s fp32. So memory.
 //
-// Design: three kernels, one launch each, on one stream.
-// - D pass: 8 rows a block, 32 threads a row sum strided products; thread
-//   r then adds row r's 32 partials in order.
-// - dK/dV: a block owns kBc keys of one (batch, kv head) and accumulates
-//   their dK and dV in registers (each thread a fixed set of (key, 4-dim
-//   chunk) entries). It walks, head by head of the group, the query rows
-//   that see any of its keys ([first key, last key + window) under the
-//   masks) in chunks of kBr: Q, dO, lse and D of the chunk into shared
-//   memory, then P and dS of the chunk x keys, then the two sums over the
-//   chunk's rows.
-// - dQ: a block owns kBr query rows of one (batch, head) and accumulates
-//   their dQ in registers, walking the keys its rows see in tiles of kBc
-//   (K and V into shared memory, dS, then the sum over the tile's keys).
-// Every sum runs in a fixed order and every output element has one owner:
-// no atomics, so two launches give the same bits.
+// Design: one block owns kBc keys of one (batch, kv head), keeps their dK
+// and dV in registers, and walks, head by head of the group, the query rows
+// that see any of its keys in chunks of kBr = 32 rows. Per chunk:
+// - Q and dO of the chunk (and its lse, D) arrive by 16-byte cp.async,
+//   double-buffered: the next chunk's copies fly while this one computes;
+// - S = Q K^T and dP = dO V^T, then P and dS, computed once, kept in
+//   shared memory transposed (an mma tile the masks hide whole is skipped
+//   here and in the three products below);
+// - dV += P^T dO and dK += dS^T Q into the registers;
+// - this key tile's share of dQ, dS K, goes out from registers.
+// All five products run on the tensor cores (mma.sync m16n8k8, TF32) with
+// the error-compensated split: each fp32 operand a is hi = tf32(a) and lo =
+// tf32(a - hi), and a b = hi hi' + hi lo' + lo hi' in fp32 (the dropped
+// lo lo' is about 2^-22 of the product), each k-step's three products summed
+// apart and added to the running sum in a rounded fp32 add (the tensor
+// cores' own sum truncates), which keeps fp32's 2e-5 parity.
+// dQ without atomics: with one key tile per (batch, kv head) (every
+// sequence up to kBc keys) the block owns its rows' dQ and writes it, and
+// computes D itself from O and dO (it sees each query row once). Past one
+// tile each tile writes its partial dQ to scratch, and a second kernel adds
+// the partials in tile order (in rounds of as many tiles as the scratch
+// holds); D is then a pass of its own before. Every sum runs in a fixed
+// order: two launches give the same bits.
+// Head split: b x nkv x (a round's tiles) blocks leave most of the card idle
+// under multi-query heads at a small batch (RecurrentGemma-9B's 16 heads on
+// one kv head, batch 2: 4 blocks at 64 positions). Then hsplit blocks share
+// a (key tile, kv head), each walking group / hsplit of its query heads;
+// they write dK, dV partials, which a last kernel adds in split order. The
+// host picks hsplit (flash_attention/ops.py bwd_head_split).
 //
-// What the tiles are shaped for: the products run from shared memory on
-// the CUDA cores, so shared-memory traffic sets the pace. Rows are stored
-// as 16-byte chunks (hd rounded up to 4, zeros past hd) with a stride of an
-// odd number of chunks, so a quarter-warp reading one chunk of 8 different
-// rows hits 8 different bank groups. For S and dP each thread scores 2 rows
-// against kBc / 16 keys, reading each chunk of q, dO, k and v once for all
-// of them; for the sums each thread owns whole 4-dim chunks, so a row's p
-// or dS (a broadcast) serves four products.
-//
-// Shared memory sets the tiles: K and V (kBc rows each), Q and dO (kBr rows
-// each), P and dS (kBr x kBc), lse and D. With kBr = 32: hd <= 128 takes
-// kBc = 64 (at hd 80 79.3 KB, at hd 128 115.3 KB); hd <= 256 takes kBc =
-// 32 (at hd 256 138.3 KB). A 64-key tile at hd 256 would need 195 KB for
-// K, V and the chunk alone, 211 KB in all, and its dK and dV registers
-// would double. The launch raises the limit with cudaFuncSetAttribute.
+// Tiles: hd <= 128 takes kBc = 64 keys, hd <= 256 kBc = 32. Shared memory:
+// K, V, two buffers of Q and dO (rows of hd rounded up to 8, plus 4 floats:
+// a quarter-warp reading 8 rows of one fragment column hits 8 bank groups),
+// P^T and dS^T: at hd 80 105 KB (two blocks an SM), hd 128 154 KB, hd 256
+// 209 KB.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBr = 32;  // query rows of a chunk (dK/dV) or of a block (dQ)
-constexpr int kRowsA = 2;  // rows a thread scores in S and dP
-static_assert(kThreads / 16 * kRowsA == kBr, "16 threads a row pair cover the chunk");
-// blocks an SM holds at hd <= 128 (two tiles' shared memory fit) and above:
-// registers are capped to match
-template <int kHD> constexpr int kBlocksPerSM = kHD <= 128 ? 2 : 1;
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBr = 32;        // query rows of a chunk
+constexpr int kLdP = kBr + 4;  // row stride of P^T and dS^T
 
 struct BwdParams {
   const float* q;
@@ -76,325 +75,521 @@ struct BwdParams {
   const float* out;
   const float* dout;
   const float* lse;
-  float* delta;
+  float* delta;    // (b, nq, sq), written by the D pass when it runs
+  float* dq_part;  // partial dQ of a round's tiles, or null
+  float* dkv_part;  // (2, hsplit, b, skv, nkv, hd): partial dK then dV, or null
   float* dq;
   float* dk;
   float* dv;
   int b, sq, skv, nq, nkv, hd, causal, window;
+  int hsplit;  // blocks that share a (key tile, kv head), each group / hsplit heads
+  int tile0;   // the round's first key tile
+  int direct;  // one key tile in all: dQ and D in the block
+  int vec;     // rows 16-byte aligned: cp.async
   float scale;
 };
 
-// 4-dim chunks of a row and the odd chunk stride of a row in shared memory
-__host__ __device__ constexpr int chunks(int hd) { return (hd + 3) / 4; }
-__host__ __device__ constexpr int stride4(int hd) { return chunks(hd) | 1; }
+__host__ __device__ constexpr int round8(int hd) { return (hd + 7) / 8 * 8; }
+__host__ __device__ constexpr int row_ld(int hd) { return round8(hd) + 4; }
 
-__host__ __device__ constexpr int smem_bytes(int bc, int hd) {
-  return (2 * bc + 2 * kBr) * stride4(hd) * 16 + (2 * kBr * bc + 2 * kBr) * 4;
+__host__ __device__ constexpr int smem_floats(int bc, int hd) {
+  return (2 * bc + 4 * kBr) * row_ld(hd) + 2 * bc * kLdP + 4 * kBr;
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
   return (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// no query position of [q0, q1] sees any key of [k0, k1]: the masks hide a
+// whole tile, whose product is zero and skipped
+__device__ __forceinline__ bool hidden(int q0, int q1, int k0, int k1, int causal, int window) {
+  return (causal && k0 > q1) || (window > 0 && k1 <= q0 - window);
 }
 
-__device__ __forceinline__ float4 axpy4(float a, const float4& x, float4 y) {
-  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
-                     fmaf(a, x.w, y.w));
+// [lo, hi): the query positions that see any key of [j0, j0 + nj)
+__host__ __device__ __forceinline__ void query_range(int j0, int nj, int sq, int causal,
+                                                     int window, int& lo, int& hi) {
+  lo = causal ? j0 : 0;
+  hi = window > 0 ? min(sq, j0 + nj - 1 + window) : sq;
 }
 
-// rows [row0, row0 + n) of a (rows, heads, hd) layout at head h, stride
-// `heads`, into n4-chunk rows of dst (zeros past hd and past n, up to rows)
-__device__ __forceinline__ void load_rows(float4* dst, const float* src, long long first,
-                                          int heads, int hd, int n, int rows, int ld4) {
-  float* d = reinterpret_cast<float*>(dst);
-  const int n4 = chunks(hd);
-  for (int idx = threadIdx.x; idx < rows * n4 * 4; idx += kThreads) {
-    const int r = idx / (n4 * 4), e = idx - r * n4 * 4;
-    d[r * ld4 * 4 + e] = r < n && e < hd ? src[(first + static_cast<long long>(r) * heads) * hd + e]
-                                         : 0.0f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b for one m16n8k8 TF32 tile, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment (16 x 8, row m, column k) and B fragment (8 x 8, row k, column
+// n), each split into its TF32 high part and the TF32 rounding of the rest.
+// Lane l holds A at (l/4, l%4), (l/4 + 8, l%4), (l/4, l%4 + 4), (l/4 + 8,
+// l%4 + 4) and B at (l%4, l/4), (l%4 + 4, l/4); C at (l/4, 2 (l%4)), (l/4,
+// 2 (l%4) + 1), (l/4 + 8, 2 (l%4)), (l/4 + 8, 2 (l%4) + 1).
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// A from a row-major array: element (m, k) at p[m * ld + k]
+__device__ __forceinline__ FragA frag_a(const float* p, int ld, int g, int t) {
+  FragA f;
+  split(p[g * ld + t], f.hi[0], f.lo[0]);
+  split(p[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+  split(p[g * ld + t + 4], f.hi[2], f.lo[2]);
+  split(p[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+// A from a column-major array: element (m, k) at p[k * ld + m]
+__device__ __forceinline__ FragA frag_a_t(const float* p, int ld, int g, int t) {
+  FragA f;
+  split(p[t * ld + g], f.hi[0], f.lo[0]);
+  split(p[t * ld + g + 8], f.hi[1], f.lo[1]);
+  split(p[(t + 4) * ld + g], f.hi[2], f.lo[2]);
+  split(p[(t + 4) * ld + g + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+// B with element (k, n) at p[n * ld + k] (B = X^T of a row-major X)
+__device__ __forceinline__ FragB frag_b_t(const float* p, int ld, int g, int t) {
+  FragB f;
+  split(p[g * ld + t], f.hi[0], f.lo[0]);
+  split(p[g * ld + t + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+// B with element (k, n) at p[k * ld + n] (a row-major B)
+__device__ __forceinline__ FragB frag_b(const float* p, int ld, int g, int t) {
+  FragB f;
+  split(p[t * ld + g], f.hi[0], f.lo[0]);
+  split(p[(t + 4) * ld + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// d += a b in 3xTF32, the small terms first. The tensor cores truncate
+// their fp32 sums, which biases a long chain of mma's toward zero (at hd 256
+// with 16 query heads on one kv head, dK missed the plain version by 1.1e-4
+// of values near 10): so the three products go into a fresh tile, which is
+// added to d in a rounded fp32 add.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(t, a.lo, b.hi);
+  mma_tf32(t, a.hi, b.lo);
+  mma_tf32(t, a.hi, b.hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// n rows of a (rows, heads, hd) layout from element offset `first` with
+// row stride `heads * hd`, into rows of ld floats (zeros past hd and past n,
+// up to `rows`): 16-byte cp.async when the rows are aligned, else plain
+// loads.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long first,
+                                          long long stride, int hd, int n, int rows, int ld,
+                                          bool vec) {
+  const int n4 = round8(hd) / 4;
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * n4; i += kThreads) {
+      const int r = i / n4, c = (i - r * n4) * 4;
+      const bool ok = r < n && c < hd;
+      cp_async16(dst + r * ld + c, ok ? src + first + r * stride + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n4 * 4; i += kThreads) {
+      const int r = i / (n4 * 4), c = i - r * n4 * 4;
+      dst[r * ld + c] = r < n && c < hd ? src[first + r * stride + c] : 0.0f;
+    }
   }
 }
 
-// delta[b, h, s] = sum_d dout[b, s, h, d] * out[b, s, h, d]
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const BwdParams p) {
-  __shared__ float part[kThreads / 32][33];
-  const int tid = threadIdx.x, g = tid / 32, lane = tid % 32;
-  const long long rows = static_cast<long long>(p.b) * p.sq * p.nq;
-  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + g;
+// sum_d x[d] y[d] over one warp: lanes stride the row, then a fixed xor
+// tree; x in shared or global memory, y in global memory
+__device__ __forceinline__ float warp_dot(const float* x, const float* y, int hd) {
+  const int lane = threadIdx.x % 32;
   float acc = 0.0f;
-  if (row < rows) {
-    const float* o = p.out + row * p.hd;
-    const float* d = p.dout + row * p.hd;
-    for (int c = lane; c < p.hd; c += 32) acc = fmaf(o[c], d[c], acc);
-  }
-  part[g][lane] = acc;
-  __syncthreads();
-  if (tid < kThreads / 32) {
-    const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 32) + tid;
-    if (r < rows) {
-      float sum = 0.0f;
-      for (int l = 0; l < 32; ++l) sum += part[tid][l];
-      const long long h = r % p.nq, s = r / p.nq % p.sq, bi = r / p.nq / p.sq;
-      p.delta[(bi * p.nq + h) * p.sq + s] = sum;
-    }
-  }
+  for (int d = lane; d < hd; d += 32) acc = fmaf(x[d], y[d], acc);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  return acc;
 }
 
-// S and dP of kBr rows (qs, dos) x kBc keys (ks, vs) -> P (when ps is
-// given) and dS, 0 where a row or key is past its count or masked. Thread
-// t scores rows 2 (t / 16) + {0, 1} against keys t % 16 + 16 i.
-template <int kBc>
-__device__ __forceinline__ void scores(const BwdParams& p, const float4* qs, const float4* dos,
-                                       const float4* ks, const float4* vs, const float* lse_s,
-                                       const float* del_s, float* ps, float* dss, int r0, int nr,
-                                       int j0, int nj, int ld4) {
-  constexpr int kKeysA = kBc / 16;
-  const int n4 = chunks(p.hd);
-  const int ra = threadIdx.x / 16 * kRowsA, ka = threadIdx.x % 16;
-  float s[kRowsA][kKeysA], dp[kRowsA][kKeysA];
-#pragma unroll
-  for (int r = 0; r < kRowsA; ++r) {
-#pragma unroll
-    for (int i = 0; i < kKeysA; ++i) s[r][i] = dp[r][i] = 0.0f;
-  }
-  for (int c = 0; c < n4; ++c) {
-    float4 qv[kRowsA], ov[kRowsA];
-#pragma unroll
-    for (int r = 0; r < kRowsA; ++r) {
-      qv[r] = qs[(ra + r) * ld4 + c];
-      ov[r] = dos[(ra + r) * ld4 + c];
-    }
-#pragma unroll
-    for (int i = 0; i < kKeysA; ++i) {
-      const float4 kv = ks[(ka + 16 * i) * ld4 + c];
-      const float4 vv = vs[(ka + 16 * i) * ld4 + c];
-#pragma unroll
-      for (int r = 0; r < kRowsA; ++r) {
-        s[r][i] = dot4(qv[r], kv, s[r][i]);
-        dp[r][i] = dot4(ov[r], vv, dp[r][i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsA; ++r) {
-#pragma unroll
-    for (int i = 0; i < kKeysA; ++i) {
-      const int row = ra + r, key = ka + 16 * i;
-      float pv = 0.0f, dsv = 0.0f;
-      if (row < nr && key < nj && visible(r0 + row, j0 + key, p.causal, p.window)) {
-        pv = expf(s[r][i] * p.scale - lse_s[row]);
-        dsv = pv * (dp[r][i] - del_s[row]);
-      }
-      if (ps != nullptr) ps[row * kBc + key] = pv;
-      dss[row * kBc + key] = dsv;
-    }
-  }
-}
-
-// One (batch, kv head) x kBc keys: dK and dV of those keys.
-template <int kBc, int kHD>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM<kHD>)
-flash_bwd_dkdv_kernel(const BwdParams p) {
-  extern __shared__ float4 smem4[];
-  constexpr int kE = kBc * (kHD / 4) / kThreads;  // (key, chunk) entries a thread owns
-  const int hd = p.hd, n4 = chunks(hd), ld4 = stride4(hd), tid = threadIdx.x;
-  float4* ks = smem4;
-  float4* vs = ks + kBc * ld4;
-  float4* qs = vs + kBc * ld4;
-  float4* dos = qs + kBr * ld4;
-  float* ps = reinterpret_cast<float*>(dos + kBr * ld4);
-  float* dss = ps + kBr * kBc;
-  float* lse_s = dss + kBr * kBc;
-  float* del_s = lse_s + kBr;
-
-  const int bi = blockIdx.x / p.nkv, kvh = blockIdx.x % p.nkv;
-  const int group = p.nq / p.nkv;
-  const int j0 = blockIdx.y * kBc, nj = min(kBc, p.skv - j0);
-  const long long key0 = (static_cast<long long>(bi) * p.skv + j0) * p.nkv + kvh;
-  load_rows(ks, p.k, key0, p.nkv, hd, nj, kBc, ld4);
-  load_rows(vs, p.v, key0, p.nkv, hd, nj, kBc, ld4);
-  // the query positions that see any key of [j0, j0 + nj)
-  const int pos_lo = p.causal ? j0 : 0;
-  const int pos_hi = p.window > 0 ? min(p.sq, j0 + nj - 1 + p.window) : p.sq;
-
-  float4 dk_acc[kE], dv_acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) dk_acc[e] = dv_acc[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    for (int r0 = pos_lo; r0 < pos_hi; r0 += kBr) {
-      const int nr = min(kBr, pos_hi - r0);
-      __syncthreads();  // the previous chunk is consumed (and K, V are in)
-      const long long row0 = (static_cast<long long>(bi) * p.sq + r0) * p.nq + h;
-      load_rows(qs, p.q, row0, p.nq, hd, nr, kBr, ld4);
-      load_rows(dos, p.dout, row0, p.nq, hd, nr, kBr, ld4);
-      if (tid < kBr) {
-        const long long at = (static_cast<long long>(bi) * p.nq + h) * p.sq + r0 + tid;
-        lse_s[tid] = tid < nr ? p.lse[at] : 0.0f;
-        del_s[tid] = tid < nr ? p.delta[at] : 0.0f;
-      }
-      __syncthreads();
-      scores<kBc>(p, qs, dos, ks, vs, lse_s, del_s, ps, dss, r0, nr, j0, nj, ld4);
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        const int idx = tid + e * kThreads, j = idx / n4, c = idx - j * n4;
-        if (j < nj) {
-          float4 dv_e = dv_acc[e], dk_e = dk_acc[e];
-          for (int r = 0; r < nr; ++r) {
-            dv_e = axpy4(ps[r * kBc + j], dos[r * ld4 + c], dv_e);
-            dk_e = axpy4(dss[r * kBc + j], qs[r * ld4 + c], dk_e);
-          }
-          dv_acc[e] = dv_e;
-          dk_acc[e] = dk_e;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int idx = tid + e * kThreads, j = idx / n4, c = idx - j * n4;
-    if (j < nj) {
-      float* dk = p.dk + (key0 + static_cast<long long>(j) * p.nkv) * hd;
-      float* dv = p.dv + (key0 + static_cast<long long>(j) * p.nkv) * hd;
-      const float kx[4] = {dk_acc[e].x, dk_acc[e].y, dk_acc[e].z, dk_acc[e].w};
-      const float vx[4] = {dv_acc[e].x, dv_acc[e].y, dv_acc[e].z, dv_acc[e].w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        if (4 * c + x < hd) {
-          dk[4 * c + x] = kx[x] * p.scale;
-          dv[4 * c + x] = vx[x];
-        }
-      }
-    }
-  }
-}
-
-// One (batch, query head) x kBr query rows: their dQ.
-template <int kBc, int kHD>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM<kHD>)
-flash_bwd_dq_kernel(const BwdParams p) {
-  extern __shared__ float4 smem4[];
-  constexpr int kE = kBr * (kHD / 4) / kThreads;  // (row, chunk) entries a thread owns
-  const int hd = p.hd, n4 = chunks(hd), ld4 = stride4(hd), tid = threadIdx.x;
-  float4* ks = smem4;
-  float4* vs = ks + kBc * ld4;
-  float4* qs = vs + kBc * ld4;
-  float4* dos = qs + kBr * ld4;
-  // the dK/dV kernel's layout; P is not kept
-  float* dss = reinterpret_cast<float*>(dos + kBr * ld4) + kBr * kBc;
-  float* lse_s = dss + kBr * kBc;
-  float* del_s = lse_s + kBr;
-
-  const int bi = blockIdx.x / p.nq, h = blockIdx.x % p.nq;
-  const int kvh = h / (p.nq / p.nkv);
-  const int r0 = blockIdx.y * kBr, nr = min(kBr, p.sq - r0);
-  const long long row0 = (static_cast<long long>(bi) * p.sq + r0) * p.nq + h;
-  load_rows(qs, p.q, row0, p.nq, hd, nr, kBr, ld4);
-  load_rows(dos, p.dout, row0, p.nq, hd, nr, kBr, ld4);
-  if (tid < kBr) {
-    const long long at = (static_cast<long long>(bi) * p.nq + h) * p.sq + r0 + tid;
-    lse_s[tid] = tid < nr ? p.lse[at] : 0.0f;
-    del_s[tid] = tid < nr ? p.delta[at] : 0.0f;
-  }
-  // the keys any of the rows sees
-  const int key_lo = p.window > 0 ? max(0, r0 - p.window + 1) : 0;
-  const int key_hi = p.causal ? min(p.skv, r0 + nr) : p.skv;
-
-  float4 dq_acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) dq_acc[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
-  for (int j0 = key_lo; j0 < key_hi; j0 += kBc) {
-    const int nj = min(kBc, key_hi - j0);
-    __syncthreads();  // the previous tile is consumed (and the rows are in)
-    const long long key0 = (static_cast<long long>(bi) * p.skv + j0) * p.nkv + kvh;
-    load_rows(ks, p.k, key0, p.nkv, hd, nj, kBc, ld4);
-    load_rows(vs, p.v, key0, p.nkv, hd, nj, kBc, ld4);
-    __syncthreads();
-    scores<kBc>(p, qs, dos, ks, vs, lse_s, del_s, nullptr, dss, r0, nr, j0, nj, ld4);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int idx = tid + e * kThreads, r = idx / n4, c = idx - r * n4;
-      if (r < nr) {
-        float4 dq_e = dq_acc[e];
-        for (int j = 0; j < nj; ++j) dq_e = axpy4(dss[r * kBc + j], ks[j * ld4 + c], dq_e);
-        dq_acc[e] = dq_e;
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int idx = tid + e * kThreads, r = idx / n4, c = idx - r * n4;
-    if (r < nr) {
-      float* dq = p.dq + (row0 + static_cast<long long>(r) * p.nq) * hd;
-      const float qx[4] = {dq_acc[e].x, dq_acc[e].y, dq_acc[e].z, dq_acc[e].w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        if (4 * c + x < hd) dq[4 * c + x] = qx[x] * p.scale;
-      }
-    }
-  }
-}
-
-template <int kBc, int kHD>
-int launch_as(const BwdParams& p, cudaStream_t stream) {
-  const int smem = smem_bytes(kBc, p.hd);
-  // Raised once per instantiation, to what its widest head needs.
-  static const cudaError_t raised = [] {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<kBc, kHD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes(kBc, kHD));
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_bwd_dq_kernel<kBc, kHD>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_bytes(kBc, kHD));
-  }();
-  if (raised != cudaSuccess) return static_cast<int>(raised);
+// D[b, h, s] = sum_d dout[b, s, h, d] * out[b, s, h, d], a warp a row
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(const BwdParams p) {
   const long long rows = static_cast<long long>(p.b) * p.sq * p.nq;
-  flash_bwd_delta_kernel<<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                           kThreads, 0, stream>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_kernel<kBc, kHD>
-      <<<dim3(p.b * p.nkv, (p.skv + kBc - 1) / kBc), kThreads, smem, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<kBc, kHD>
-      <<<dim3(p.b * p.nq, (p.sq + kBr - 1) / kBr), kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float sum = warp_dot(p.dout + row * p.hd, p.out + row * p.hd, p.hd);
+  if (threadIdx.x % 32 == 0) {
+    const long long h = row % p.nq, s = row / p.nq % p.sq, bi = row / p.nq / p.sq;
+    p.delta[(bi * p.nq + h) * p.sq + s] = sum;
+  }
 }
+
+// One (batch, kv head) x kBc keys: their dK and dV, and their share of the
+// dQ of every query row that sees them.
+template <int kBc, int kHDP>
+__global__ void __launch_bounds__(kThreads, kHDP <= 96 ? 2 : 1)
+flash_bwd_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kMT = kBc / 16;          // 16-key m-tiles of dK, dV
+  constexpr int kNT = kHDP / 8 / (8 / kMT);  // hd n-tiles a warp owns in dK, dV
+  constexpr int kNS = kBc / 32;          // key n-tiles a warp owns in S, dP
+  constexpr int kNQ = kHDP / 32;         // hd n-tiles a warp owns in dQ
+  const int hd = p.hd, ld = row_ld(hd), n8 = round8(hd) / 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  float* ks = smem;
+  float* vs = ks + kBc * ld;
+  float* qs = vs + kBc * ld;   // two buffers of kBr rows
+  float* dos = qs + 2 * kBr * ld;
+  float* pt = dos + 2 * kBr * ld;  // P^T, kBc x kLdP
+  float* dst = pt + kBc * kLdP;    // dS^T
+  float* lse_s = dst + kBc * kLdP;  // two buffers of kBr
+  float* del_s = lse_s + 2 * kBr;
+
+  const int hs = blockIdx.x % p.hsplit, bk = blockIdx.x / p.hsplit;
+  const int bi = bk / p.nkv, kvh = bk % p.nkv;
+  const int heads = p.nq / p.nkv / p.hsplit;  // the block's query heads
+  const int head0 = (kvh * p.hsplit + hs) * heads;
+  const int tile = p.tile0 + blockIdx.y;
+  const int j0 = tile * kBc, nj = min(kBc, p.skv - j0);
+  int pos_lo, pos_hi;
+  query_range(j0, nj, p.sq, p.causal, p.window, pos_lo, pos_hi);
+  const int n_rc = pos_hi > pos_lo ? (pos_hi - pos_lo + kBr - 1) / kBr : 0;
+  const int n_chunks = heads * n_rc;
+  const long long q_stride = static_cast<long long>(p.nq) * hd;
+  const long long kv_stride = static_cast<long long>(p.nkv) * hd;
+  const bool vec = p.vec != 0;
+
+  auto load_chunk = [&](int c, int buf) {
+    const int h = head0 + c / n_rc, r0 = pos_lo + (c % n_rc) * kBr;
+    const int nr = min(kBr, pos_hi - r0);
+    const long long first = ((static_cast<long long>(bi) * p.sq + r0) * p.nq + h) * hd;
+    load_rows(qs + buf * kBr * ld, p.q, first, q_stride, hd, nr, kBr, ld, vec);
+    load_rows(dos + buf * kBr * ld, p.dout, first, q_stride, hd, nr, kBr, ld, vec);
+    if (tid < kBr) {
+      const long long at = (static_cast<long long>(bi) * p.nq + h) * p.sq + r0 + tid;
+      lse_s[buf * kBr + tid] = tid < nr ? p.lse[at] : 0.0f;
+      if (!p.direct) del_s[buf * kBr + tid] = tid < nr ? p.delta[at] : 0.0f;
+    }
+  };
+
+  const long long key0 = ((static_cast<long long>(bi) * p.skv + j0) * p.nkv + kvh) * hd;
+  load_rows(ks, p.k, key0, kv_stride, hd, nj, kBc, ld, vec);
+  load_rows(vs, p.v, key0, kv_stride, hd, nj, kBc, ld, vec);
+  if (n_chunks > 0) load_chunk(0, 0);
+  cp_async_commit();
+
+  // dK, dV: warp owns key m-tile warp % kMT and hd n-tiles warp / kMT + (8 / kMT) i
+  const int mk = warp % kMT, nk0 = warp / kMT;
+  float dk_acc[kNT][4], dv_acc[kNT][4];
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) load_chunk(c + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int h = head0 + c / n_rc, r0 = pos_lo + (c % n_rc) * kBr;
+    const int nr = min(kBr, pos_hi - r0);
+    const float* qb = qs + buf * kBr * ld;
+    const float* dob = dos + buf * kBr * ld;
+    const float* lse_b = lse_s + buf * kBr;
+    float* del_b = del_s + buf * kBr;
+    if (p.direct) {  // D of the chunk's rows, a warp 4 rows at once (warp_dot's order)
+      constexpr int kRowsW = kBr / (kThreads / 32);
+      float d[kRowsW];
+      const float* o = p.out + ((static_cast<long long>(bi) * p.sq + r0) * p.nq + h) * hd;
+#pragma unroll
+      for (int i = 0; i < kRowsW; ++i) d[i] = 0.0f;
+      for (int col = lane; col < hd; col += 32) {
+#pragma unroll
+        for (int i = 0; i < kRowsW; ++i) {
+          const int r = warp + i * (kThreads / 32);
+          if (r < nr) d[i] = fmaf(dob[r * ld + col], o[r * q_stride + col], d[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsW; ++i) {
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) d[i] += __shfl_xor_sync(0xffffffffu, d[i], m);
+        if (lane == 0) del_b[warp + i * (kThreads / 32)] = d[i];
+      }
+      __syncthreads();
+    }
+
+    // S and dP: warp owns row m-tile warp % 2 and key n-tiles warp / 2 + 4 i
+    {
+      const int ms = warp % 2;
+      float s_acc[kNS][4], dp_acc[kNS][4];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[i][e] = dp_acc[i][e] = 0.0f;
+      }
+      bool live[kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int k0 = j0 + (warp / 2 + 4 * i) * 8;
+        live[i] = !hidden(r0 + ms * 16, r0 + ms * 16 + 15, k0, k0 + 7, p.causal, p.window);
+      }
+      for (int kk = 0; kk < n8; ++kk) {
+        const FragA aq = frag_a(qb + ms * 16 * ld + kk * 8, ld, g, t4);
+        const FragA ado = frag_a(dob + ms * 16 * ld + kk * 8, ld, g, t4);
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int nt = warp / 2 + 4 * i;
+          if (live[i]) {
+            mma3(s_acc[i], aq, frag_b_t(ks + nt * 8 * ld + kk * 8, ld, g, t4));
+            mma3(dp_acc[i], ado, frag_b_t(vs + nt * 8 * ld + kk * 8, ld, g, t4));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int nt = warp / 2 + 4 * i;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = ms * 16 + g + (e >= 2 ? 8 : 0), key = nt * 8 + 2 * t4 + (e & 1);
+          float pv = 0.0f, dsv = 0.0f;
+          if (row < nr && key < nj && visible(r0 + row, j0 + key, p.causal, p.window)) {
+            pv = expf(s_acc[i][e] * p.scale - lse_b[row]);
+            dsv = pv * (dp_acc[i][e] - del_b[row]);
+          }
+          pt[key * kLdP + row] = pv;
+          dst[key * kLdP + row] = dsv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over the chunk's rows
+#pragma unroll
+    for (int kk = 0; kk < kBr / 8; ++kk) {
+      if (hidden(r0 + kk * 8, r0 + kk * 8 + 7, j0 + mk * 16, j0 + mk * 16 + 15, p.causal,
+                 p.window)) {
+        continue;
+      }
+      const FragA ap = frag_a(pt + mk * 16 * kLdP + kk * 8, kLdP, g, t4);
+      const FragA ads = frag_a(dst + mk * 16 * kLdP + kk * 8, kLdP, g, t4);
+#pragma unroll
+      for (int i = 0; i < kNT; ++i) {
+        const int nt = nk0 + (8 / kMT) * i;
+        if (nt < n8) {
+          mma3(dv_acc[i], ap, frag_b(dob + kk * 8 * ld + nt * 8, ld, g, t4));
+          mma3(dk_acc[i], ads, frag_b(qb + kk * 8 * ld + nt * 8, ld, g, t4));
+        }
+      }
+    }
+
+    // this tile's share of the chunk's dQ: dS K, warp owns row m-tile
+    // warp % 2 and hd n-tiles warp / 2 + 4 i
+    {
+      const int mq = warp % 2;
+      float dq_acc[kNQ][4];
+#pragma unroll
+      for (int i = 0; i < kNQ; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBc / 8; ++kk) {
+        if (hidden(r0 + mq * 16, r0 + mq * 16 + 15, j0 + kk * 8, j0 + kk * 8 + 7, p.causal,
+                   p.window)) {
+          continue;
+        }
+        const FragA ads = frag_a_t(dst + kk * 8 * kLdP + mq * 16, kLdP, g, t4);
+#pragma unroll
+        for (int i = 0; i < kNQ; ++i) {
+          const int nt = warp / 2 + 4 * i;
+          if (nt < n8) mma3(dq_acc[i], ads, frag_b(ks + kk * 8 * ld + nt * 8, ld, g, t4));
+        }
+      }
+      float* out = p.direct ? p.dq
+                            : p.dq_part + static_cast<long long>(blockIdx.y) * p.b * p.sq * q_stride;
+#pragma unroll
+      for (int i = 0; i < kNQ; ++i) {
+        const int nt = warp / 2 + 4 * i;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mq * 16 + g + (e >= 2 ? 8 : 0), col = nt * 8 + 2 * t4 + (e & 1);
+          if (nt < n8 && row < nr && col < hd) {
+            out[((static_cast<long long>(bi) * p.sq + r0 + row) * p.nq + h) * hd + col] =
+                dq_acc[i][e] * p.scale;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffers and P, dS are free for the next chunk
+  }
+  cp_async_wait_all();  // a tile that no row sees left its copies in flight
+
+  // dK, dV of the tile, or this split's part of them
+  const long long kv_total = static_cast<long long>(p.b) * p.skv * kv_stride;
+  float* dk_out = p.hsplit == 1 ? p.dk : p.dkv_part + hs * kv_total;
+  float* dv_out = p.hsplit == 1 ? p.dv : p.dkv_part + (p.hsplit + hs) * kv_total;
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const int nt = nk0 + (8 / kMT) * i;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = mk * 16 + g + (e >= 2 ? 8 : 0), col = nt * 8 + 2 * t4 + (e & 1);
+      if (nt < n8 && key < nj && col < hd) {
+        const long long at = key0 + key * kv_stride + col;
+        dk_out[at] = dk_acc[i][e] * p.scale;
+        dv_out[at] = dv_acc[i][e];
+      }
+    }
+  }
+  // one tile in all: the rows that see none of its keys get a zero dQ
+  if (p.direct) {
+    const int unseen = p.sq - pos_hi;
+    for (int i = tid; i < heads * unseen * hd; i += kThreads) {
+      const int gh = i / (unseen * hd), rest = i - gh * unseen * hd;
+      const int r = rest / hd, col = rest - r * hd;
+      p.dq[((static_cast<long long>(bi) * p.sq + pos_hi + r) * p.nq + head0 + gh) * hd +
+           col] = 0.0f;
+    }
+  }
+}
+
+// dq = (dq, or 0 in the first round) + the partials of the round's tiles
+// [tile0, tile0 + n) that a row sees, in tile order
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_sum_kernel(const BwdParams p, int bc,
+                                                                    int n, int first) {
+  const long long total = static_cast<long long>(p.b) * p.sq * p.nq * p.hd;
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int row = static_cast<int>(e / (static_cast<long long>(p.nq) * p.hd) % p.sq);
+  float acc = first ? 0.0f : p.dq[e];
+  for (int i = 0; i < n; ++i) {
+    const int j0 = (p.tile0 + i) * bc;
+    int lo, hi;
+    query_range(j0, min(bc, p.skv - j0), p.sq, p.causal, p.window, lo, hi);
+    if (row >= lo && row < hi) acc += p.dq_part[i * total + e];
+  }
+  p.dq[e] = acc;
+}
+
+// dk, dv = the head splits' partials, added in split order
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_sum_kernel(const BwdParams p) {
+  const long long total = static_cast<long long>(p.b) * p.skv * p.nkv * p.hd;
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= total) return;
+  float dk = 0.0f, dv = 0.0f;
+  for (int i = 0; i < p.hsplit; ++i) {
+    dk += p.dkv_part[i * total + e];
+    dv += p.dkv_part[(p.hsplit + i) * total + e];
+  }
+  p.dk[e] = dk;
+  p.dv[e] = dv;
+}
+
+template <int kBc, int kHDP>
+int launch_as(BwdParams p, int part_tiles, cudaStream_t stream) {
+  const int smem = smem_floats(kBc, p.hd) * 4;
+  // Raised once per instantiation, to what its widest head needs.
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      flash_bwd_kernel<kBc, kHDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_floats(kBc, kHDP) * 4);
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const int tiles = (p.skv + kBc - 1) / kBc;
+  p.direct = tiles == 1;
+  if (!p.direct) {
+    if (part_tiles < 1 || p.dq_part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows = static_cast<long long>(p.b) * p.sq * p.nq;
+    flash_bwd_delta_kernel<<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                             kThreads, 0, stream>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long total = static_cast<long long>(p.b) * p.sq * p.nq * p.hd;
+  for (int t0 = 0; t0 < tiles; t0 += p.direct ? tiles : part_tiles) {
+    const int n = p.direct ? 1 : min(part_tiles, tiles - t0);
+    p.tile0 = t0;
+    flash_bwd_kernel<kBc, kHDP><<<dim3(p.b * p.nkv * p.hsplit, n), kThreads, smem, stream>>>(p);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (!p.direct) {
+      flash_bwd_dq_sum_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                                kThreads, 0, stream>>>(p, kBc, n, t0 == 0);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  if (p.hsplit > 1) {
+    const long long kv_total = static_cast<long long>(p.b) * p.skv * p.nkv * p.hd;
+    flash_bwd_dkv_sum_kernel<<<static_cast<unsigned>((kv_total + kThreads - 1) / kThreads),
+                               kThreads, 0, stream>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
-// q, k, v, out, dout, lse; delta (scratch, (b, nq, sq) fp32); dq, dk, dv;
-// b, sq, skv, nq, nkv, hd; causal, window; scale; stream. All fp32 and
+// q, k, v, out, dout, lse; delta (scratch, (b, nq, sq) fp32); dq_part
+// (scratch, part_tiles x (b, sq, nq, hd) fp32, or null when skv fits one
+// key tile); dkv_part (scratch, 2 x hsplit x (b, skv, nkv, hd) fp32, or null
+// when hsplit is 1); dq, dk, dv; b, sq, skv, nq, nkv, hd; causal, window;
+// part_tiles; hsplit, which divides nq / nkv; scale; stream. All fp32 and
 // contiguous in the layouts above.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const void* lse,
-                                       void* delta, void* dq, void* dk, void* dv, int b, int sq,
-                                       int skv, int nq, int nkv, int hd, int causal, int window,
+                                       void* delta, void* dq_part, void* dkv_part, void* dq,
+                                       void* dk, void* dv, int b, int sq, int skv, int nq, int nkv,
+                                       int hd, int causal, int window, int part_tiles, int hsplit,
                                        float scale, void* stream) {
   if (b < 0 || sq < 0 || skv < 0 || hd < 1 || hd > 256 || nkv < 1 || nq < 1 || nq % nkv != 0 ||
-      (sq + kBr - 1) / kBr > 65535 || (skv + kBr - 1) / kBr > 65535) {
+      hsplit < 1 || (nq / nkv) % hsplit != 0 || (hsplit > 1 && dkv_part == nullptr) ||
+      (skv + 31) / 32 > 65535 || static_cast<long long>(b) * nkv * hsplit > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || sq == 0 || skv == 0) return static_cast<int>(cudaSuccess);
-  const BwdParams p{static_cast<const float*>(q),    static_cast<const float*>(k),
-                    static_cast<const float*>(v),    static_cast<const float*>(out),
-                    static_cast<const float*>(dout), static_cast<const float*>(lse),
-                    static_cast<float*>(delta),      static_cast<float*>(dq),
-                    static_cast<float*>(dk),         static_cast<float*>(dv),
-                    b, sq, skv, nq, nkv, hd, causal, window, scale};
+  const bool vec = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
+  BwdParams p{static_cast<const float*>(q),    static_cast<const float*>(k),
+              static_cast<const float*>(v),    static_cast<const float*>(out),
+              static_cast<const float*>(dout), static_cast<const float*>(lse),
+              static_cast<float*>(delta),      static_cast<float*>(dq_part),
+              static_cast<float*>(dkv_part),   static_cast<float*>(dq),
+              static_cast<float*>(dk),         static_cast<float*>(dv),
+              b, sq, skv, nq, nkv, hd, causal, window, hsplit, 0, 0, vec ? 1 : 0, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 128 ? launch_as<64, 128>(p, st) : launch_as<32, 256>(p, st);
+  if (hd <= 64) return launch_as<64, 64>(p, part_tiles, st);
+  if (hd <= 96) return launch_as<64, 96>(p, part_tiles, st);
+  if (hd <= 128) return launch_as<64, 128>(p, part_tiles, st);
+  return launch_as<32, 256>(p, part_tiles, st);
 }

@@ -25,7 +25,10 @@ versions ``flash_attention_train_ref`` and ``flash_attention_bwd_ref``.
 Only the full sequence (``q_offset == 0``, ``kv_len is None``) takes a
 gradient, in fp32. ``LAUNCHES["flash_attention"]`` counts the serving and
 the training entry's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
-backward call (its D pass, dK/dV kernel and dQ kernel).
+backward call: one kernel when the keys fit one tile of ``bwd_key_tile``
+keys, else a D pass, then per round of ``bwd_part_tiles`` key tiles the
+main kernel and the sum of their partial dQ; where ``bwd_head_split``
+splits a kv group's query heads over blocks, a last sum of dK and dV.
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ ROW_TILES = (1, 2, 4, 8, 16)
 WARPS, MAX_SPLIT = 4, 8
 KEYS_PER_SPLIT = 64  # a tile's key range longer than this is split over a cluster
 SMS = 132  # an H100's SMs: a launch with this many blocks is not split further
+# csrc/flash_attention_bwd.cu: the most scratch one backward call takes for
+# the key tiles' partial dQ
+BWD_PART_BYTES = 1 << 28
+BWD_BLOCKS = 2 * SMS  # blocks a round of the backward aims for before it splits heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +104,41 @@ def plan(b: int, sq: int, nq: int, nkv: int, *, causal: bool,
     if b * nkv * tiles < SMS:
         split = max(1, min(MAX_SPLIT, -(-longest // KEYS_PER_SPLIT)))
     return FlashPlan(rows, tiles, split)
+
+
+def bwd_key_tile(hd: int) -> int:
+    """Keys a block of the backward owns: 64 up to hd 128, else 32."""
+    return 64 if hd <= 128 else 32
+
+
+def bwd_part_tiles(b: int, sq: int, skv: int, nq: int, hd: int) -> int:
+    """Key tiles whose partial dQ ``(b, sq, nq, hd)`` fp32 each the
+    backward's scratch holds at once: 0 when the keys fit one tile (the
+    block writes dQ itself), else as many as ``BWD_PART_BYTES`` holds, at
+    least 1 and at most every tile (then one round)."""
+    tiles = -(-skv // bwd_key_tile(hd))
+    if tiles <= 1:
+        return 0
+    return max(1, min(tiles, BWD_PART_BYTES // (4 * b * sq * nq * hd)))
+
+
+def bwd_head_split(b: int, sq: int, skv: int, nq: int, nkv: int, hd: int) -> int:
+    """Blocks of the backward that share one (key tile, kv head), each
+    walking ``group / split`` of its query heads: the smallest divisor of
+    the group that gives a round ``BWD_BLOCKS`` blocks, short of one whose
+    dK, dV partials (``2 x split x |k|`` fp32, added by a last kernel)
+    would pass ``BWD_PART_BYTES``; 1 where the group is 1 or the round
+    has blocks enough."""
+    group = nq // nkv
+    blocks = b * nkv * (bwd_part_tiles(b, sq, skv, nq, hd) or 1)
+    kv_bytes = 4 * b * skv * nkv * hd
+    best = 1
+    for split in range(2, group + 1):
+        if blocks * best >= BWD_BLOCKS or 2 * split * kv_bytes > BWD_PART_BYTES:
+            break
+        if group % split == 0:
+            best = split
+    return best
 
 
 def _check(q, k, v, q_offset, kv_len) -> None:
@@ -214,9 +256,8 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
     """The backward of ``flash_attention_train``, fp32 -> (dq, dk, dv) in
-    the shapes of q, k, v: ``flash_attention_bwd.cu`` on the card (one
-    launch of its entry: the D pass, the dK/dV kernel, the dQ kernel),
-    ``flash_attention_bwd_ref`` on the CPU."""
+    the shapes of q, k, v: ``flash_attention_bwd.cu`` on the card (one call
+    of its entry), ``flash_attention_bwd_ref`` on the CPU."""
     _check(q, k, v, 0, None)
     b, sq, nq, hd = q.shape
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
@@ -231,19 +272,26 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: the kernel takes float32, got {q.dtype}")
     skv, nkv = k.shape[1], k.shape[2]
-    if b * nq > 2**31 - 1 or -(-max(sq, skv) // 32) > 65535:
-        raise ValueError(f"flash_attention_bwd: {b} x {nq} heads or {max(sq, skv)} positions "
-                         "exceed the grid")
+    if b * nkv > 2**31 - 1 or -(-skv // 32) > 65535:
+        raise ValueError(f"flash_attention_bwd: {b} x {nkv} kv heads or {skv} keys exceed "
+                         "the grid")
     q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
+    slots = bwd_part_tiles(b, sq, skv, nq, hd)
+    split = bwd_head_split(b, sq, skv, nq, nkv, hd)
+    part = torch.empty((slots, b, sq, nq, hd), dtype=torch.float32, device=q.device) \
+        if slots else None
+    kv_part = torch.empty((2, split, *k.shape), dtype=torch.float32, device=q.device) \
+        if split > 1 else None
     err = _build.library().flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, skv, nq, nkv, hd, int(causal), window, 1.0 / math.sqrt(hd),
-        _build.current_stream(q.device))
+        lse.data_ptr(), delta.data_ptr(), None if part is None else part.data_ptr(),
+        None if kv_part is None else kv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, skv, nq, nkv, hd, int(causal), window, slots, split,
+        1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

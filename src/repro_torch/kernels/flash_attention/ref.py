@@ -14,7 +14,11 @@ plain versions of the training entry and of the backward kernel
 (``csrc/flash_attention_bwd.cu``), fp32 over a full sequence (query ``i``
 at position ``i``): the forward also returns each row's log-sum-exp, and
 the backward writes the softmax's gradient out, as the kernel computes it,
-not through autograd.
+not through autograd. With ``split_tf32=True`` its five matrix products
+are computed as the kernel's tensor cores compute them: each fp32 operand
+``a`` split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` (TF32's 10-bit
+mantissa, rounded to nearest, ties away from zero, as ``cvt.rna.tf32``)
+and ``a·b = hi·hi′ + hi·lo′ + lo·hi′``.
 """
 
 from __future__ import annotations
@@ -63,12 +67,28 @@ def _mask(sq: int, skv: int, causal: bool, window: int, device) -> torch.Tensor:
     return mask
 
 
-def _scaled_scores(q, k, causal: bool, window: int):
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32's 10-bit mantissa, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``); still fp32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of fp32 operands in 3xTF32: the low
+    parts' products first, as the kernel accumulates them."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) \
+        + torch.einsum(eq, a_hi, b_hi)
+
+
+def _scaled_scores(q, k, causal: bool, window: int, mm=torch.einsum):
     """fp32 scores · 1/√hd ``(b, nkv, group, sq, skv)``, -inf where masked."""
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, nkv, nq // nkv, hd)
-    s = torch.einsum("bsngk,btnk->bngst", qg, k.float()) / math.sqrt(hd)
+    s = mm("bsngk,btnk->bngst", qg, k.float()) / math.sqrt(hd)
     return torch.where(_mask(sq, skv, causal, window, q.device), s, -math.inf)
 
 
@@ -84,24 +104,27 @@ def flash_attention_train_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out, lse.reshape(b, nq, sq)
 
 
-def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                            split_tf32: bool = False):
     """The backward of ``flash_attention_train_ref``, fp32 -> (dq, dk, dv)
     in the shapes of q, k, v. With P = exp(S·scale − lse) (0 where masked)
     and D = rowsum(dO∘O): dV = Σ Pᵀ dO, dS = P∘(dO Vᵀ − D),
     dQ = dS K·scale, dK = dSᵀ Q·scale; dK and dV sum over the query
-    heads of each kv group."""
+    heads of each kv group. ``split_tf32`` runs the five products as the
+    kernel does (``split_einsum``)."""
+    mm = split_einsum if split_tf32 else torch.einsum
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     group = (b, sq, nkv, nq // nkv, hd)
     qg, og, dog = (t.float().reshape(group) for t in (q, out, dout))
     kf, vf = k.float(), v.float()
-    p = torch.exp(_scaled_scores(q, k, causal, window)
+    p = torch.exp(_scaled_scores(q, k, causal, window, mm)
                   - lse.float().reshape(b, nkv, nq // nkv, sq)[..., None])
     delta = torch.einsum("bsngk,bsngk->bngs", dog, og)
-    dv = torch.einsum("bngst,bsngk->btnk", p, dog)
-    dp = torch.einsum("bsngk,btnk->bngst", dog, vf)
+    dv = mm("bngst,bsngk->btnk", p, dog)
+    dp = mm("bsngk,btnk->bngst", dog, vf)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bngst,btnk->bsngk", ds, kf).reshape(b, sq, nq, hd) * scale
-    dk = torch.einsum("bngst,bsngk->btnk", ds, qg) * scale
+    dq = mm("bngst,btnk->bsngk", ds, kf).reshape(b, sq, nq, hd) * scale
+    dk = mm("bngst,bsngk->btnk", ds, qg) * scale
     return dq, dk, dv

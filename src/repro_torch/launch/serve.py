@@ -145,9 +145,9 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 
 
 # kernel names of csrc/*.cu, as the profiler lists them
-HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "text_scan_kernel",
-                "flash_attention_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "rg_lru_kernel", "rg_lru_bwd_kernel",
+HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "lstm_layer_bwd_kernel",
+                "text_scan_kernel", "flash_attention_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_kernel", "flash_bwd_dq_sum_kernel", "rg_lru_kernel", "rg_lru_bwd_kernel",
                 "mlstm_chunk_kernel", "mlstm_decode_kernel", "mlstm_bwd_gates_kernel",
                 "mlstm_bwd_state_kernel", "mlstm_bwd_products_kernel",
                 "mlstm_bwd_scalars_kernel")
@@ -163,7 +163,8 @@ def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], N
             label: str) -> dict:
     """Trace one call of ``fn``; print device time by kernel and the share
     of its wall time in which the device ran a kernel, and return the wall
-    and busy milliseconds and the idle share."""
+    and busy milliseconds, the idle share and the count of ``aten::mm``
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -190,9 +191,12 @@ def profile(fn: Callable[[], object], device: torch.device, sync: Callable[[], N
     if busy_us:
         print(f"  matrix products (cuBLAS gemm/gemv): {gemm_us / 1e3:.3f} ms "
               f"({gemm_us / busy_us:.2%} of the device time)")
+    mm_calls = sum(e.count for e in stats if e.key == "aten::mm")
     print(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / wall_us}
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.2%}), idle {1 - busy_us / wall_us:.2%}; "
+          f"{mm_calls} aten::mm calls")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / wall_us, "mm_calls": mm_calls}
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@ attention (paper §4.2.3, Figs. 4-6, Algorithm 3), in PyTorch.
 
 Counterpart of ``repro/models/seq2seq.py``, with its parameter names and
 layouts: LSTM weights ``(d_in, 4H)`` with columns ``[i|f|g|o]``, token
-arrays ``(b, S)`` int. Every LSTM step is ``lstm_cell_op``: the CUDA kernel
-on the card, its plain version on the CPU. Conventions kept from the
-reference:
+arrays ``(b, S)`` int. Every LSTM step is the ``lstm_cell`` kernel on the
+card and its plain version on the CPU: a whole layer (the encoder's, and
+the decoder's under teacher forcing) goes through ``lstm_layer_op``, whose
+gradient is one ``lstm_layer_bwd`` launch a layer; a single decoding step
+through ``lstm_cell_op``. Conventions kept from the reference:
 
 * the forget gate has a +1 bias inside the sigmoid; gate math is fp32;
 * the encoder runs through PAD steps, and the decoder starts from the
@@ -28,7 +30,7 @@ from torch import nn
 from ..bridge import from_jax_params
 from ..data.tokenizer import END, PAD, START
 from ..device import resolve
-from ..kernels.lstm_cell.ops import lstm_cell_op
+from ..kernels.lstm_cell.ops import lstm_cell_op, lstm_layer_op
 from .blocks import truncated_normal
 
 
@@ -65,11 +67,9 @@ class LSTMLayer(nn.Module):
 
     def scan(self, xs: torch.Tensor, state: LSTMState) -> tuple[torch.Tensor, LSTMState]:
         """xs ``(b, s, d)`` -> (hs ``(b, s, H)``, final state)."""
-        hs = []
-        for x_t in xs.transpose(0, 1).contiguous():
-            state = self(x_t, state)
-            hs.append(state.h)
-        return torch.stack(hs, dim=1), state
+        hs, h, c = lstm_layer_op(xs.transpose(0, 1).contiguous(), state.h, state.c, self.wx,
+                                 self.wh, self.b)
+        return hs.transpose(0, 1), LSTMState(h, c)
 
 
 class Seq2Seq(nn.Module):
@@ -133,9 +133,9 @@ class Seq2Seq(nn.Module):
         a = torch.softmax(e, dim=-1).to(enc_hs.dtype)
         return torch.einsum("bs,bsh->bh", a, enc_hs)
 
-    def _logits(self, state: LSTMState, enc_hs, enc_mask) -> torch.Tensor:
-        ctx = self._attend(state.h, enc_hs, enc_mask)
-        return torch.cat([state.h, ctx], dim=-1) @ self.out_w + self.out_b
+    def _logits(self, h: torch.Tensor, enc_hs, enc_mask) -> torch.Tensor:
+        ctx = self._attend(h, enc_hs, enc_mask)
+        return torch.cat([h, ctx], dim=-1) @ self.out_w + self.out_b
 
     # -- training forward (teacher forcing) ----------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
@@ -143,10 +143,9 @@ class Seq2Seq(nn.Module):
         Returns logits ``(b, T-1, V)`` predicting decoder_tokens[:, 1:]."""
         enc_hs, state, enc_mask = self.encode(batch["encoder_tokens"])
         x = self.embed_dec[batch["decoder_tokens"][:, :-1].long()]
-        logits = []
-        for x_t in x.transpose(0, 1).contiguous():
-            state = self.decoder(x_t, state)
-            logits.append(self._logits(state, enc_hs, enc_mask))
+        # teacher forcing: the recurrence never reads the logits
+        hs, _ = self.decoder.scan(x, state)
+        logits = [self._logits(h_t, enc_hs, enc_mask) for h_t in hs.unbind(1)]
         return torch.stack(logits, dim=1)
 
     def loss(self, batch: dict) -> torch.Tensor:
@@ -169,7 +168,7 @@ class Seq2Seq(nn.Module):
         out = []
         for _ in range(max_len):
             state = self.decoder(self.embed_dec[tok], state)
-            nxt = torch.argmax(self._logits(state, enc_hs, enc_mask), dim=-1)
+            nxt = torch.argmax(self._logits(state.h, enc_hs, enc_mask), dim=-1)
             nxt = torch.where(done, PAD, nxt)
             done = done | (nxt == END)
             out.append(nxt)

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Time ``flash_attention_bwd`` where the keys span several of the
+backward's key tiles, beside the training shape, whose keys fit one.
+
+    python3 tools/flash_bwd_shapes.py [--src DIR] [--label NAME]
+
+Past one key tile the kernel runs its multi-tile path: a D pass, then per
+round of ``bwd_part_tiles`` tiles the main kernel and the sum of the
+tiles' partial dQ in a scratch of up to ``BWD_PART_BYTES``. ``--src``
+names the ``src`` directory whose ``repro_torch`` is timed (default: this
+checkout's), so two versions of the kernel can be timed on one card in
+one session: run the script once per version, alternating (A, B, B, A).
+Run from the root of a checkout on a machine with a CUDA card; the
+kernels are built as ``chip_smoke.py`` builds them.
+
+Prints one JSON line per shape: the device time of one call by CUDA
+events (``ev``, the median of 20) and back to back (``b2b``, 20 calls
+between two events), the largest error against the plain version over
+the largest element of each gradient, the memory the call allocates at
+its peak (the gradients, D and the scratch), and, for a version that has
+them, the scratch's tiles and rounds and the head split; then the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+# (b, s, nq, nkv, hd, causal, window): StableLM-3B's training shape (one
+# key tile), RecurrentGemma-9B's checked step (two 32-key tiles at hd 256),
+# StableLM-3B at 512 and 2048 positions, RecurrentGemma-9B at 2048
+SHAPES = [(8, 64, 32, 32, 80, True, 0), (2, 64, 16, 1, 256, True, 2048),
+          (8, 512, 32, 32, 80, True, 0), (8, 2048, 32, 32, 80, True, 0),
+          (2, 2048, 16, 1, 256, True, 2048)]
+
+
+def timed(fn, n: int = 20) -> tuple[float, float]:
+    """(ev, b2b) ms of one call: the median of ``n`` calls each between two
+    events, and ``n`` calls back to back over ``n``; both queued behind a
+    spin kernel, so the host's launch cost is hidden."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda._sleep(50_000_000)
+    for i in range(n):
+        events[i].record()
+        fn()
+    events[n].record()
+    torch.cuda.synchronize()
+    ev = statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(n))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return ev, start.elapsed_time(end) / n
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("flash_bwd_shapes: needs a CUDA card")
+    sys.path.insert(0, str(args.src.resolve()))
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    for shape in SHAPES:
+        b, s, nq, nkv, hd, causal, window = shape
+        gen = torch.Generator("cuda").manual_seed(0)
+        q, dout = (torch.randn(b, s, nq, hd, device="cuda", generator=gen) for _ in range(2))
+        k, v = (torch.randn(b, s, nkv, hd, device="cuda", generator=gen) for _ in range(2))
+        out, lse = ops.flash_attention_train(q, k, v, causal=causal, window=window)
+
+        def bwd():
+            return ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+
+        got = bwd()
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        err = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+        del got, want
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ev, b2b = timed(bwd)
+        row = {"label": args.label, "shape": list(shape), "ev_ms": ev, "b2b_ms": b2b,
+               "max_err_of_max": err, "peak_bytes": peak}
+        if hasattr(ops, "bwd_part_tiles"):
+            tile = ops.bwd_key_tile(hd)
+            tiles = -(-s // tile)
+            part = ops.bwd_part_tiles(b, s, s, nq, hd)
+            row.update(key_tile=tile, tiles=tiles, part_tiles=part,
+                       rounds=-(-tiles // part) if part else 1,
+                       scratch_bytes=4 * part * b * s * nq * hd)
+        if hasattr(ops, "bwd_head_split"):
+            row["head_split"] = ops.bwd_head_split(b, s, s, nq, nkv, hd)
+        print(json.dumps(row), flush=True)
+        del q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
