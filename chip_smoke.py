@@ -129,19 +129,22 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    run's losses at 1e-4; one more step traced (idle share, ``aten::mm``
    calls);
 14. the LM's training (``lm_train``, the path of ``python -m
-   repro_torch.launch.train``): the training entry of ``flash_attention``
-   (which also writes each row's log-sum-exp) and ``flash_attention_bwd``
-   against their plain versions at 13 shapes (hd 80 and 256, groups 1-16,
-   seq 1-300, windows under the sequence, cluster splits; 2e-5 abs/rel or
-   1e-5 of the tensor's max), ``rg_lru_bwd`` at the forward's 11 shapes
+   repro_torch.launch.train``): flash's training forward
+   (``flash_attention_train.cu``, tensor cores, which also writes each
+   row's log-sum-exp) and ``flash_attention_bwd`` against their plain
+   versions at 15 shapes (hd 80, 128 and 256, groups 1-16, seq 1-2048,
+   windows under the sequence; 2e-5 abs/rel or 1e-5 of the tensor's max),
+   the forward also against fp64 and the serving kernel, no input written,
+   ``rg_lru_bwd`` at the forward's 11 shapes
    and the training shape with and without h0 (1e-5), each launched twice
    and held equal bit for bit, and timed beside its plain version, bound and
    (flash) SDPA's forward alone and with its backward; ``mlstm_chunk_op``
    under grad
-   (``MLSTMFunction``: the training entry of ``mlstm_chunk`` and
+   (``MLSTMFunction``: ``mlstm_chunk_train.cu``, tensor cores, and
    ``mlstm_chunk_bwd``) at xLSTM-1.3B's heads (s 1-200) and narrow ones
-   from a carried state, against the plain versions, fp64 autograd and
-   itself bit for bit, and timed; one ``value_and_grad`` of ``LM.loss``
+   from a carried state, against the plain versions, fp64 (the forward's
+   own algebra and autograd of the gradients) and itself bit for bit, no
+   input written, and timed; one ``value_and_grad`` of ``LM.loss``
    card against CPU for StableLM-3B, RecurrentGemma-9B, xLSTM-1.3B (with
    and without remat) and DeepSeek-MoE-16B at ``CARD_VS_CPU_LAYERS``
    full-width layers, ``init_scale=1`` (loss 1e-5 rel, every gradient
@@ -221,13 +224,16 @@ BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
              ("flash_attention", "prefill_hd256"): 0.02603, ("rg_lru", "decode"): 0.005248,
              ("rg_lru", "prefill"): 0.005824, ("mlstm_chunk", "decode"): 0.007040,
              ("mlstm_chunk", "prefill"): 0.02070, ("text_clean", "matrix"): 0.01133,
-             ("text_clean", "abstracts"): 0.10571, ("flash_attention_bwd", None): 0.1347}
+             ("text_clean", "abstracts"): 0.10571, ("flash_attention_bwd", None): 0.1347,
+             ("flash_attention_train", None): 0.04581, ("mlstm_chunk_train", None): 1.2992}
 # The byte kernels (tools/byte_kernel_times.py against a git archive of the
-# tree before them) and flash's backward (this script, before its tensor-core
-# design) by the back-to-back timer (PERF.md §6; NVIDIA H100 80GB HBM3,
-# 700.00 W): (kernel, row) -> ms.
+# tree before them), flash's backward and the two training forwards (this
+# script, before their tensor-core designs) by the back-to-back timer
+# (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W): (kernel, row) -> ms.
 BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.008276,
-                   ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326}
+                   ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326,
+                   ("flash_attention_train", None): 0.04287,
+                   ("mlstm_chunk_train", None): 1.2948}
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -2939,12 +2945,15 @@ def flash_bwd_inputs(case, gen):
 
 
 def check_flash_bwd(gen) -> tuple[float, float]:
-    """The training entry of ``flash_attention`` against
-    ``flash_attention_train_ref`` (out and lse) and equal bit for bit to the
-    serving entry; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``;
-    each launched twice and the two results held equal bit for bit. Returns
-    the max abs errors of the training entry and of the backward at the
-    training shape."""
+    """The training forward (``flash_attention_train.cu``) against
+    ``flash_attention_train_ref`` (out and lse), against the same algebra
+    in fp64 and, for out, against the serving kernel (``held_fp32`` each:
+    since the training forward runs on the tensor cores the two kernels
+    no longer share their bits); ``flash_attention_bwd`` against
+    ``flash_attention_bwd_ref``; each launched twice and the two results
+    held equal bit for bit, and no input written. Returns the max abs
+    errors of the training forward and of the backward at the training
+    shape."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_train_ref)
@@ -2959,21 +2968,25 @@ def check_flash_bwd(gen) -> tuple[float, float]:
         tiles = -(-s // flash_ops.bwd_key_tile(hd))
         n_rounds += 0 < flash_ops.bwd_part_tiles(b, s, s, nq, hd) < tiles
         q, k, v, dout = flash_bwd_inputs(case, gen)
+        inputs = [t.clone() for t in (q, k, v, dout)]
         out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
         out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
         served = flash_ops.flash_attention_op(q, k, v, **kw)
         torch.cuda.synchronize()
         want_out, want_lse = flash_attention_train_ref(q, k, v, **kw)
+        exact_out, exact_lse = flash_attention_train_ref(q.double(), k.double(), v.double(), **kw)
         e_out = held_fp32(out, want_out, f"flash_attention_train {case} out")
         held_fp32(lse, want_lse, f"flash_attention_train {case} lse")
+        held_fp32(out.double(), exact_out, f"flash_attention_train {case} out against fp64")
+        held_fp32(lse.double(), exact_lse, f"flash_attention_train {case} lse against fp64")
+        held_fp32(out, served, f"flash_attention_train {case} out against the serving kernel")
         if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
             fail(f"flash_attention_train {case}: two launches differ")
-        if not torch.equal(out, served):
-            fail(f"flash_attention {case}: the training entry's out differs from the serving "
-                 f"entry's")
         grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         again = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(t, u) for t, u in zip((q, k, v, dout), inputs)):
+            fail(f"flash_attention_train or flash_attention_bwd {case} wrote an input")
         want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
         e_grad = max(held_fp32(g, w, f"flash_attention_bwd {case} d{name}")
                      for name, g, w in zip("qkv", grads, want))
@@ -2982,17 +2995,18 @@ def check_flash_bwd(gen) -> tuple[float, float]:
         if case == FLASH_BWD_CASES[0]:
             err_fwd, err_bwd = e_out, e_grad
     if n_split < 2:
-        fail(f"flash_attention_train: only {n_split} of the backward's shapes split over a "
-             f"cluster")
+        fail(f"flash_attention: only {n_split} of the backward's shapes split the serving "
+             f"kernel over a cluster")
     if n_heads_split < 2 or n_rounds < 1:
         fail(f"flash_attention_bwd: {n_heads_split} shapes split a kv group's heads and "
              f"{n_rounds} sum partial dQ in rounds (want 2 and 1)")
-    print(f"flash_attention training entry and flash_attention_bwd: match plain at "
-          f"{len(FLASH_BWD_CASES)} shapes (hd 80 and 256, groups 1-16, seq 1-2048, windows "
-          f"under the sequence; tol 2e-5 abs/rel or 1e-5 of the tensor's max), {n_split} of "
-          f"them split over a cluster in the forward, {n_heads_split} split a kv group's heads "
-          f"in the backward, {n_rounds} sum partial dQ in rounds; out equal to the serving "
-          f"entry's bit for bit; two launches identical bit for bit")
+    print(f"flash_attention_train and flash_attention_bwd: match plain at "
+          f"{len(FLASH_BWD_CASES)} shapes (hd 80, 128 and 256, groups 1-16, seq 1-2048, "
+          f"windows under the sequence; tol 2e-5 abs/rel or 1e-5 of the tensor's max), "
+          f"{n_split} of them split over a cluster by the serving kernel, {n_heads_split} split "
+          f"a kv group's heads in the backward, {n_rounds} sum partial dQ in rounds; the "
+          f"forward within the same tolerance of fp64 and of the serving kernel; two launches "
+          f"identical bit for bit; no input written")
     return err_fwd, err_bwd
 
 
@@ -3070,7 +3084,10 @@ def check_mlstm_bwd(gen) -> tuple[float, float]:
     (``held_fp32``), and against fp64 autograd of ``mlstm_chunk_ref``
     within 5e-5 of each tensor's largest element (the CPU tests' limit);
     every input gets a gradient; two runs of the backward identical bit for
-    bit. From a carried state, with cotangents for h alone (the train
+    bit. The training forward (``mlstm_chunk_train.cu``) is also held to
+    its algebra in fp64 at the same tolerances wherever the fp32 plain
+    version meets them, launched twice with identical bits, and writes no
+    input. From a carried state, with cotangents for h alone (the train
     step's) and for h and the whole returned state. Returns the max abs
     errors of the gradients and of the training entry's h at the served
     shapes."""
@@ -3084,16 +3101,25 @@ def check_mlstm_bwd(gen) -> tuple[float, float]:
         b, s, H, dh = case
         args = mlstm_inputs(b, s, H, dh, gen)
         state = mlstm_state(b, H, dh, gen)
-        c_before = state[0].clone()
+        inputs = [t.clone() for t in (*args, *state)]
         got = mlstm_ops.mlstm_chunk_train(*args, *state)
+        again = mlstm_ops.mlstm_chunk_train(*args, *state)
         want = mlstm_chunk_train_ref(*args, *state)
         exact = mlstm_chunk_train_ref(*args, *state, dtype=torch.float64)
         torch.cuda.synchronize()
-        if not torch.equal(state[0], c_before):
-            fail(f"mlstm_chunk_train {case} wrote its input C")
+        if not all(torch.equal(t, u) for t, u in zip((*args, *state), inputs)):
+            fail(f"mlstm_chunk_train {case} wrote an input")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"mlstm_chunk_train {case}: two launches differ")
         for name, g, w, x in zip(("h", "C", "n", "m", "C_in", "n_in", "m_in"), got, want, exact):
             tol = (2e-5, 2e-5) if name == "h" else (1e-4, 1e-6)
             held_to_plain(g, w, x, *tol, f"mlstm_chunk_train {case} {name}")
+            limit = tol[1] + tol[0] * x.abs()
+            over = ((g.double() - x).abs() - limit).max().item()
+            over_plain = ((w.double() - x).abs() - limit).max().item()
+            if over > max(over_plain, 0.0):
+                fail(f"mlstm_chunk_train {case} {name}: misses fp64 by {over:.3e} (rtol "
+                     f"{tol[0]}, atol {tol[1]}), the plain version by {max(over_plain, 0.0):.3e}")
         if case in MLSTM_BWD_SERVED:
             fwd_err = max(fwd_err, (got[0] - want[0]).abs().max().item())
         h, c_st, n_st, m_st = got[0], *got[4:]
@@ -3121,9 +3147,10 @@ def check_mlstm_bwd(gen) -> tuple[float, float]:
                 if ratio > 5e-5:
                     fail(f"mlstm_chunk_op under grad {case} {label} {name}: {ratio:.3e} of the "
                          f"largest element from fp64 autograd (limit 5e-5)")
-    print(f"mlstm_chunk training entry: h, C, n, m and the chunk states match plain at "
-          f"{len(MLSTM_BWD_SERVED + MLSTM_BWD_EDGES)} shapes from a carried state, input C "
-          f"untouched; h max abs err {fwd_err:.3e} at the served shapes")
+    print(f"mlstm_chunk_train: h, C, n, m and the chunk states match plain and fp64 at "
+          f"{len(MLSTM_BWD_SERVED + MLSTM_BWD_EDGES)} shapes from a carried state, no input "
+          f"written, two launches identical bit for bit; h max abs err {fwd_err:.3e} at the "
+          f"served shapes")
     print(f"mlstm_chunk_bwd fp32: 8 gradients match plain (2e-5 abs/rel or 1e-5 of the largest) "
           f"with cotangents of h and of h and the state; max abs err {bwd_err:.3e} at the served "
           f"shapes; through MLSTMFunction within {worst_fp64:.3e} of fp64 autograd (limit 5e-5); "
@@ -3756,6 +3783,22 @@ def main() -> int:
                                                   "library_ms_burst", "bound_ms", "bound_by")},
                 **rows}
 
+    def train_forward_row(name, timed_with, source, replaces, by_path, launches):
+        """A training forward's row from the timings of its backward's."""
+        row = lm_rows[timed_with]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": by_path,
+                "max_abs_err": row["train_forward_max_abs_err"], "ms": row["train_forward_ms"],
+                "ms_burst": row["train_forward_ms_burst"],
+                "plain_ms": row["train_forward_plain_ms"],
+                "bound_ms": row["train_forward_bound_ms"],
+                "bound_by": row["train_forward_bound_by"],
+                "library_ms": row.get("library_forward_ms"),
+                "library_ms_burst": row.get("library_forward_ms_burst"),
+                "library": ("scaled_dot_product_attention forward" if "library_forward_ms" in row
+                            else "none: no single PyTorch call"),
+                "shape": row["shape"]}
+
     kernels = [
         {"name": "lstm_cell", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
@@ -3819,6 +3862,16 @@ def main() -> int:
          "launches_by_path": {"lm_train_steps": lm_train_line["launches"]["flash_attention_bwd"],
                               **train_paths("flash_attention_bwd")},
          **lm_rows["flash_attention_bwd"]},
+        # the training forwards count under their serving kernels' names
+        # (LAUNCHES["flash_attention"], LAUNCHES["mlstm_chunk"]): every
+        # launch on the training paths below is theirs
+        train_forward_row("flash_attention_train", "flash_attention_bwd",
+                          "src/repro_torch/kernels/csrc/flash_attention_train.cu",
+                          "none: XLA runs the training forward of "
+                          "src/repro/models/attention.py:97 sdpa",
+                          {"lm_train_steps": lm_train_line["launches"]["flash_attention"],
+                           **train_paths("flash_attention")},
+                          lm_train_line["launches"]["flash_attention"]),
         # StableLM-3B's steps have no RG-LRU layer: its launches are the
         # RecurrentGemma-9B step's, counted from 0 around that step
         {"name": "rg_lru_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rg_lru_bwd.cu",
@@ -3832,6 +3885,11 @@ def main() -> int:
          "replaces": "none: XLA differentiates src/repro/models/xlstm.py:130 _mlstm_chunked",
          "launches": sum(train_paths("mlstm_chunk_bwd").values()),
          "launches_by_path": train_paths("mlstm_chunk_bwd"), **lm_rows["mlstm_chunk_bwd"]},
+        train_forward_row("mlstm_chunk_train", "mlstm_chunk_bwd",
+                          "src/repro_torch/kernels/csrc/mlstm_chunk_train.cu",
+                          "none: XLA runs the training forward of "
+                          "src/repro/models/xlstm.py:130 _mlstm_chunked",
+                          train_paths("mlstm_chunk"), sum(train_paths("mlstm_chunk").values())),
     ]
     for entry in kernels:
         if entry.get("on_main_path", True) and not entry["launches"]:

@@ -1583,15 +1583,23 @@ def _out_seg_name(run_id: str, task_id: int) -> str:
 
 
 def _unlink_segment(name: str) -> None:
-    """Copy of ``repro/core/executor.py:1486``."""
-    from multiprocessing import shared_memory
+    """Unlink a segment by name without mapping it: a worker SIGKILLed
+    between ``shm_open`` and ``ftruncate`` inside ``SharedMemory(create=
+    True)`` leaves an empty segment, which cannot be mapped (``ValueError:
+    cannot mmap an empty file``). The resource tracker ends as
+    ``SharedMemory(name).unlink()`` leaves it: the name is registered
+    (a no-op where the creating worker did) and then unregistered.
+    ``repro/core/executor.py:1486`` maps the segment first."""
+    import _posixshmem
+    from multiprocessing import resource_tracker
 
+    path = "/" + name
     try:
-        seg = shared_memory.SharedMemory(name=name)
-        seg.close()
-        seg.unlink()
+        _posixshmem.shm_unlink(path)
     except FileNotFoundError:
-        pass
+        return
+    resource_tracker.register(path, "shared_memory")
+    resource_tracker.unregister(path, "shared_memory")
 
 
 def _bind_device(program: ShardProgram) -> dict[str, int] | None:

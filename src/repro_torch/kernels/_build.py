@@ -57,8 +57,8 @@ SIGNATURES = {
     # blocks of a cluster; scale; stream
     "flash_attention_f32": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
     "flash_attention_bf16": (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
-    # as flash_attention_f32, with lse after out
-    "flash_attention_train_f32": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_I,) * 6 + (_F, _P),
+    # q, k, v, out, lse; b, sq, skv, nq, nkv, hd; causal, window; scale; stream
+    "flash_attention_train_f32": (_P,) * 5 + (_I,) * 8 + (_F, _P),
     # q, k, v, out, dout, lse, delta, dq_part, dkv_part (each or null), dq,
     # dk, dv; b, sq, skv, nq, nkv, hd; causal, window; the tiles dq_part
     # holds; the head split; scale; stream
@@ -71,15 +71,16 @@ SIGNATURES = {
     # q, k, v, i, f, C (in place), n_in, m_in, n_out, m_out, out; b, s, H, dh; stream
     "mlstm_chunk_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
     # q, k, v, i, f, C_in, n_in, m_in, C_out, n_out, m_out, out, the chunks'
-    # input C, n and m; b, s, H, dh; stream
-    "mlstm_chunk_train_f32": (_P,) * 15 + (_I,) * 4 + (_P,),
+    # input C, n and m; workspace; b, s, H, dh; stream
+    "mlstm_chunk_train_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
     # q, k, v, i, f, the chunks' input C, n, m, h, dh, dC, dn, dm (each of
     # the last three or null); dq, dk, dv, di, df, dC0, dn0, dm0; workspace;
     # b, s, H, dh; stream
     "mlstm_chunk_bwd_f32": (_P,) * 22 + (_I,) * 4 + (_P,),
 }
 # entry points that return a size, not an error code
-SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4, "lstm_layer_bwd_max_hidden": ()}
+SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4, "mlstm_chunk_train_workspace": (_I,) * 4,
+         "lstm_layer_bwd_max_hidden": ()}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -65,15 +65,9 @@
 //   1e-30)), the sum over the partials in order, read through distributed
 //   shared memory from the other blocks. No atomics: two launches give the
 //   same bits.
-// No tensor cores and no TF32: fp32 parity with the plain version (2e-5)
-// rules them out.
-//
-// Training entry (flash_attention_train_f32, fp32): the same launch, and
-// each row's log-sum-exp of its scaled scores, lse = M + log(L) from the
-// combine's M and L (the rows' partials already hold every block's max and
-// sum, so a split over a cluster gives the same lse), into a (b, nq, sq)
-// fp32 buffer. flash_attention_bwd.cu recomputes the probabilities from
-// it as exp(score * scale - lse).
+// No tensor cores and no TF32: at these shapes a launch is bound by its
+// latency, not by its products. The training forward, which writes each
+// row's log-sum-exp, is flash_attention_train.cu.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -107,7 +101,6 @@ struct Params {
   int vec;    // K and V rows take 16-byte cp.async copies
   int qvec;   // q rows take 4-element loads
   float scale;
-  float* lse;  // (b, nq, sq) fp32, each row's log-sum-exp; null when serving
 };
 
 // Byte offsets of the block's dynamic shared memory.
@@ -461,7 +454,7 @@ flash_attention_kernel(const Params p) {
   // lanes past n_src hold m = -inf and l = 0), and lane 0's sum goes to
   // every lane. A row's output is its sum times 1 / max(l, 1e-30): one
   // division a row.
-  float w[kRW], inv[kRW], lse[kRW];
+  float w[kRW], inv[kRW];
 #pragma unroll
   for (int rr = 0; rr < kRW; ++rr) {
     float m_max = m_s[rr];
@@ -471,8 +464,6 @@ flash_attention_kernel(const Params p) {
     for (int off = 1; off < n_src; off <<= 1) l_sum += __shfl_xor_sync(kAll, l_sum, off);
     const float total = __shfl_sync(kAll, l_sum, 0);
     inv[rr] = 1.0f / fmaxf(total, 1e-30f);
-    // lane 0's M and L are the row's (the training entry's lse)
-    lse[rr] = p.lse != nullptr ? __shfl_sync(kAll, m_max, 0) + logf(total) : 0.0f;
   }
   float4 o[kRW][kC];
 #pragma unroll
@@ -503,9 +494,6 @@ flash_attention_kernel(const Params p) {
     const int qrow = tile0 + rank + i * split, qi = qrow / group;
     const int head = kvh * group + qrow - qi * group;
     T* dst = ob + ((static_cast<long long>(bi) * p.sq + qi) * p.nq + head) * hd;
-    if (p.lse != nullptr && lane == 0) {
-      p.lse[(static_cast<long long>(bi) * p.nq + head) * p.sq + qi] = lse[rr];
-    }
 #pragma unroll
     for (int c4 = 0; c4 < kC; ++c4) {
       const int c = lane + 32 * c4;
@@ -592,7 +580,7 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 namespace {
 
 template <typename T>
-int launch(FLASH_ARGS, float* lse) {
+int launch(FLASH_ARGS) {
   if (hd < 1 || hd > 256 || nkv < 1 || nq % nkv != 0 || split < 1 || split > kMaxSplit ||
       kv_len < 0 || kv_len > skv) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -609,8 +597,7 @@ int launch(FLASH_ARGS, float* lse) {
                     q_sb % 4 == 0 && q_ss % 4 == 0 && q_sh % 4 == 0;
   const Params p{q, k, v, out, sq, nq, nkv, hd, (hd + 3) / 4 * 4,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                 causal, window, q_offset, kv_len, split, vec ? 1 : 0, qvec ? 1 : 0, scale,
-                 lse};
+                 causal, window, q_offset, kv_len, split, vec ? 1 : 0, qvec ? 1 : 0, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return hd <= 128 ? launch_rows<T, 1>(p, b, rows, static_cast<int>(tiles), st)
                    : launch_rows<T, 2>(p, b, rows, static_cast<int>(tiles), st);
@@ -622,24 +609,6 @@ int launch(FLASH_ARGS, float* lse) {
 // and v in elements; causal, window, q_offset, kv_len (<= skv); rows a block
 // owns (1, 2, 4, 8 or 16) and blocks of a cluster over a tile's keys (1-8), as
 // flash_attention/ops.py:plan gives them; scale; stream
-extern "C" int flash_attention_f32(FLASH_ARGS) { return launch<float>(FLASH_PASS, nullptr); }
+extern "C" int flash_attention_f32(FLASH_ARGS) { return launch<float>(FLASH_PASS); }
 
-extern "C" int flash_attention_bf16(FLASH_ARGS) {
-  return launch<__nv_bfloat16>(FLASH_PASS, nullptr);
-}
-
-// The forward of a training step, fp32: as flash_attention_f32 with
-// q_offset 0 and kv_len skv, and each row's log-sum-exp into lse
-// (b, nq, sq) fp32.
-extern "C" int flash_attention_train_f32(const void* q, const void* k, const void* v, void* out,
-                                         void* lse, int b, int sq, int skv, int nq, int nkv,
-                                         int hd, long long q_sb, long long q_ss, long long q_sh,
-                                         long long k_sb, long long k_ss, long long k_sh,
-                                         long long v_sb, long long v_ss, long long v_sh,
-                                         int causal, int window, int q_offset, int kv_len,
-                                         int rows, int split, float scale, void* stream) {
-  if (lse == nullptr || q_offset != 0 || kv_len != skv) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch<float>(FLASH_PASS, static_cast<float*>(lse));
-}
+extern "C" int flash_attention_bf16(FLASH_ARGS) { return launch<__nv_bfloat16>(FLASH_PASS); }

@@ -32,12 +32,9 @@
 //   here and in the three products below);
 // - dV += P^T dO and dK += dS^T Q into the registers;
 // - this key tile's share of dQ, dS K, goes out from registers.
-// All five products run on the tensor cores (mma.sync m16n8k8, TF32) with
-// the error-compensated split: each fp32 operand a is hi = tf32(a) and lo =
-// tf32(a - hi), and a b = hi hi' + hi lo' + lo hi' in fp32 (the dropped
-// lo lo' is about 2^-22 of the product), each k-step's three products summed
-// apart and added to the running sum in a rounded fp32 add (the tensor
-// cores' own sum truncates), which keeps fp32's 2e-5 parity.
+// All five products run on the tensor cores (mma.sync m16n8k8, TF32) in
+// the error-compensated split of mma_tf32.cuh, which keeps fp32's 2e-5
+// parity.
 // dQ without atomics: with one key tile per (batch, kv head) (every
 // sequence up to kBc keys) the block owns its rows' dQ and writes it, and
 // computes D itself from O and dO (it sees each query row once). Past one
@@ -61,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -111,99 +110,6 @@ __host__ __device__ __forceinline__ void query_range(int j0, int nj, int sq, int
                                                      int window, int& lo, int& hi) {
   lo = causal ? j0 : 0;
   hi = window > 0 ? min(sq, j0 + nj - 1 + window) : sq;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a b for one m16n8k8 TF32 tile, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment (16 x 8, row m, column k) and B fragment (8 x 8, row k, column
-// n), each split into its TF32 high part and the TF32 rounding of the rest.
-// Lane l holds A at (l/4, l%4), (l/4 + 8, l%4), (l/4, l%4 + 4), (l/4 + 8,
-// l%4 + 4) and B at (l%4, l/4), (l%4 + 4, l/4); C at (l/4, 2 (l%4)), (l/4,
-// 2 (l%4) + 1), (l/4 + 8, 2 (l%4)), (l/4 + 8, 2 (l%4) + 1).
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// A from a row-major array: element (m, k) at p[m * ld + k]
-__device__ __forceinline__ FragA frag_a(const float* p, int ld, int g, int t) {
-  FragA f;
-  split(p[g * ld + t], f.hi[0], f.lo[0]);
-  split(p[(g + 8) * ld + t], f.hi[1], f.lo[1]);
-  split(p[g * ld + t + 4], f.hi[2], f.lo[2]);
-  split(p[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
-  return f;
-}
-// A from a column-major array: element (m, k) at p[k * ld + m]
-__device__ __forceinline__ FragA frag_a_t(const float* p, int ld, int g, int t) {
-  FragA f;
-  split(p[t * ld + g], f.hi[0], f.lo[0]);
-  split(p[t * ld + g + 8], f.hi[1], f.lo[1]);
-  split(p[(t + 4) * ld + g], f.hi[2], f.lo[2]);
-  split(p[(t + 4) * ld + g + 8], f.hi[3], f.lo[3]);
-  return f;
-}
-// B with element (k, n) at p[n * ld + k] (B = X^T of a row-major X)
-__device__ __forceinline__ FragB frag_b_t(const float* p, int ld, int g, int t) {
-  FragB f;
-  split(p[g * ld + t], f.hi[0], f.lo[0]);
-  split(p[g * ld + t + 4], f.hi[1], f.lo[1]);
-  return f;
-}
-// B with element (k, n) at p[k * ld + n] (a row-major B)
-__device__ __forceinline__ FragB frag_b(const float* p, int ld, int g, int t) {
-  FragB f;
-  split(p[t * ld + g], f.hi[0], f.lo[0]);
-  split(p[(t + 4) * ld + g], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// d += a b in 3xTF32, the small terms first. The tensor cores truncate
-// their fp32 sums, which biases a long chain of mma's toward zero (at hd 256
-// with 16 query heads on one kv head, dK missed the plain version by 1.1e-4
-// of values near 10): so the three products go into a fresh tile, which is
-// added to d in a rounded fp32 add.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(t, a.lo, b.hi);
-  mma_tf32(t, a.hi, b.lo);
-  mma_tf32(t, a.hi, b.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // n rows of a (rows, heads, hd) layout from element offset `first` with

@@ -28,12 +28,9 @@
 // contiguous fp32; C (b, H, dh, dh) with C[v][k] as the reference keeps it,
 // n (b, H, dh), m (b, H).
 //
-// Two entries. mlstm_chunk_f32 serves: C in place, the decode path at one
-// step. mlstm_chunk_train_f32 is the forward of a training step: it always
-// takes the chunked pass, reads C_in and writes C_out, a separate buffer
-// (it writes no input), and also writes the state each chunk starts from,
-// (nC, b, H, dh, dh) for C, (nC, b, H, dh) for n and (nC, b, H) for m, which
-// mlstm_chunk_bwd.cu reads instead of running the forward again.
+// This is the serving entry, mlstm_chunk_f32: C in place. The forward of a
+// training step, which writes C fresh and each chunk's input state, is
+// mlstm_chunk_train.cu.
 //
 // Two paths, one launch each.
 //
@@ -234,8 +231,7 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ fg, const float* C_in, float* C_out,
                    const float* __restrict__ n_in, const float* __restrict__ m_in,
                    float* __restrict__ n_out, float* __restrict__ m_out,
-                   float* __restrict__ out, float* __restrict__ c_st, float* __restrict__ n_st,
-                   float* __restrict__ m_st, int s, int H, int dh) {
+                   float* __restrict__ out, int s, int H, int dh) {
   extern __shared__ __align__(16) double smem[];
   double* wj = smem;                 // kChunk: e^{b_L - b_j + i_j - m_out}, fp64
   double* s_out = wj + kChunk;       // e^{b_L + m_in - m_out}, fp64 (then a double of padding)
@@ -275,21 +271,6 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int c0 = 0; c0 < s; c0 += kChunk) {
     const int L = min(kChunk, s - c0);
-    if (c_st != nullptr) {  // training: the state this chunk starts from
-      const long long rec = static_cast<long long>(c0 / kChunk) * gridDim.x + bh;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int e = (i * 16 + ks) * V;
-        if (row < dh && e < dh) {
-#pragma unroll
-          for (int x = 0; x < V; ++x) c_st[rec * dh * dh + static_cast<long long>(row) * dh + e + x] = cr[i][x];
-        }
-      }
-      if (blockIdx.y == 0) {
-        for (int i = tid; i < dh; i += kThreads) n_st[rec * dh + i] = ns[i];
-        if (tid == 0) m_st[rec] = *m_sh;
-      }
-    }
 
     // Gates: a cumulative sum and a running max over the chunk's real steps,
     // scanned across warp 0, which holds steps lane and lane + 32.
@@ -495,10 +476,9 @@ mlstm_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const float *q, *k, *v, *ig, *fg;
   const float* C_in;
-  float* C_out;  // C_in itself when serving
+  float* C_out;  // C_in itself: C is written in place
   const float *n_in, *m_in;
   float *n_out, *m_out, *out;
-  float *c_st, *n_st, *m_st;  // null when serving
 };
 
 template <int V, int NC>
@@ -506,8 +486,8 @@ int chunked_as(const Args& a, int b, int s, int H, int dh, cudaStream_t stream) 
   const size_t smem = smem_bytes(dh);  // under 48 KB for dh <= 1024
   const dim3 grid(b * H, (dh + kTV - 1) / kTV);
   mlstm_chunk_kernel<V, NC><<<grid, kThreads, smem, stream>>>(
-      a.q, a.k, a.v, a.ig, a.fg, a.C_in, a.C_out, a.n_in, a.m_in, a.n_out, a.m_out, a.out, a.c_st,
-      a.n_st, a.m_st, s, H, dh);
+      a.q, a.k, a.v, a.ig, a.fg, a.C_in, a.C_out, a.n_in, a.m_in, a.n_out, a.m_out, a.out, s, H,
+      dh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,35 +546,9 @@ extern "C" int mlstm_chunk_f32(const void* q, const void* k, const void* v, cons
                static_cast<const float*>(fg), static_cast<const float*>(C),
                static_cast<float*>(C), static_cast<const float*>(n_in),
                static_cast<const float*>(m_in), static_cast<float*>(n_out),
-               static_cast<float*>(m_out), static_cast<float*>(out), nullptr, nullptr, nullptr};
+               static_cast<float*>(m_out), static_cast<float*>(out)};
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(C) &&
                    aligned16(n_in);
   if (s == 1) return vec ? decode<4>(a, b * H, dh, st) : decode<1>(a, b * H, dh, st);
-  return vec ? chunked<4>(a, b, s, H, dh, st) : chunked<1>(a, b, s, H, dh, st);
-}
-
-// q, k, v, i, f, C_in, n_in, m_in, C_out, n_out, m_out, out, and the chunks'
-// input states C (nC, b, H, dh, dh), n (nC, b, H, dh), m (nC, b, H); b, s,
-// H, dh; stream. The chunked pass at every length; no input is written.
-extern "C" int mlstm_chunk_train_f32(const void* q, const void* k, const void* v,
-                                     const void* ig, const void* fg, const void* C_in,
-                                     const void* n_in, const void* m_in, void* C_out,
-                                     void* n_out, void* m_out, void* out, void* c_st,
-                                     void* n_st, void* m_st, int b, int s, int H, int dh,
-                                     void* stream) {
-  if (b < 0 || s < 1 || H < 0 || dh < 1 || dh > 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (b == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-               static_cast<const float*>(v), static_cast<const float*>(ig),
-               static_cast<const float*>(fg), static_cast<const float*>(C_in),
-               static_cast<float*>(C_out), static_cast<const float*>(n_in),
-               static_cast<const float*>(m_in), static_cast<float*>(n_out),
-               static_cast<float*>(m_out), static_cast<float*>(out), static_cast<float*>(c_st),
-               static_cast<float*>(n_st), static_cast<float*>(m_st)};
-  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(C_in) &&
-                   aligned16(C_out) && aligned16(n_in);
   return vec ? chunked<4>(a, b, s, H, dh, st) : chunked<1>(a, b, s, H, dh, st);
 }

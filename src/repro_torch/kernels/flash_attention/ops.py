@@ -18,13 +18,14 @@ visible key exactly once, and ``chip_smoke.py`` holds the kernel to the
 plain version at planned splits.
 
 With grad mode on and q, k or v requiring grad, the op is
-``FlashAttentionFunction``: its forward is the kernel's training entry
-(``flash_attention_train_f32``, which also writes each row's log-sum-exp),
-its backward ``csrc/flash_attention_bwd.cu``; on the CPU the two plain
-versions ``flash_attention_train_ref`` and ``flash_attention_bwd_ref``.
-Only the full sequence (``q_offset == 0``, ``kv_len is None``) takes a
-gradient, in fp32. ``LAUNCHES["flash_attention"]`` counts the serving and
-the training entry's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
+``FlashAttentionFunction``: its forward is the training kernel
+(``csrc/flash_attention_train.cu``, tensor cores, which also writes each
+row's log-sum-exp), its backward ``csrc/flash_attention_bwd.cu``; on the
+CPU the two plain versions ``flash_attention_train_ref`` and
+``flash_attention_bwd_ref``. Only the full sequence (``q_offset == 0``,
+``kv_len is None``) takes a gradient, in fp32.
+``LAUNCHES["flash_attention"]`` counts the serving kernel's and the
+training kernel's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
 backward call: one kernel when the keys fit one tile of ``bwd_key_tile``
 keys, else a D pass, then per round of ``bwd_part_tiles`` key tiles the
 main kernel and the sum of their partial dQ; where ``bwd_head_split``
@@ -206,10 +207,8 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
     return _launch(q, k, v, causal, window, q_offset, kv_len)
 
 
-def _launch(q, k, v, causal, window, q_offset, kv_len, lse=None) -> torch.Tensor:
-    """Launch ``flash_attention.cu`` on CUDA tensors: a serving entry, or
-    the training entry (fp32) when ``lse`` is the ``(b, nq, sq)`` fp32
-    buffer for each row's log-sum-exp."""
+def _launch(q, k, v, causal, window, q_offset, kv_len) -> torch.Tensor:
+    """Launch ``flash_attention.cu`` on CUDA tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
     if q.dtype not in _ENTRY:
@@ -227,14 +226,10 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, lse=None) -> torch.Tensor
                   n_keys=n_keys)
     if launch.tiles > 65535:
         raise ValueError(f"flash_attention_op: {sq} query rows exceed the grid")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if lse is not None:
-        fn, args = _build.library().flash_attention_train_f32, args + (lse.data_ptr(),)
-    else:
-        fn = getattr(_build.library(), _ENTRY[q.dtype])
-    err = fn(*args, b, sq, skv, nq, nkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             int(causal), window, q_offset, n_keys, launch.rows, launch.split,
-             1.0 / math.sqrt(hd), _build.current_stream(q.device))
+    err = getattr(_build.library(), _ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, nq, nkv, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), window, q_offset,
+        n_keys, launch.rows, launch.split, 1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
@@ -242,16 +237,30 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, lse=None) -> torch.Tensor
 
 def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
     """The forward of a training step over the full sequence, fp32 -> (out
-    ``(b, sq, nq, hd)``, lse ``(b, nq, sq)`` fp32): the kernel's training
-    entry on the card, ``flash_attention_train_ref`` on the CPU."""
+    ``(b, sq, nq, hd)``, lse ``(b, nq, sq)`` fp32): ``flash_attention_train.cu``
+    on the card (one launch), ``flash_attention_train_ref`` on the CPU."""
     _check(q, k, v, 0, None)
     if q.device.type == "cpu":
         return flash_attention_train_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_train: unsupported device {q.device}")
     if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_train: the training entry takes float32, got {q.dtype}")
-    b, sq, nq, _ = q.shape
+        raise TypeError(f"flash_attention_train: the kernel takes float32, got {q.dtype}")
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    if b * nq > 65535:
+        raise ValueError(f"flash_attention_train: {b} x {nq} heads exceed the grid")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, causal, window, 0, None, lse), lse
+    if out.numel() == 0:
+        return out, lse
+    err = _build.library().flash_attention_train_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv,
+        nq, nkv, hd, int(causal), window, 1.0 / math.sqrt(hd), _build.current_stream(q.device))
+    _build.check(err, "flash_attention_train")
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):

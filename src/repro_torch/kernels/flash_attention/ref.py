@@ -10,15 +10,16 @@ input dtype before ``p·v``. Query head ``h`` reads kv head
 ``h // (nq // nkv)``.
 
 ``flash_attention_train_ref`` and ``flash_attention_bwd_ref`` are the
-plain versions of the training entry and of the backward kernel
-(``csrc/flash_attention_bwd.cu``), fp32 over a full sequence (query ``i``
+plain versions of the training forward (``csrc/flash_attention_train.cu``)
+and of the backward kernel (``csrc/flash_attention_bwd.cu``), fp32 over a full sequence (query ``i``
 at position ``i``): the forward also returns each row's log-sum-exp, and
 the backward writes the softmax's gradient out, as the kernel computes it,
-not through autograd. With ``split_tf32=True`` its five matrix products
-are computed as the kernel's tensor cores compute them: each fp32 operand
-``a`` split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` (TF32's 10-bit
-mantissa, rounded to nearest, ties away from zero, as ``cvt.rna.tf32``)
-and ``a·b = hi·hi′ + hi·lo′ + lo·hi′``.
+not through autograd. With ``split_tf32=True`` the training forward's two
+matrix products and the backward's five are computed as the kernels'
+tensor cores compute them (``csrc/flash_attention_train.cu``,
+``csrc/flash_attention_bwd.cu``; ``kernels/tf32.py``: each fp32 operand
+``a`` split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)``, and ``a·b =
+hi·hi′ + hi·lo′ + lo·hi′``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..tf32 import split_einsum, tf32  # noqa: F401  (tf32 re-exported)
 
 NEG_INF = -1e30
 
@@ -67,40 +70,33 @@ def _mask(sq: int, skv: int, causal: bool, window: int, device) -> torch.Tensor:
     return mask
 
 
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 ``x`` rounded to TF32's 10-bit mantissa, to nearest with ties
-    away from zero (``cvt.rna.tf32.f32``); still fp32."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(eq, a, b)`` of fp32 operands in 3xTF32: the low
-    parts' products first, as the kernel accumulates them."""
-    a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
-    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) \
-        + torch.einsum(eq, a_hi, b_hi)
+def _real(x: torch.Tensor) -> torch.Tensor:
+    """fp32, or fp64 where given (a yardstick of the fp32 versions)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _scaled_scores(q, k, causal: bool, window: int, mm=torch.einsum):
-    """fp32 scores · 1/√hd ``(b, nkv, group, sq, skv)``, -inf where masked."""
+    """Scores · 1/√hd ``(b, nkv, group, sq, skv)`` in fp32 (fp64 for fp64
+    inputs), -inf where masked."""
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, sq, nkv, nq // nkv, hd)
-    s = mm("bsngk,btnk->bngst", qg, k.float()) / math.sqrt(hd)
+    qg = _real(q).reshape(b, sq, nkv, nq // nkv, hd)
+    s = mm("bsngk,btnk->bngst", qg, _real(k)) / math.sqrt(hd)
     return torch.where(_mask(sq, skv, causal, window, q.device), s, -math.inf)
 
 
-def flash_attention_train_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """The forward of a training step, fp32 -> (out ``(b, sq, nq, hd)``,
-    lse ``(b, nq, sq)``): lse is the log of each row's sum of
-    exp(score · 1/√hd) over its visible keys."""
+def flash_attention_train_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                              split_tf32: bool = False):
+    """The forward of a training step, fp32 (fp64 for fp64 inputs) -> (out
+    ``(b, sq, nq, hd)``, lse ``(b, nq, sq)``): lse is the log of each row's
+    sum of exp(score · 1/√hd) over its visible keys. ``split_tf32`` runs
+    the two products, Q Kᵀ and P V, as the kernel does (``split_einsum``)."""
+    mm = split_einsum if split_tf32 else torch.einsum
     b, sq, nq, hd = q.shape
-    s = _scaled_scores(q, k, causal, window)
+    s = _scaled_scores(q, k, causal, window, mm)
     lse = torch.logsumexp(s, dim=-1)  # (b, nkv, group, sq)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bngst,btnk->bsngk", p, v.float()).reshape(b, sq, nq, hd)
+    out = mm("bngst,btnk->bsngk", p, _real(v)).reshape(b, sq, nq, hd)
     return out, lse.reshape(b, nq, sq)
 
 

@@ -7,12 +7,13 @@ block prefill and a one-token decode step. Without a gradient C is
 updated IN PLACE (the returned C is the tensor given), as the KV cache is;
 n and m come back as fresh tensors. CPU tensors go to the plain version in
 ``ref.py``; CUDA tensors go to the kernel or raise.
-``LAUNCHES["mlstm_chunk"]`` counts kernel launches (either entry) and
-nothing else.
+``LAUNCHES["mlstm_chunk"]`` counts kernel launches (the serving entry's
+and the training forward's, one a call) and nothing else.
 
 With grad mode on and an input requiring grad, the op is
 ``MLSTMFunction`` (fp32 only) and writes nothing in place: its forward is
-the kernel's training entry (``mlstm_chunk_train``), which returns a fresh
+``csrc/mlstm_chunk_train.cu`` (``mlstm_chunk_train``: the scores once per
+chunk and head, the products on the tensor cores), which returns a fresh
 C and also each chunk's input state, and its backward is
 ``csrc/mlstm_chunk_bwd.cu`` (``mlstm_chunk_bwd``; on the CPU the plain
 ``mlstm_chunk_train_ref`` and ``mlstm_chunk_bwd_ref``).
@@ -94,8 +95,9 @@ def mlstm_chunk_train(q, k, v, i_gate, f_gate, c, n, m):
     """The forward of a training step, fp32 -> (h, C, n, m, and the state
     each chunk starts from: C_in ``(nC, b, H, dh, dh)``, n_in ``(nC, b, H,
     dh)``, m_in ``(nC, b, H)``), all fresh; nothing is written in place.
-    The kernel's training entry on the card (one launch), the plain
-    ``mlstm_chunk_train_ref`` on the CPU."""
+    ``csrc/mlstm_chunk_train.cu`` on the card (one call of its entry: the
+    scores kernel, then the rows kernel), the plain ``mlstm_chunk_train_ref``
+    on the CPU."""
     _check(q, k, v, i_gate, f_gate, c, n, m)
     if q.device.type == "cpu":
         return mlstm_chunk_train_ref(q, k, v, i_gate, f_gate, c, n, m)
@@ -111,11 +113,14 @@ def mlstm_chunk_train(q, k, v, i_gate, f_gate, c, n, m):
     m_st = torch.empty((n_chunks, *m_in.shape), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, c_out, n_out, m_out, c_st, n_st, m_st
-    err = _build.library().mlstm_chunk_train_f32(
+    lib = _build.library()
+    work = torch.empty(lib.mlstm_chunk_train_workspace(b, s, H, dh), dtype=torch.uint8,
+                       device=q.device)
+    err = lib.mlstm_chunk_train_f32(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), gi.data_ptr(), gf.data_ptr(),
         c_in.data_ptr(), n_in.data_ptr(), m_in.data_ptr(), c_out.data_ptr(), n_out.data_ptr(),
         m_out.data_ptr(), out.data_ptr(), c_st.data_ptr(), n_st.data_ptr(), m_st.data_ptr(),
-        b, s, H, dh, _build.current_stream(q.device))
+        work.data_ptr(), b, s, H, dh, _build.current_stream(q.device))
     _build.check(err, "mlstm_chunk_train")
     LAUNCHES["mlstm_chunk"] += 1
     return out, c_out, n_out, m_out, c_st, n_st, m_st

@@ -10,17 +10,23 @@ which decays a returned state by log σ(0) per padded step). Everything is
 fp32, in the model layout. ``mlstm_step_ref`` is the one-step case in
 closed form, the plain version of the CUDA kernel's decode path.
 
-``mlstm_chunk_train_ref`` is the plain version of the kernel's training
-entry (it also returns each chunk's input state) and
-``mlstm_chunk_bwd_ref`` that of the backward kernel
+``mlstm_chunk_train_ref`` is the plain version of the training forward
+(``csrc/mlstm_chunk_train.cu``; it also returns each chunk's input state)
+and ``mlstm_chunk_bwd_ref`` that of the backward kernel
 (``csrc/mlstm_chunk_bwd.cu``): the gradient of ``mlstm_chunk_ref``
-written out in the chunk algebra, walking the chunks in reverse.
+written out in the chunk algebra, walking the chunks in reverse. With
+``split_tf32=True`` the training forward's four products (the scores
+Q Kᵀ, Q C_inᵀ, W V and C's update (w∘V)ᵀ K) are computed as the kernel's
+tensor cores compute them (``kernels/tf32.py``), with w∘V in fp64 rounded
+once and s_out·C added to the update's product in fp64, rounded once.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..tf32 import split_matmul
 
 CHUNK = 64
 
@@ -32,20 +38,24 @@ def mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
     (h ``(b, s, H, dh)``, C, n, m), fresh, computed in ``dtype`` (fp32 as
     the kernel; fp64 gives a yardstick of the fp32 versions' rounding).
     Writes none of its inputs."""
-    return _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, None)
+    return _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, None, False)
 
 
 def mlstm_chunk_train_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
-                          dtype=torch.float32):
+                          dtype=torch.float32, split_tf32: bool = False):
     """``mlstm_chunk_ref`` that also returns the state each chunk starts
     from: (h, C, n, m, C_in ``(nC, b, H, dh, dh)``, n_in ``(nC, b, H, dh)``,
-    m_in ``(nC, b, H)``), in ``dtype``, nC = ⌈s / chunk⌉."""
+    m_in ``(nC, b, H)``), in ``dtype``, nC = ⌈s / chunk⌉. ``split_tf32``
+    (fp32 only) runs the four products as the kernel does."""
+    if split_tf32 and dtype != torch.float32:
+        raise ValueError(f"split_tf32 emulates fp32 products, got dtype {dtype}")
     states: list = []
-    out = _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states)
+    out = _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states, split_tf32)
     return (*out, *(torch.stack(t) for t in zip(*states)))
 
 
-def _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states):
+def _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states, split_tf32):
+    mm = split_matmul if split_tf32 else torch.matmul
     qf, kf, vf = (t.to(dtype).transpose(1, 2) for t in (q, k, v))  # (b, H, s, dh)
     ig, fg = (t.to(dtype).transpose(1, 2) for t in (i_gate, f_gate))  # (b, H, s)
     C, n, m = c.to(dtype), n.to(dtype), m.to(dtype)
@@ -63,8 +73,8 @@ def _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states):
         inter = torch.exp(b_cum + m[..., None] - m_t)
         tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
         D = torch.where(tri, torch.exp((b_cum - m_t)[..., :, None] + x[..., None, :]), 0.0)
-        W = D * (qb @ kb.transpose(-1, -2))
-        num = inter[..., None] * (qb @ C.transpose(-1, -2)) + W @ vb
+        W = D * mm(qb, kb.transpose(-1, -2))
+        num = inter[..., None] * mm(qb, C.transpose(-1, -2)) + mm(W, vb)
         den = inter * (qb @ n[..., None])[..., 0] + W.sum(-1)
         hs.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
         b_last = b_cum[..., -1]
@@ -72,7 +82,12 @@ def _chunks(q, k, v, i_gate, f_gate, c, n, m, chunk, dtype, states):
         s_out = torch.exp(b_last + m - m_out)
         w = torch.exp(b_last[..., None] - b_cum + ib - m_out[..., None])
         kw = w[..., None] * kb
-        C = s_out[..., None, None] * C + vb.transpose(-1, -2) @ kw
+        if split_tf32:  # (w∘V)ᵀ K, then s_out·C added in fp64, each rounded once
+            vw = (w.double()[..., None] * vb.double()).float()
+            upd = mm(vw.transpose(-1, -2), kb)
+            C = (s_out.double()[..., None, None] * C.double() + upd.double()).float()
+        else:
+            C = s_out[..., None, None] * C + vb.transpose(-1, -2) @ kw
         n = s_out[..., None] * n + kw.sum(-2)
         m = m_out
     return torch.cat(hs, dim=2).transpose(1, 2), C, n, m

@@ -381,6 +381,7 @@ def test_host_backend_workers_import_no_torch_and_leak_nothing(corpus, tmp_path)
 
         def run(backend, stop_after=None, kill=False, **kw):
             ex = PX.ProcessShardExecutor(shards, programs[backend], workers=2, **kw)
+            print("run_id", ex.run_id)
             n = 0
             try:
                 for res in ex:
@@ -410,7 +411,30 @@ def test_host_backend_workers_import_no_torch_and_leak_nothing(corpus, tmp_path)
     assert proc.stdout.splitlines()[-1] == "done"
     assert "failed: ImportError: torch imported in a shard worker" in proc.stdout
     assert "leaked shared_memory" not in proc.stderr, proc.stderr
-    assert not list(SHM_DIR.glob("repro_torch_*"))
+    run_ids = [line.split()[1] for line in proc.stdout.splitlines() if line.startswith("run_id ")]
+    assert len(run_ids) == 6
+    for run_id in run_ids:
+        assert run_segments(run_id) == [], run_id
+
+
+def test_the_sweep_unlinks_an_empty_segment_a_killed_worker_left(corpus):
+    """A worker SIGKILLed between ``shm_open`` and ``ftruncate`` leaves a
+    0-byte segment under its output name, which cannot be mapped: the sweep
+    unlinks it by name and raises nothing, and unlinking a name that is
+    gone is a no-op."""
+    import _posixshmem
+
+    ex = process_executor(corpus)
+    ex.stop()
+    name = PX._out_seg_name(ex.run_id, 0)
+    os.close(_posixshmem.shm_open("/" + name, os.O_CREAT | os.O_EXCL | os.O_RDWR, mode=0o600))
+    assert (SHM_DIR / name).stat().st_size == 0
+    with pytest.raises(ValueError, match="empty file"):
+        shared_memory.SharedMemory(name=name)
+    ex._consumed.discard(0)
+    ex._sweep_segments()
+    assert run_segments(ex.run_id) == []
+    PX._unlink_segment(name)
 
 
 def test_a_worker_without_the_programs_card_raises(corpus, monkeypatch):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time ``flash_attention_bwd`` where the keys span several of the
-backward's key tiles, beside the training shape, whose keys fit one.
+backward's key tiles, beside the training shape, whose keys fit one; and
+the training forward (``flash_attention_train``) at the same shapes.
 
     python3 tools/flash_bwd_shapes.py [--src DIR] [--label NAME]
 
@@ -13,10 +14,14 @@ one session: run the script once per version, alternating (A, B, B, A).
 Run from the root of a checkout on a machine with a CUDA card; the
 kernels are built as ``chip_smoke.py`` builds them.
 
-Prints one JSON line per shape: the device time of one call by CUDA
-events (``ev``, the median of 20) and back to back (``b2b``, 20 calls
+Prints one JSON line per shape: the device time of one backward call by
+CUDA events (``ev``, the median of 20) and back to back (``b2b``, 20 calls
 between two events), the largest error against the plain version over
-the largest element of each gradient, the memory the call allocates at
+the largest element of each gradient, the forward's two times and its
+largest error (out and lse) against its plain version over the largest
+element, ``scaled_dot_product_attention``'s forward on the same inputs
+(a yardstick the port never calls; ``sdpa_fwd_ms``, by events, at the
+causal shapes without a window), the memory the backward allocates at
 its peak (the gradients, D and the scratch), and, for a version that has
 them, the scratch's tiles and rounds and the head split; then the card's
 name and power limit.
@@ -76,14 +81,27 @@ def main() -> int:
         sys.exit("flash_bwd_shapes: needs a CUDA card")
     sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_train_ref)
 
     for shape in SHAPES:
         b, s, nq, nkv, hd, causal, window = shape
         gen = torch.Generator("cuda").manual_seed(0)
         q, dout = (torch.randn(b, s, nq, hd, device="cuda", generator=gen) for _ in range(2))
         k, v = (torch.randn(b, s, nkv, hd, device="cuda", generator=gen) for _ in range(2))
-        out, lse = ops.flash_attention_train(q, k, v, causal=causal, window=window)
+        def fwd():
+            return ops.flash_attention_train(q, k, v, causal=causal, window=window)
+
+        out, lse = fwd()
+        fwd_err = max(((g - w).abs().max() / w.abs().max()).item() for g, w in
+                      zip((out, lse), flash_attention_train_ref(q, k, v, causal=causal,
+                                                                window=window)))
+        fwd_ev, fwd_b2b = timed(fwd)
+        sdpa = None
+        if causal and window == 0:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=nq != nkv))[0]
 
         def bwd():
             return ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
@@ -100,7 +118,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() - base
         ev, b2b = timed(bwd)
         row = {"label": args.label, "shape": list(shape), "ev_ms": ev, "b2b_ms": b2b,
-               "max_err_of_max": err, "peak_bytes": peak}
+               "max_err_of_max": err, "peak_bytes": peak, "fwd_ev_ms": fwd_ev,
+               "fwd_b2b_ms": fwd_b2b, "fwd_max_err_of_max": fwd_err, "sdpa_fwd_ms": sdpa}
         if hasattr(ops, "bwd_part_tiles"):
             tile = ops.bwd_key_tile(hd)
             tiles = -(-s // tile)
