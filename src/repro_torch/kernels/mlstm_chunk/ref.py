@@ -18,7 +18,11 @@ written out in the chunk algebra, walking the chunks in reverse. With
 ``split_tf32=True`` the training forward's four products (the scores
 Q Kᵀ, Q C_inᵀ, W V and C's update (w∘V)ᵀ K) are computed as the kernel's
 tensor cores compute them (``kernels/tf32.py``), with w∘V in fp64 rounded
-once and s_out·C added to the update's product in fp64, rounded once.
+once and s_out·C added to the update's product in fp64, rounded once; and
+the backward's with ``split_tf32=True`` computes the backward kernel's
+products so (the scores Q Kᵀ and dh Vᵀ over 64-column slices of dh added
+in slice order, Q C_inᵀ, dq's, dk's and dv's products over dh and over the
+chunk's steps, and dC's update), in the kernel's association.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from ..tf32 import split_matmul
 
 CHUNK = 64
+SLICE = 64  # columns of dh a block of the backward's scores pass owns
 
 
 def mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m, *, chunk: int = CHUNK,
@@ -122,8 +127,19 @@ def _maximum_weights(a, b):
     return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0)).to(a.dtype)
 
 
+def _split_scores(a, b):
+    """a bᵀ over the last axis in 3xTF32, by ``SLICE``-wide slices of it
+    added in slice order, as the backward kernel's scores pass computes it."""
+    out = None
+    for e0 in range(0, a.shape[-1], SLICE):
+        part = split_matmul(a[..., e0 : e0 + SLICE], b[..., e0 : e0 + SLICE].transpose(-1, -2))
+        out = part if out is None else out + part
+    return out
+
+
 def mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc=None, dn=None,
-                        dm=None, *, chunk: int = CHUNK, dtype=torch.float32):
+                        dm=None, *, chunk: int = CHUNK, dtype=torch.float32,
+                        split_tf32: bool = False):
     """The gradient of ``mlstm_chunk_ref``. Takes the forward's inputs, the
     state each chunk started from (``c_in``, ``n_in``, ``m_in`` as
     ``mlstm_chunk_train_ref`` returns them), its output ``h`` and the
@@ -138,7 +154,14 @@ def mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc=Non
     dnum_t = dh_t / g_t, dden_t = -(dh_t · h_t) / g_t · sign(den_t)
     [|den_t| >= 1], dW = dnum V^T + dden (j <= t), and the state's
     C_out = s_out C_in + Σ_j w_j v_j k_j^T gives dC_in = s_out dC_out +
-    Σ_t inter_t dnum_t q_t^T."""
+    Σ_t inter_t dnum_t q_t^T.
+
+    ``split_tf32`` (fp32 only) computes the products the kernel runs on
+    the tensor cores as it does: 1/g scales dh V^T, dh and W where the
+    kernel scales them, and a_t = (inter_t / g_t) dh_t."""
+    if split_tf32 and dtype != torch.float32:
+        raise ValueError(f"split_tf32 emulates fp32 products, got dtype {dtype}")
+    mm = split_matmul if split_tf32 else torch.matmul
     b, s, H, d = q.shape
     qf, kf, vf, hf = (t.to(dtype).transpose(1, 2) for t in (q, k, v, h))  # (b, H, s, dh)
     ig, fg = (t.to(dtype).transpose(1, 2) for t in (i_gate, f_gate))  # (b, H, s)
@@ -164,7 +187,7 @@ def mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc=Non
         inter = torch.exp(b_cum + m[..., None] - m_t)
         tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
         D = torch.where(tri, torch.exp((b_cum - m_t)[..., :, None] + x[..., None, :]), 0.0)
-        W = D * (qb @ kb.transpose(-1, -2))
+        W = D * (_split_scores(qb, kb) if split_tf32 else qb @ kb.transpose(-1, -2))
         qn = (qb @ n[..., None])[..., 0]
         den = inter * qn + W.sum(-1)
         g = torch.clamp(den.abs(), min=1.0)
@@ -174,22 +197,33 @@ def mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc=Non
         s_out = torch.exp(b_last + m - m_out)
         w = torch.exp(b_last[..., None] - b_cum + ib - m_out[..., None])
         # h_t = num_t / g_t
-        dnum = dhb / g[..., None]
         dden = -(dhb * hb).sum(-1) / g * torch.sign(den) * (den.abs() >= 1.0)
-        dW = torch.where(tri, dnum @ vb.transpose(-1, -2) + dden[..., None], 0.0)
+        if split_tf32:
+            inv = 1.0 / g
+            dnum = dhb * inv[..., None]
+            dW = torch.where(tri, _split_scores(dhb, vb) * inv[..., None] + dden[..., None], 0.0)
+            a_t = (inter * inv)[..., None] * dhb
+        else:
+            dnum = dhb / g[..., None]
+            dW = torch.where(tri, dnum @ vb.transpose(-1, -2) + dden[..., None], 0.0)
+            a_t = inter[..., None] * dnum
         dS, P = dW * D, dW * W
-        dinter = (dnum * (qb @ C.transpose(-1, -2))).sum(-1) + dden * qn
-        a_t = inter[..., None] * dnum
-        dq = a_t @ C + (inter * dden)[..., None] * n[..., None, :] + dS @ kb
-        dk = dS.transpose(-1, -2) @ qb
-        dv = W.transpose(-1, -2) @ dnum
+        dinter = (dnum * mm(qb, C.transpose(-1, -2))).sum(-1) + dden * qn
         # the state's update C_out = s_out C_in + Σ_j w_j v_j k_j^T, n likewise
-        dCk = kb @ dC.transpose(-1, -2)  # (L, dh): row j is dC_out k_j
+        dCk = mm(kb, dC.transpose(-1, -2))  # (L, dh): row j is dC_out k_j
         dw = (vb * dCk).sum(-1) + (kb @ dN[..., None])[..., 0]
-        dv = dv + w[..., None] * dCk
-        dk = dk + w[..., None] * (vb @ dC + dN[..., None, :])
+        e_n = (inter * dden)[..., None] * n[..., None, :]
+        if split_tf32:  # the kernel's order: the product over dh, then the chunk's
+            dq = mm(a_t, C) + mm(dS, kb) + e_n
+            dk = (mm(w[..., None] * vb, dC) + mm(dS.transpose(-1, -2), qb)
+                  + w[..., None] * dN[..., None, :])
+            dv = w[..., None] * dCk + mm((W * inv[..., None]).transpose(-1, -2), dhb)
+        else:
+            dq = a_t @ C + e_n + dS @ kb
+            dk = dS.transpose(-1, -2) @ qb + w[..., None] * (vb @ dC + dN[..., None, :])
+            dv = W.transpose(-1, -2) @ dnum + w[..., None] * dCk
         ds = (dC * C).sum((-1, -2)) + (dN * n).sum(-1)
-        dC = s_out[..., None, None] * dC + a_t.transpose(-1, -2) @ qb
+        dC = s_out[..., None, None] * dC + mm(a_t.transpose(-1, -2), qb)
         dN = s_out[..., None] * dN + ((inter * dden)[..., None, :] @ qb)[..., 0, :]
         # the gates, through the exponents of inter, D, s_out and w and the maxima
         Q, R, Pw = dinter * inter, ds * s_out, dw * w

@@ -21,10 +21,12 @@ the largest element of each gradient, the forward's two times and its
 largest error (out and lse) against its plain version over the largest
 element, ``scaled_dot_product_attention``'s forward on the same inputs
 (a yardstick the port never calls; ``sdpa_fwd_ms``, by events, at the
-causal shapes without a window), the memory the backward allocates at
-its peak (the gradients, D and the scratch), and, for a version that has
-them, the scratch's tiles and rounds and the head split; then the card's
-name and power limit.
+causal shapes whose window, if any, cuts no key) and its forward and
+backward together (``sdpa_fwd_bwd_ms``, the same inputs with ``dout`` as
+the cotangent; the difference of the two is SDPA's backward), the memory
+the backward allocates at its peak (the gradients, D and the scratch),
+and, for a version that has them, the scratch's tiles and rounds and the
+head split; then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -97,11 +99,24 @@ def main() -> int:
                       zip((out, lse), flash_attention_train_ref(q, k, v, causal=causal,
                                                                 window=window)))
         fwd_ev, fwd_b2b = timed(fwd)
-        sdpa = None
-        if causal and window == 0:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            sdpa = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=nq != nkv))[0]
+        sdpa = sdpa_pair = None
+        if causal and (window == 0 or window >= s):  # a window past the keys cuts none
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            dt = dout.transpose(1, 2)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=nq != nkv)
+
+            def sdpa_fwd_bwd():
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=nq != nkv)
+                return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+            sdpa = timed(sdpa_fwd)[0]
+            sdpa_pair = timed(sdpa_fwd_bwd)[0]
+            del qt, kt, vt, dt
 
         def bwd():
             return ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
@@ -119,7 +134,8 @@ def main() -> int:
         ev, b2b = timed(bwd)
         row = {"label": args.label, "shape": list(shape), "ev_ms": ev, "b2b_ms": b2b,
                "max_err_of_max": err, "peak_bytes": peak, "fwd_ev_ms": fwd_ev,
-               "fwd_b2b_ms": fwd_b2b, "fwd_max_err_of_max": fwd_err, "sdpa_fwd_ms": sdpa}
+               "fwd_b2b_ms": fwd_b2b, "fwd_max_err_of_max": fwd_err, "sdpa_fwd_ms": sdpa,
+               "sdpa_fwd_bwd_ms": sdpa_pair}
         if hasattr(ops, "bwd_part_tiles"):
             tile = ops.bwd_key_tile(hd)
             tiles = -(-s // tile)
