@@ -155,14 +155,34 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    built on the card (exactly 2 ``text_scan`` launches; flash forward
    layers x 2 and backward layers x 1 a step, with remat; the loss
    falling; seconds a step, tokens/s, peak memory, one step traced for the
-   idle share); then ``launch.train.main`` at ``--smoke`` on the card to
+   idle share), then ``AdamW.update_`` against ``update`` on the same
+   gradients and, where two backward passes agree bit for bit, one step of
+   the launcher's donating step against one functional step, bit for bit;
+   StableLM-3B at all 32 layers, 10 steps of the launcher's donating step
+   (launches exact, the loss falling, seconds a step, tokens/s, peak
+   memory, one step traced); then ``launch.train.main`` at ``--smoke`` on the card to
    step 10 and resumed to step 20, the restored state bit-equal to the
    saved one, and 20 steps of it for xLSTM-1.3B, DeepSeek-MoE-16B and
    Kimi-K2 (launches exact, the loss falling);
-15. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+15. the two configurations with a frontend (``frontends``; their draws
+   from a generator of their own): the serving flash kernel at HuBERT
+   X-Large's 8 x 512 non-causal frames (16/16 heads of 80) and at
+   Qwen2-VL-72B's prefill and decode (64 query heads over 8 kv heads of
+   128), fp32 and bf16, and the training forward and backward at their
+   training shapes, against their plain versions, twice bit for bit, and
+   timed beside ``scaled_dot_product_attention``; each configuration at 2
+   full-width layers (``init_scale=1``) card vs CPU on frames or tokens
+   with patches: what the layers add, ``forward`` logits (1e-4) and one
+   ``value_and_grad`` of ``LM.loss`` (as in phase 14; HuBERT's unused token
+   embedding zero on both); HuBERT X-Large at all 48 layers: a no-grad
+   forward over 8 x 512 frames (48 flash launches), then 20 donating steps
+   of ``make_train_step`` over a pool of 4 frame batches labelled by their
+   nearest seeded centroid (flash 48 x 2 forward and 48 backward a step,
+   the loss falling; seconds a step, frames/s, peak memory);
+16. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
    line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
-   ``dataset``, ``executors``, ``serve_text`` and ``lm_train`` lines, the
-   card line from nvidia-smi, and the result line.
+   ``dataset``, ``executors``, ``serve_text``, ``lm_train`` and
+   ``frontends`` lines, the card line from nvidia-smi, and the result line.
 """
 
 from __future__ import annotations
@@ -185,17 +205,21 @@ N_CORPUS = 2000
 N_REQUESTS = 512
 BATCH = 64
 # LM serving: the JAX launcher's defaults (src/repro/launch/serve.py:25-28)
-LM_ARCHS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b", "deepseek_moe_16b")
+LM_ARCHS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b", "deepseek_moe_16b",
+            "qwen2_vl_72b")
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_SEQ = 8, 4, 12, 128
 # Served at full width but cut in depth: DeepSeek-MoE-16B to 8 of its 28
 # layers (1 dense + 7 MoE, 4.6 B parameters, 18.5 GB in fp32). All 28 are
 # 16.38 B parameters, 65.5 GB in fp32: too little of the card's 80 GB would
 # be left beside the other phases, and too little of the run's time.
-SERVE_LM_LAYERS = {"deepseek_moe_16b": 8}
+# Qwen2-VL-72B to 4 of its 80 layers (877.7 M parameters, 3.51 GB in fp32, a
+# layer; 4.98 GB each for the embedding and the untied head: 24 GB); all 80
+# are 291 GB.
+SERVE_LM_LAYERS = {"deepseek_moe_16b": 8, "qwen2_vl_72b": 4}
 # layers of the card-vs-CPU model: one layer of every kind of the pattern
 # (DeepSeek-MoE-16B: its dense first layer and one MoE layer)
 CARD_VS_CPU_LAYERS = {"stablelm_3b": 2, "recurrentgemma_9b": 3, "xlstm_1_3b": 8,
-                      "deepseek_moe_16b": 2}
+                      "deepseek_moe_16b": 2, "qwen2_vl_72b": 2}
 # the kernel each kind of LM layer launches once per model pass
 KERNEL_OF_KIND = {"attn": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm_chunk"}
 # Per-card peaks from NVIDIA's data sheets: (name substring, device memory
@@ -236,6 +260,9 @@ BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.00
                    ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326,
                    ("flash_attention_train", None): 0.04287,
                    ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287}
+# The phases' seconds before the frontends phase and the full-depth run were
+# added (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+BEFORE_PHASES_SECONDS = 422.6
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -321,6 +348,15 @@ def device_ms_burst(fn, n: int = 200) -> float:
             return start.elapsed_time(end) / n
         cycles *= 4
     fail(f"the host took {queued_ms:.1f} ms to queue {n} calls: longer than any spin tried")
+
+
+def device_ms_pair(fn) -> tuple[float, float]:
+    """``device_ms`` and ``device_ms_burst`` of ``fn``; a call of more than
+    0.5 ms goes back to back 20 times, not 200: 200 of them, several
+    launches each, would fill the card's launch queue behind the spin and
+    hold the host to the card's pace."""
+    ms = device_ms(fn)
+    return ms, device_ms_burst(fn, 20 if ms > 0.5 else 200)
 
 
 def lstm_inputs(B, d_in, H, dtype, gen):
@@ -2717,7 +2753,8 @@ def exact_param_count(cfg) -> int:
     tests hold the port's ``LM.param_count()`` to. The analytic
     ``ArchConfig.param_count()`` leaves out each RG-LRU layer's gate biases
     b_r and b_i (2·d_rnn) and counts an mLSTM layer's gate projection as
-    2·d_rnn instead of d_rnn·2H + 2H."""
+    2·d_rnn instead of d_rnn·2H + 2H; it counts a frontend's
+    ``frontend/proj`` (frontend_dim · d_model) as the tree has it."""
     from repro_torch.models.lm import layer_kinds
 
     dr, H = cfg.resolved_d_rnn, cfg.n_heads
@@ -2837,7 +2874,7 @@ def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
 
     def layers_add(model, t):
         with torch.no_grad():
-            return (model.hidden(t) - embed_tokens(model.embed, t, small)).cpu()
+            return (model.hidden({"tokens": t}) - embed_tokens(model.embed, t, small)).cpu()
 
     delta_card, delta_cpu = layers_add(card, tokens.cuda()), layers_add(cpu, tokens)
     delta_size = delta_cpu.abs().mean().item()
@@ -2877,9 +2914,9 @@ def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
 
 # The lm_train phase: the LM launcher's training path (src/repro/launch/
 # train.py, whose default is --arch stablelm_3b) on the card. StableLM-3B
-# at its full width cut to LM_TRAIN_LAYERS of its 32 layers: at full depth
-# the params, gradients and AdamW moments alone are 45 GB in fp32 and the
-# functional update makes new ones beside them (PERF.md §4). 4 layers
+# at its full width cut to LM_TRAIN_LAYERS of its 32 layers with the
+# functional step (its figures are comparable from run to run; the full
+# depth takes the donating step below). 4 layers
 # peak at 30.2 GB; at 8 the launcher's learning rate (3e-3) diverges, with
 # the plain versions as with the kernels (tools/lm_train_depth.py); batch 8,
 # seq 64 (the launcher's defaults), LM_TRAIN_STEPS steps with remat, so each
@@ -2887,6 +2924,11 @@ def lm_card_vs_cpu(cfg, n_layers: int) -> dict:
 # once.
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = "stablelm_3b", 4, 8, 64
 LM_TRAIN_STEPS, LM_TRAIN_CORPUS_MB, LM_TRAIN_LR = 20, 2.0, 3e-3
+# StableLM-3B at all 32 layers through the launcher's donating step (params,
+# gradients and both moments are 45 GB in fp32): FULL_DEPTH_STEPS steps of
+# the same batches from its own draws. The launcher's 3e-3 diverges from 8
+# layers on (PERF.md §5), so the run takes a tenth of it, warmed up over 2 steps.
+FULL_DEPTH_STEPS, FULL_DEPTH_LR, FULL_DEPTH_WARMUP = 10, 3e-4, 2
 # one step card vs CPU at CARD_VS_CPU_LAYERS full-width layers, batch 2, seq
 # 64, by (arch, remat): xLSTM-1.3B with and without remat
 LM_TRAIN_CHECKED = (("stablelm_3b", True), ("recurrentgemma_9b", True), ("xlstm_1_3b", True),
@@ -2958,6 +3000,44 @@ def flash_bwd_inputs(case, gen):
     return rnd(b, s, nq, hd), rnd(b, s, nkv, hd), rnd(b, s, nkv, hd), rnd(b, s, nq, hd)
 
 
+def check_flash_train_case(case, gen) -> tuple[float, float]:
+    """One shape of ``check_flash_bwd``: the training forward against its
+    plain version, fp64 and the serving kernel, the backward against its
+    plain version, each launched twice and held equal bit for bit, no
+    input written. Returns the max abs errors of out and of the gradients."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_train_ref)
+
+    kw = dict(causal=case[5], window=case[6])
+    q, k, v, dout = flash_bwd_inputs(case, gen)
+    inputs = [t.clone() for t in (q, k, v, dout)]
+    out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
+    out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
+    served = flash_ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_train_ref(q, k, v, **kw)
+    exact_out, exact_lse = flash_attention_train_ref(q.double(), k.double(), v.double(), **kw)
+    e_out = held_fp32(out, want_out, f"flash_attention_train {case} out")
+    held_fp32(lse, want_lse, f"flash_attention_train {case} lse")
+    held_fp32(out.double(), exact_out, f"flash_attention_train {case} out against fp64")
+    held_fp32(lse.double(), exact_lse, f"flash_attention_train {case} lse against fp64")
+    held_fp32(out, served, f"flash_attention_train {case} out against the serving kernel")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"flash_attention_train {case}: two launches differ")
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(t, u) for t, u in zip((q, k, v, dout), inputs)):
+        fail(f"flash_attention_train or flash_attention_bwd {case} wrote an input")
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    e_grad = max(held_fp32(g, w, f"flash_attention_bwd {case} d{name}")
+                 for name, g, w in zip("qkv", grads, want))
+    if not all(torch.equal(g, r) for g, r in zip(grads, again)):
+        fail(f"flash_attention_bwd {case}: two launches differ")
+    return e_out, e_grad
+
+
 def check_flash_bwd(gen) -> tuple[float, float]:
     """The training forward (``flash_attention_train.cu``) against
     ``flash_attention_train_ref`` (out and lse), against the same algebra
@@ -2969,8 +3049,6 @@ def check_flash_bwd(gen) -> tuple[float, float]:
     errors of the training forward and of the backward at the training
     shape."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
-                                                         flash_attention_train_ref)
 
     err_fwd = err_bwd = 0.0
     n_split = n_heads_split = n_rounds = 0
@@ -2981,31 +3059,7 @@ def check_flash_bwd(gen) -> tuple[float, float]:
         n_heads_split += flash_ops.bwd_head_split(b, s, s, nq, nkv, hd) > 1
         tiles = -(-s // flash_ops.bwd_key_tile(hd))
         n_rounds += 0 < flash_ops.bwd_part_tiles(b, s, s, nq, hd) < tiles
-        q, k, v, dout = flash_bwd_inputs(case, gen)
-        inputs = [t.clone() for t in (q, k, v, dout)]
-        out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
-        out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
-        served = flash_ops.flash_attention_op(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want_out, want_lse = flash_attention_train_ref(q, k, v, **kw)
-        exact_out, exact_lse = flash_attention_train_ref(q.double(), k.double(), v.double(), **kw)
-        e_out = held_fp32(out, want_out, f"flash_attention_train {case} out")
-        held_fp32(lse, want_lse, f"flash_attention_train {case} lse")
-        held_fp32(out.double(), exact_out, f"flash_attention_train {case} out against fp64")
-        held_fp32(lse.double(), exact_lse, f"flash_attention_train {case} lse against fp64")
-        held_fp32(out, served, f"flash_attention_train {case} out against the serving kernel")
-        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
-            fail(f"flash_attention_train {case}: two launches differ")
-        grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        again = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(t, u) for t, u in zip((q, k, v, dout), inputs)):
-            fail(f"flash_attention_train or flash_attention_bwd {case} wrote an input")
-        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-        e_grad = max(held_fp32(g, w, f"flash_attention_bwd {case} d{name}")
-                     for name, g, w in zip("qkv", grads, want))
-        if not all(torch.equal(g, r) for g, r in zip(grads, again)):
-            fail(f"flash_attention_bwd {case}: two launches differ")
+        e_out, e_grad = check_flash_train_case(case, gen)
         if case == FLASH_BWD_CASES[0]:
             err_fwd, err_bwd = e_out, e_grad
     if n_split < 2:
@@ -3249,34 +3303,52 @@ def time_mlstm_bwd(gen, bw: float, flops: float) -> dict:
 
 
 def time_flash_bwd(gen, bw: float, flops: float) -> dict:
-    """The backward and the training entry at StableLM-3B's training shape,
-    both timers, beside their plain versions and bounds; the yardstick is
-    ``scaled_dot_product_attention``'s forward and backward (the port never
-    calls it), beside the kernels' forward and backward together."""
+    """The backward and the training entry at StableLM-3B's training shape."""
+    return time_flash_train(FLASH_BWD_CASES[0], gen, bw, flops)
+
+
+def heads_of_queries(t: torch.Tensor, group: int) -> torch.Tensor:
+    """(b, heads, s, hd) with each head repeated ``group`` times in place,
+    as query head h reads kv head h // group: a grouped kv for
+    ``scaled_dot_product_attention``, made once outside a timed call (its
+    ``enable_gqa`` repeats the heads inside each call, through a host sync)."""
+    return t if group == 1 else t.repeat_interleave(group, dim=1)
+
+
+def time_flash_train(case, gen, bw: float, flops: float) -> dict:
+    """The backward and the training entry at ``case`` (no window), both
+    timers, beside their plain versions and bounds; the yardstick is
+    ``scaled_dot_product_attention``'s forward and backward over the kv
+    heads repeated to the query heads beforehand (the port never calls it;
+    for a group its dk and dv are per query head, not yet summed), beside
+    the kernels' forward and backward together."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_train_ref)
 
-    case = FLASH_BWD_CASES[0]
-    b, s, nq, nkv, hd = case[:5]
+    b, s, nq, nkv, hd, causal = case[:6]
     q, k, v, dout = flash_bwd_inputs(case, gen)
-    out, lse = flash_ops.flash_attention_train(q, k, v)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    out, lse = flash_ops.flash_attention_train(q, k, v, causal=causal)
+    group = nq // nkv
+    qt, kt, vt = (heads_of_queries(t.transpose(1, 2), 1 if t is q else group)
+                  .detach().requires_grad_(True) for t in (q, k, v))
     dt = dout.transpose(1, 2)
 
     def library():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         return torch.autograd.grad(o, (qt, kt, vt), dt)
 
     def library_forward():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
-    for g, w in zip(library(), flash_attention_bwd_ref(q, k, v, out, lse, dout)):
+    for g, w in zip(library(), flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)):
+        if g.shape[1] != w.shape[2]:  # a kv head's gradient sums its group's
+            g = g.unflatten(1, (w.shape[2], group)).sum(2)
         torch.testing.assert_close(g.transpose(1, 2), w, rtol=1e-4, atol=1e-4)
-    pairs = b * nq * s * (s + 1) // 2  # causal (query, key) pairs
+    pairs = b * nq * (s * (s + 1) // 2 if causal else s * s)  # visible (query, key) pairs
     q_elems, kv_elems = b * s * nq * hd, b * s * nkv * hd
     # backward: q, k, v, out, dout and lse read, dq, dk, dv written; 5
     # products over the pairs (S again, dP, dV, dQ, dK)
@@ -3291,22 +3363,28 @@ def time_flash_bwd(gen, bw: float, flops: float) -> dict:
             "bytes" if n_bytes / bw >= n_ops / flops else "operations"
 
     def bwd():
-        return flash_ops.flash_attention_bwd(q, k, v, out, lse, dout)
+        return flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
 
     def fwd():
-        return flash_ops.flash_attention_train(q, k, v)
+        return flash_ops.flash_attention_train(q, k, v, causal=causal)
 
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
     fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
-    row = {"ms": device_ms(bwd), "ms_burst": device_ms_burst(bwd),
-           "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout)),
-           "library_ms": device_ms(library), "library_ms_burst": device_ms_burst(library),
+    ms, ms_burst = device_ms_pair(bwd)
+    library_ms, library_ms_burst = device_ms_pair(library)
+    library_forward_ms, library_forward_ms_burst = device_ms_pair(library_forward)
+    fwd_ms, fwd_ms_burst = device_ms_pair(fwd)
+    row = {"ms": ms, "ms_burst": ms_burst,
+           "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                 causal=causal)),
+           "library_ms": library_ms, "library_ms_burst": library_ms_burst,
            "library": "scaled_dot_product_attention forward + backward",
-           "library_forward_ms": device_ms(library_forward),
-           "library_forward_ms_burst": device_ms_burst(library_forward),
+           "library_forward_ms": library_forward_ms,
+           "library_forward_ms_burst": library_forward_ms_burst,
            "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes, "operations": bwd_ops,
-           "train_forward_ms": device_ms(fwd), "train_forward_ms_burst": device_ms_burst(fwd),
-           "train_forward_plain_ms": device_ms(lambda: flash_attention_train_ref(q, k, v)),
+           "train_forward_ms": fwd_ms, "train_forward_ms_burst": fwd_ms_burst,
+           "train_forward_plain_ms": device_ms(lambda: flash_attention_train_ref(q, k, v,
+                                                                                causal=causal)),
            "train_forward_bound_ms": fwd_bound, "train_forward_bound_by": fwd_by,
            "shape": list(case)}
     row["forward_and_backward_ms"] = row["ms"] + row["train_forward_ms"]
@@ -3434,17 +3512,7 @@ def lm_step_card_vs_cpu(arch: str, remat: bool = True) -> dict:
     lc, lp = loss_card.item(), loss_cpu.item()
     if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
         fail(f"{small.name} train step loss card {lc} vs CPU {lp} (rtol 1e-5)")
-    worst = 0.0
-    for path, w in grads_cpu.items():
-        g = grads_card[path]
-        scale = w.abs().max().item()
-        if g.abs().max().item() == 0 or scale == 0:
-            fail(f"{small.name} train step: the gradient of {path} is zero on the card")
-        ratio = (g - w).abs().max().item() / scale
-        worst = max(worst, ratio)
-        if ratio > 1e-4:
-            fail(f"{small.name} train step: {path}'s gradient differs from the CPU's by "
-                 f"{ratio:.3e} of its largest element (limit 1e-4)")
+    worst = held_grads(small.name, grads_card, grads_cpu)
     print(f"{small.name} with {small.n_layers} layers at init_scale 1, remat {remat}, one train "
           f"step card vs CPU (batch {tuple(tokens.shape)}): loss {lc:.6f} vs {lp:.6f}; all "
           f"{len(grads_cpu)} gradients present and non-zero, worst max|dg|/max|g| {worst:.3e} "
@@ -3453,6 +3521,43 @@ def lm_step_card_vs_cpu(arch: str, remat: bool = True) -> dict:
             "layers": small.n_layers, "remat": remat, "loss_card": lc, "loss_cpu": lp,
             "grad_tensors": len(grads_cpu), "grad_worst_rel": worst,
             "routings_equal": len(routes_card), "launches": launches, "traced_step": traced}
+
+
+def held_grads(name: str, grads_card: dict, grads_cpu: dict, unreached=frozenset(),
+               summed=None) -> float:
+    """Every gradient present on the card, non-zero and within 1e-4 of its
+    CPU tensor's largest element; the parameters in ``unreached``, which the
+    loss does not reach (the audio frontend's token embedding), exactly zero
+    on both. A parameter in ``summed`` (bias path -> weight path) is held
+    within 1e-4 of the larger of its own gradient's largest element and its
+    weight's: its gradient sums over every token cotangents that nearly
+    cancel (the key bias's, by the softmax's shift invariance), so its own
+    largest element understates the terms that fp32 rounds. Card tensors
+    come to the host one at a time. Returns the worst max|dg|/scale."""
+    if set(grads_card) != set(grads_cpu):
+        fail(f"{name} train step: the card and the CPU give gradients of other parameters")
+    summed = summed or {}
+    worst = 0.0
+    for path, w in grads_cpu.items():
+        g = grads_card[path].cpu()
+        if path in unreached:
+            if g.any() or w.any():
+                fail(f"{name} train step: {path}, which the loss does not reach, has a gradient")
+            continue
+        scale = w.abs().max().item()
+        if g.abs().max().item() == 0 or scale == 0:
+            fail(f"{name} train step: the gradient of {path} is zero on the card")
+        if path in summed:
+            terms = grads_cpu[summed[path]].abs().max().item()
+            print(f"  {path}: max|dg| {(g - w).abs().max().item():.3e}, max|g| {scale:.3e}, "
+                  f"max|g| of {summed[path]} {terms:.3e}")
+            scale = max(scale, terms)
+        ratio = (g - w).abs().max().item() / scale
+        worst = max(worst, ratio)
+        if ratio > 1e-4:
+            fail(f"{name} train step: {path}'s gradient differs from the CPU's by "
+                 f"{ratio:.3e} of its largest element (limit 1e-4)")
+    return worst
 
 
 def lm_train_steps() -> dict:
@@ -3516,6 +3621,7 @@ def lm_train_steps() -> dict:
     traced = profile(lambda: step(params, state, next_batch()), torch.device("cuda"),
                      torch.cuda.synchronize, f"one {cfg.name} train step at {LM_TRAIN_LAYERS} "
                      f"layers")
+    donated_equal = donating_step_is_functional(model, opt, params, state, warm)
     n_tokens = LM_TRAIN_STEPS * LM_TRAIN_BATCH * LM_TRAIN_SEQ
     print(f"LM train: {cfg.name} at full width, {LM_TRAIN_LAYERS} of {get(LM_TRAIN_ARCH).n_layers} "
           f"layers ({model.param_count()} parameters), {LM_TRAIN_STEPS} steps of "
@@ -3529,8 +3635,147 @@ def lm_train_steps() -> dict:
             "tokens_per_s": n_tokens / seconds, "peak_memory_bytes": peak,
             "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
             "launches": launches, "rows": len(seqs), "build_dataset_seconds": dataset_seconds,
-            "build_dataset_text_scan_launches": scans, "traced_step": traced}
+            "build_dataset_text_scan_launches": scans, "traced_step": traced,
+            "donating_step_bit_equal": donated_equal}
     del model, params, state
+    torch.cuda.empty_cache()
+    return line, seqs
+
+
+def donating_step_is_functional(model, opt, params, state, batch) -> dict:
+    """The launcher's donating step (``train_step_of``: AdamW written in
+    place) against the functional ``make_train_step``, one step each on
+    ``batch``: ``AdamW.update_`` on copies against ``update`` with the same
+    gradients, and, where two backward passes give the same gradients bit
+    for bit, one whole donating step on copies against one functional step
+    from the originals (loss, norm, params, moments and count). The
+    donating step must return the tensors it was given. Returns the
+    counts of tensors compared."""
+    from repro_torch.checkpoint.tree import flatten_with_paths, map_with_paths
+    from repro_torch.launch.train import train_step_of
+    from repro_torch.runtime.train_loop import functional_loss, make_train_step, value_and_grad
+
+    def copies():
+        return map_with_paths(lambda _, t: t.clone(), (params, state))
+
+    def held(got, want, what):
+        n = 0
+        for (path, a), (_, b) in zip(flatten_with_paths(got), flatten_with_paths(want),
+                                     strict=True):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"{what}: {path} differs (max abs "
+                     f"{(a.double() - b.double()).abs().max().item():.3e})")
+            n += 1
+        return n
+
+    grads_of = value_and_grad(functional_loss(model))
+    _, grads = grads_of(params, batch)
+    _, again = grads_of(params, batch)
+    reproducible = all(torch.equal(grads[k], again[k]) for k in grads)
+    del again
+    want_params, want_state, want_norm = opt.update(grads, state, params)
+    got_params, got_state = copies()
+    got_norm = opt.update_({k: g.clone() for k, g in grads.items()}, got_state, got_params)
+    torch.cuda.synchronize()
+    if not torch.equal(got_norm, want_norm):
+        fail("AdamW.update_ gives another grad norm than update")
+    n_update = held((got_params, got_state), (want_params, want_state),
+                    "AdamW.update_ against update on the same gradients")
+    del grads, want_params, want_state, got_params, got_state
+    n_step = 0
+    if reproducible:
+        want_params, want_state, want = make_train_step(functional_loss(model), opt)(
+            params, state, batch)
+        got_params, got_state = copies()
+        ptrs = [t.data_ptr() for _, t in flatten_with_paths((got_params, got_state))]
+        new_params, new_state, got = train_step_of(model, opt)(got_params, got_state, batch)
+        torch.cuda.synchronize()
+        if new_params is not got_params or new_state is not got_state or ptrs != [
+                t.data_ptr() for _, t in flatten_with_paths((new_params, new_state))]:
+            fail("the donating step did not write into the tensors it was given")
+        for key in ("loss", "grad_norm"):
+            if not torch.equal(got[key], want[key]):
+                fail(f"the donating step's {key} {got[key].item()!r} differs from the "
+                     f"functional step's {want[key].item()!r}")
+        n_step = held((got_params, got_state), (want_params, want_state),
+                      "one donating step against one functional step")
+    print(f"LM train: AdamW.update_ equals update bit for bit on the same gradients ({n_update} "
+          f"tensors: params, moments and count); two backward passes "
+          f"{'agree' if reproducible else 'DIFFER'} bit for bit, so "
+          + (f"one donating step equals one functional step bit for bit ({n_step} tensors, "
+             f"loss and grad norm)" if reproducible else
+             "whole steps cannot be compared bit for bit"))
+    return {"update_tensors_bit_equal": n_update, "gradients_reproducible": reproducible,
+            "step_tensors_bit_equal": n_step}
+
+
+def lm_train_full_depth(seqs) -> dict:
+    """StableLM-3B at its full width and all 32 layers, ``FULL_DEPTH_STEPS``
+    steps of the launcher's donating step (``train_step_of``) on batches of
+    ``build_dataset``'s rows: exact flash launches, finite losses that
+    fall; seconds a step, tokens/s, the peak of
+    ``torch.cuda.max_memory_allocated()``, and one more step traced for the
+    card's idle share."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import profile
+    from repro_torch.launch.train import train_step_of
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.train_loop import params_of
+
+    cfg = get(LM_TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = LM(cfg, "cuda", seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(FULL_DEPTH_LR, FULL_DEPTH_WARMUP, FULL_DEPTH_STEPS))
+    step = train_step_of(model, opt)
+    params = params_of(model)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 7)
+
+    def next_batch():
+        idx = rng.integers(0, len(seqs), size=LM_TRAIN_BATCH)
+        return {"tokens": torch.from_numpy(seqs[idx]).cuda()}
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = lm_train_counters()
+    zero_counters(counters)
+    losses, step_seconds = [], []
+    for _ in range(FULL_DEPTH_STEPS):
+        batch = next_batch()
+        t1 = time.perf_counter()
+        _, _, metrics = step(params, state, batch)
+        losses.append(metrics["loss"].item())  # waits for the step
+        step_seconds.append(time.perf_counter() - t1)
+    launches = {name: counter[name] for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = step_launches(model.kinds, FULL_DEPTH_STEPS)
+    if launches != want:
+        fail(f"StableLM-3B at full depth made launches {launches}, expected {want}")
+    if not np.isfinite(losses).all():
+        fail(f"a non-finite loss at full depth: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"the full-depth loss did not fall over {FULL_DEPTH_STEPS} steps: {losses}")
+    traced = profile(lambda: step(params, state, next_batch()), torch.device("cuda"),
+                     torch.cuda.synchronize, f"one {cfg.name} train step at all "
+                     f"{cfg.n_layers} layers")
+    seconds = sum(step_seconds)
+    steady = statistics.median(step_seconds[1:])
+    n_tokens = FULL_DEPTH_STEPS * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"LM train at full depth: {cfg.name}, all {cfg.n_layers} layers "
+          f"({model.param_count()} parameters, built with its AdamW state in {built:.1f} s), "
+          f"{FULL_DEPTH_STEPS} donating steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in "
+          f"{seconds:.3f} s (median after the first {steady * 1e3:.1f} ms a step, "
+          f"{n_tokens / seconds:.0f} tokens/s); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+          f"memory {peak / 1e9:.2f} GB; launches {launches}")
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "params": model.param_count(),
+            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "steps": FULL_DEPTH_STEPS,
+            "lr": FULL_DEPTH_LR, "seconds": seconds, "step_seconds": step_seconds,
+            "seconds_per_step": seconds / FULL_DEPTH_STEPS, "median_step_seconds": steady,
+            "tokens_per_s": n_tokens / seconds, "peak_memory_bytes": peak, "losses": losses,
+            "launches": launches, "traced_step": traced, "build_seconds": built}
+    del model, params, state, step
     torch.cuda.empty_cache()
     return line
 
@@ -3669,10 +3914,336 @@ def lm_train(bw: float, flops: float) -> tuple[dict, dict]:
     for arch, remat in LM_TRAIN_CHECKED:
         checked.append(lm_step_card_vs_cpu(arch, remat))
         torch.cuda.empty_cache()
-    line = {"card_vs_cpu": checked, **lm_train_steps(), "launcher": lm_train_launcher(),
-            "launcher_archs": lm_train_launcher_archs()}
+    steps_line, seqs = lm_train_steps()
+    line = {"card_vs_cpu": checked, **steps_line, "full_depth": lm_train_full_depth(seqs),
+            "launcher": lm_train_launcher(), "launcher_archs": lm_train_launcher_archs()}
     line["phase_seconds"] = time.perf_counter() - t0
     print(f"lm_train phase: {line['phase_seconds']:.1f} s")
+    return line, rows
+
+
+# The frontends phase: the LM family's two configurations with a frontend.
+# HuBERT X-Large's attention: 16 query and kv heads of 80, non-causal, over
+# 8 x 512 frames; Qwen2-VL-72B's: 64 query heads over 8 kv heads of 128
+# (groups of 8), causal, a block prefill and decode steps into the 128-long
+# cache. (b, sq, skv, nq, nkv, hd, causal, window, q_offset, kv_len)
+HUBERT_BATCH, HUBERT_FRAMES = 8, 512
+FLASH_SERVED_FRONTENDS = (
+    [(HUBERT_BATCH, HUBERT_FRAMES, HUBERT_FRAMES, 16, 16, 80, False, 0, 0, None)]
+    + [(1, sq, LM_MAX_SEQ, 64, 8, 128, True, 0, 0, sq) for sq in (4, 9, 16)]
+    + [(1, 1, LM_MAX_SEQ, 64, 8, 128, True, 0, pos, pos + 1) for pos in (0, 4, 15, 77, 126)]
+)
+# (b, s, nq, nkv, hd, causal, window) of their training passes: HuBERT X-Large's
+# step and Qwen2-VL-72B's checked step
+FLASH_BWD_FRONTENDS = [
+    (HUBERT_BATCH, HUBERT_FRAMES, 16, 16, 80, False, 0),
+    (LM_TRAIN_CHECK_BATCH, LM_TRAIN_SEQ, 64, 8, 128, True, 0),
+]
+FLASH_TIMED_FRONTENDS = {"serve_hubert": FLASH_SERVED_FRONTENDS[0],
+                         "prefill_qwen2_vl": FLASH_SERVED_FRONTENDS[2],
+                         "decode_qwen2_vl": FLASH_SERVED_FRONTENDS[6]}
+FRONTEND_ARCHS = ("hubert_xlarge", "qwen2_vl_72b")
+# HuBERT X-Large at all 48 layers: a no-grad forward over 8 x 512 frames,
+# then HUBERT_STEPS steps of make_train_step (donating) cycling through a
+# pool of HUBERT_POOL seeded frame batches whose labels are the frames'
+# nearest of 504 seeded centroids (k-means ids, as HuBERT's targets are)
+HUBERT_STEPS, HUBERT_POOL, HUBERT_LR, HUBERT_WARMUP = 20, 4, 3e-4, 5
+# full-width layers of the card-vs-CPU check: Qwen2-VL-72B's two are 17 GB of
+# parameters in fp32 (3.51 GB a layer, 4.98 GB each for the embedding and
+# the untied head), and the CPU holds them and their gradients
+FRONTEND_CHECK_LAYERS = 2
+
+
+def check_flash_frontends(gen) -> dict:
+    """The serving kernel at the two configurations' shapes against its
+    plain version in fp32 (2e-5) and bf16 (2e-2), launched twice and held
+    equal bit for bit; the training forward and backward at their training
+    shapes as ``check_flash_bwd`` holds them. Returns the fp32 max abs
+    errors."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    err = {"serve": 0.0, "train_forward": 0.0, "bwd": 0.0}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for case in FLASH_SERVED_FRONTENDS:
+            q, k, v = flash_inputs(case, dtype, gen)
+            got = flash_attention_op(q, k, v, **flash_kwargs(case))
+            again = flash_attention_op(q, k, v, **flash_kwargs(case))
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, **flash_kwargs(case))
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            if not torch.equal(got, again):
+                fail(f"flash_attention {dtype} {case}: two launches differ")
+            if dtype == torch.float32:
+                err["serve"] = max(err["serve"], (got - want).abs().max().item())
+    for case in FLASH_BWD_FRONTENDS:
+        e_out, e_grad = check_flash_train_case(case, gen)
+        err["train_forward"] = max(err["train_forward"], e_out)
+        err["bwd"] = max(err["bwd"], e_grad)
+    print(f"flash_attention at HuBERT X-Large's and Qwen2-VL-72B's shapes: the serving kernel "
+          f"matches plain at {len(FLASH_SERVED_FRONTENDS)} shapes in fp32 (2e-5) and bf16 "
+          f"(2e-2), the training forward and backward at {len(FLASH_BWD_FRONTENDS)} (non-causal "
+          f"hd 80 over 512 keys; 64 query heads over 8 kv heads of 128); two launches identical "
+          f"bit for bit; fp32 max abs errors {err}")
+    return err
+
+
+def flash_mask(case) -> torch.Tensor:
+    """The (sq, skv) boolean mask of a serving case, on the card."""
+    sq, skv, causal, window, q_offset, kv_len = (case[i] for i in (1, 2, 6, 7, 8, 9))
+    q_pos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    k_pos = torch.arange(skv, device="cuda")[None, :]
+    mask = k_pos < (kv_len or skv)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
+def time_flash_frontends(gen, bw: float, flops: float) -> dict:
+    """The serving kernel at ``FLASH_TIMED_FRONTENDS`` and the training
+    forward and backward at ``FLASH_BWD_FRONTENDS``, fp32, both timers,
+    beside the plain versions, the bounds and
+    ``scaled_dot_product_attention`` on the same inputs (kv heads repeated
+    to the query heads beforehand; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rows = {}
+    for label, case in FLASH_TIMED_FRONTENDS.items():
+        q, k, v = flash_inputs(case, torch.float32, gen)
+        kw = flash_kwargs(case)
+        qt = q.transpose(1, 2)
+        kt, vt = (heads_of_queries(t.transpose(1, 2), case[3] // case[4]) for t in (k, v))
+        mask = None if not case[6] and case[9] is None else flash_mask(case)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        torch.testing.assert_close(library().transpose(1, 2), flash_attention_ref(q, k, v, **kw),
+                                   rtol=1e-4, atol=1e-4)
+        n_bytes, n_ops = flash_work(case)
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / flops * 1e3
+        ms, ms_burst = device_ms_pair(lambda: flash_attention_op(q, k, v, **kw))
+        library_ms, library_ms_burst = device_ms_pair(library)
+        rows[label] = {
+            "ms": ms, "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, **kw)),
+            "library_ms": library_ms, "ms_burst": ms_burst, "library_ms_burst": library_ms_burst,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": list(case),
+        }
+        print(f"flash_attention fp32 {label}: {json.dumps(rows[label])}")
+    for label, case in zip(("train_hubert", "train_qwen2_vl"), FLASH_BWD_FRONTENDS):
+        rows[label] = time_flash_train(case, gen, bw, flops)
+    return rows
+
+
+def frontend_batch(cfg, b: int, s: int, seed: int) -> dict[str, torch.Tensor]:
+    """A CPU batch of numpy draws from ``seed``: for the audio frontend
+    ``frames`` and, as ``labels``, each frame's nearest of ``vocab_size``
+    seeded centroids by dot product (k-means ids, as HuBERT's targets are);
+    for the vision one, tokens and ``patches`` over the first s/4
+    positions."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        frames = rng.standard_normal((b, s, cfg.frontend_dim), dtype=np.float32)
+        centroids = np.random.default_rng(SEED).standard_normal(
+            (cfg.vocab_size, cfg.frontend_dim), dtype=np.float32)
+        return {"frames": torch.from_numpy(frames),
+                "labels": torch.from_numpy((frames @ centroids.T).argmax(-1).astype(np.int32))}
+    return {"tokens": torch.from_numpy(rng.integers(4, cfg.vocab_size, (b, s)).astype(np.int32)),
+            "patches": torch.from_numpy(
+                rng.standard_normal((b, s // 4, cfg.frontend_dim), dtype=np.float32))}
+
+
+def on_card(batch: dict) -> dict:
+    return {k: t.cuda() for k, t in batch.items()}
+
+
+def host_available_bytes() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``."""
+    for row in Path("/proc/meminfo").read_text().splitlines():
+        if row.startswith("MemAvailable:"):
+            return int(row.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def frontend_card_vs_cpu(arch: str) -> dict:
+    """``arch`` at its full width, ``FRONTEND_CHECK_LAYERS`` layers (one if
+    the host's available memory cannot hold the CPU model and its
+    gradients twice over), ``init_scale=1``, the same weights on the card
+    and on the CPU, on a ``frontend_batch`` of 2 x 64: what the layers add
+    to the embedding, card vs CPU within 1e-4 after checking it is far
+    larger; ``forward`` logits within 1e-4; one ``value_and_grad`` of
+    ``LM.loss`` held as ``lm_step_card_vs_cpu`` holds it (the token
+    embedding of the audio frontend, which its loss does not reach,
+    exactly zero on both), launches exact."""
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
+
+    n_layers = FRONTEND_CHECK_LAYERS
+    small = dataclasses.replace(get(arch), n_layers=n_layers, init_scale=1.0)
+    need = 3 * 4 * exact_param_count(small)
+    available = host_available_bytes()
+    if available < need:
+        n_layers = 1
+        small = dataclasses.replace(small, n_layers=1)
+        print(f"{small.name}: the host has {available / 1e9:.1f} GB available, under the "
+              f"{need / 1e9:.1f} GB of {FRONTEND_CHECK_LAYERS} layers: checking 1 layer")
+    card = LM(small, "cuda", seed=SEED)
+    cpu = LM(small, "meta")
+    cpu.to_empty(device="cpu")
+    target = cpu.state_dict()
+    for name, t in card.state_dict().items():  # one tensor at a time through the host
+        target[name].copy_(t.cpu())
+    batch = frontend_batch(small, LM_TRAIN_CHECK_BATCH, LM_TRAIN_SEQ, SEED + 8)
+
+    def layers_add(model, b):
+        with torch.no_grad():
+            return (model.hidden(b) - model._embed(b)).cpu()
+
+    delta_card, delta_cpu = layers_add(card, on_card(batch)), layers_add(cpu, batch)
+    delta_size = delta_cpu.abs().mean().item()
+    if delta_size < 100 * 1e-4:
+        fail(f"{small.name}: the layers add only {delta_size:.3e}: 1e-4 cannot see them")
+    torch.testing.assert_close(delta_card, delta_cpu, rtol=1e-4, atol=1e-4)
+    logits_card = card(on_card(batch)).cpu()
+    if not torch.isfinite(logits_card).all():
+        fail(f"non-finite {small.name} logits on the card")
+    logits_cpu = cpu(batch)
+    torch.testing.assert_close(logits_card, logits_cpu, rtol=1e-4, atol=1e-4)
+    logit_err = (logits_card - logits_cpu).abs().max().item()
+    del logits_card, logits_cpu
+
+    counters = lm_train_counters()
+    zero_counters(counters)
+    loss_card, grads_card = value_and_grad(functional_loss(card))(params_of(card),
+                                                                  on_card(batch))
+    torch.cuda.synchronize()
+    launches = {name: counter[name] for name, counter in counters.items()}
+    del card
+    torch.cuda.empty_cache()
+    loss_cpu, grads_cpu = value_and_grad(functional_loss(cpu))(params_of(cpu), batch)
+    want = step_launches(cpu.kinds, 1)
+    if launches != want:
+        fail(f"{small.name} card step: launches {launches}, expected {want}")
+    lc, lp = loss_card.item(), loss_cpu.item()
+    if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
+        fail(f"{small.name} train step loss card {lc} vs CPU {lp} (rtol 1e-5)")
+    unreached = {"embed/embedding"} if small.frontend == "audio" else set()
+    key_biases = {f"layers/{i}/attn/bk": f"layers/{i}/attn/wk"
+                  for i in range(n_layers)} if small.qkv_bias else {}
+    worst = held_grads(small.name, grads_card, grads_cpu, unreached, key_biases)
+    print(f"{small.name} with {n_layers} full-width layers at init_scale 1, card vs CPU on "
+          f"{ {k: tuple(t.shape) for k, t in batch.items()} }: what the layers add (mean abs "
+          f"{delta_size:.3e}) within 1e-4, forward logits max abs err {logit_err:.3e} (tol "
+          f"1e-4); one train step: loss {lc:.6f} vs {lp:.6f}, {len(grads_cpu)} gradients "
+          f"({len(unreached)} unreached, zero on both), worst max|dg|/max|g| {worst:.3e} "
+          f"(limit 1e-4); launches {launches}")
+    del grads_card, grads_cpu, cpu
+    torch.cuda.empty_cache()
+    return {"arch": small.name, "label": f"{small.name} card vs cpu", "layers": n_layers,
+            "host_available_bytes": available, "layers_add_mean_abs": delta_size,
+            "logits_max_abs_err": logit_err, "loss_card": lc, "loss_cpu": lp,
+            "grad_worst_rel": worst, "launches": launches}
+
+
+def hubert_full_depth() -> dict:
+    """HuBERT X-Large at its full width and all 48 layers: a no-grad
+    ``forward`` over 8 x 512 frames (finite logits, one serving flash
+    launch a layer), then ``HUBERT_STEPS`` steps of ``make_train_step``
+    (donating) over ``LM.loss`` cycling through ``HUBERT_POOL`` frame
+    batches: flash training forward and backward launches exact (48 x 2 and
+    48 a step, with remat), finite losses whose last 5 average below the
+    first 5; seconds a step, frames/s, peak memory."""
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.train_loop import functional_loss, make_train_step, params_of
+
+    cfg = get("hubert_xlarge")
+    model = LM(cfg, "cuda", seed=SEED)
+    n_params = model.param_count()
+    if n_params != exact_param_count(cfg):
+        fail(f"{cfg.name} has {n_params} parameters, expected {exact_param_count(cfg)}")
+    pool = [on_card(frontend_batch(cfg, HUBERT_BATCH, HUBERT_FRAMES, SEED + 20 + i))
+            for i in range(HUBERT_POOL)]
+    counters = lm_train_counters()
+    model(pool[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    logits = model(pool[0])
+    torch.cuda.synchronize()
+    forward_seconds = time.perf_counter() - t0
+    forward_launches = {name: counter[name] for name, counter in counters.items()}
+    if tuple(logits.shape) != (HUBERT_BATCH, HUBERT_FRAMES, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"{cfg.name} forward gave {tuple(logits.shape)} logits, finite: "
+             f"{bool(torch.isfinite(logits).all())}")
+    if forward_launches["flash_attention"] != cfg.n_layers or \
+            forward_launches["flash_attention_bwd"]:
+        fail(f"{cfg.name} forward made launches {forward_launches}, expected "
+             f"{cfg.n_layers} flash_attention")
+    del logits
+
+    opt = AdamW(learning_rate=warmup_cosine(HUBERT_LR, HUBERT_WARMUP, HUBERT_STEPS))
+    step = make_train_step(functional_loss(model), opt, donate=True)
+    params = params_of(model)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    losses, step_seconds = [], []
+    for i in range(HUBERT_STEPS):
+        t1 = time.perf_counter()
+        _, _, metrics = step(params, state, pool[i % HUBERT_POOL])
+        losses.append(metrics["loss"].item())  # waits for the step
+        step_seconds.append(time.perf_counter() - t1)
+    launches = {name: counter[name] for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = step_launches(model.kinds, HUBERT_STEPS)
+    if launches != want:
+        fail(f"{cfg.name} train steps made launches {launches}, expected {want}")
+    if not np.isfinite(losses).all() or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"{cfg.name} losses over {HUBERT_STEPS} steps did not fall: {losses}")
+    seconds = sum(step_seconds)
+    n_frames = HUBERT_STEPS * HUBERT_BATCH * HUBERT_FRAMES
+    print(f"{cfg.name} at all {cfg.n_layers} layers ({n_params} parameters): forward over "
+          f"{HUBERT_BATCH} x {HUBERT_FRAMES} frames in {forward_seconds * 1e3:.1f} ms "
+          f"({forward_launches['flash_attention']} flash launches); {HUBERT_STEPS} train steps in "
+          f"{seconds:.3f} s ({statistics.median(step_seconds) * 1e3:.1f} ms median a step, "
+          f"{n_frames / seconds:.0f} frames/s), loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+          f"memory {peak / 1e9:.2f} GB; launches {launches}")
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "batch": HUBERT_BATCH, "frames": HUBERT_FRAMES, "forward_seconds": forward_seconds,
+            "forward_launches": forward_launches, "steps": HUBERT_STEPS, "lr": HUBERT_LR,
+            "seconds": seconds, "step_seconds": step_seconds,
+            "median_step_seconds": statistics.median(step_seconds),
+            "frames_per_s": n_frames / seconds, "peak_memory_bytes": peak, "losses": losses,
+            "launches": launches}
+    del model, params, state, step, pool
+    torch.cuda.empty_cache()
+    return line
+
+
+def frontends(bw: float, flops: float) -> tuple[dict, dict]:
+    """The frontends phase; returns its line and the flash rows at the new
+    shapes."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 6)  # the earlier checks' draws unchanged
+    errors = check_flash_frontends(gen)
+    rows = time_flash_frontends(gen, bw, flops)
+    torch.cuda.empty_cache()
+    checked = [frontend_card_vs_cpu(arch) for arch in FRONTEND_ARCHS]
+    line = {"flash_max_abs_err": errors, "card_vs_cpu": checked,
+            "hubert_full_depth": hubert_full_depth()}
+    line["phase_seconds"] = time.perf_counter() - t0
+    print(f"frontends phase: {line['phase_seconds']:.1f} s")
     return line, rows
 
 
@@ -3798,8 +4369,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. the LM launcher's training path: backward kernels, card vs CPU,
-    # StableLM-3B at full width, the launcher with a resume
+    # StableLM-3B at full width (4 layers, then all 32 through the donating
+    # step), the launcher with a resume
     lm_train_line, lm_rows = lm_train(bw, flops)
+    torch.cuda.empty_cache()
+
+    # 15. the two configurations with a frontend: flash at their shapes,
+    # card vs CPU, HuBERT X-Large at all 48 layers
+    frontends_line, frontend_rows = frontends(bw, flops)
 
     # 15. report
     def train_paths(name):
@@ -3807,6 +4384,11 @@ def main() -> int:
         paths = {c["label"]: c["launches"][name] for c in lm_train_line["card_vs_cpu"]}
         paths.update({f"launcher {r['arch']}": r["launches"][name]
                       for r in lm_train_line["launcher_archs"]})
+        paths[f"full depth {lm_train_line['full_depth']['arch']}"] = \
+            lm_train_line["full_depth"]["launches"][name]
+        paths.update({c["label"]: c["launches"][name] for c in frontends_line["card_vs_cpu"]})
+        hubert = frontends_line["hubert_full_depth"]
+        paths[f"{hubert['arch']} train steps"] = hubert["launches"][name]
         return {label: n for label, n in paths.items() if n}
 
     def lm_kernel(name, err, source, replaces):
@@ -3857,6 +4439,11 @@ def main() -> int:
          "serve_text_launches": serve_text_launches["flash_attention"],
          "lm_train_launches": lm_train_line["launches"]["flash_attention"],
          "lm_train_launches_by_path": train_paths("flash_attention"),
+         "frontend_forward_launches": {
+             frontends_line["hubert_full_depth"]["arch"]:
+                 frontends_line["hubert_full_depth"]["forward_launches"]["flash_attention"]},
+         "frontend_shapes": {k: r for k, r in frontend_rows.items() if not k.startswith("train")},
+         "frontend_max_abs_err": frontends_line["flash_max_abs_err"]["serve"],
          "train_forward": {k: lm_rows["flash_attention_bwd"][k] for k in
                            ("train_forward_ms", "train_forward_ms_burst", "train_forward_plain_ms",
                             "train_forward_bound_ms", "train_forward_bound_by",
@@ -3898,7 +4485,9 @@ def main() -> int:
          "launches": lm_train_line["launches"]["flash_attention_bwd"],
          "launches_by_path": {"lm_train_steps": lm_train_line["launches"]["flash_attention_bwd"],
                               **train_paths("flash_attention_bwd")},
-         **lm_rows["flash_attention_bwd"]},
+         **lm_rows["flash_attention_bwd"],
+         "frontend_shapes": {k: r for k, r in frontend_rows.items() if k.startswith("train")},
+         "frontend_max_abs_err": frontends_line["flash_max_abs_err"]["bwd"]},
         # the training forwards count under their serving kernels' names
         # (LAUNCHES["flash_attention"], LAUNCHES["mlstm_chunk"]): every
         # launch on the training paths below is theirs
@@ -3944,7 +4533,8 @@ def main() -> int:
         now = entry[row]["ms_burst"] if row else entry["ms_burst"]
         print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
               f"(before: {before} ms, {before / now:.2f}x)")
-    print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s (before the "
+          f"frontends and the full-depth run: {BEFORE_PHASES_SECONDS} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
     for line in serve_lm_lines:
@@ -3957,6 +4547,7 @@ def main() -> int:
     print(json.dumps({"executors": {**executors_line, "card": card}}))
     print(json.dumps({"serve_text": {**serve_text_line, "card": card}}))
     print(json.dumps({"lm_train": {**lm_train_line, "card": card}}))
+    print(json.dumps({"frontends": {**frontends_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -16,7 +16,8 @@ position of the block pattern under ``units/<j>/...``, each with a leading
 layer (``head[h]`` is layer h; position j of unit u is layer
 ``n_head + u·len(pattern) + j``; ``tail[t]`` follows the units) and
 ``lm_params_to_jax`` stacks them back. A MoE layer's ``moe`` subtree keeps
-its paths (``moe/router``, ``moe/w_gate``, ``moe/shared/gate``, ...).
+its paths (``moe/router``, ``moe/w_gate``, ``moe/shared/gate``, ...), and so
+does a frontend's projection (``frontend/proj``).
 
 The optimizer state crosses too (``adamw_state_from_jax``,
 ``adamw_state_to_jax``). The key paths are the checkpoint's
@@ -105,13 +106,14 @@ def _layout(cfg) -> tuple[int, int, int, int]:
 def lm_params_from_jax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
     """``{"embed/embedding": ..., "layers/0/attn/wq": ..., ...}`` from a
     JAX ``LM.init`` tree: ``head[h]`` is layer h, position j of stacked unit
-    u is layer ``n_head + u·period + j``, then the tail."""
+    u is layer ``n_head + u·period + j``, then the tail; a frontend's
+    ``frontend/proj`` keeps its path."""
     n_head, period, n_units, n_tail = _layout(cfg)
     if len(tree["head"]) != n_head or len(tree["units"]) != period or \
             len(tree["tail"]) != n_tail:
         raise ValueError(f"expected {n_head} head layers, {period} stacked units and {n_tail} "
                          f"tail layers")
-    out = from_jax_params({"embed": tree["embed"], "final_norm": tree["final_norm"]})
+    out = from_jax_params({k: tree[k] for k in ("embed", "frontend", "final_norm") if k in tree})
     for h, block in enumerate(tree["head"]):
         for path, leaf in from_jax_params(block).items():
             out[f"layers/{h}/{path}"] = leaf

@@ -4,11 +4,13 @@ Copy of ``repro/configs/__init__.py:19-197``: ``MoEConfig``, ``ArchConfig``
 (with its analytic parameter count), ``ShapeConfig``/``SHAPES`` and
 ``get``/``get_smoke``. Each ``<id>.py`` module
 exports ``CONFIG`` (the published configuration) and ``SMOKE`` (a reduced
-same-family configuration for CPU tests). ``ARCH_IDS`` lists only the
-configurations whose modules the port has: the attention-only dense
-models, the recurrent ones (RG-LRU with local attention, xLSTM) and the
-MoE ones (DeepSeek-MoE-16B, Kimi-K2), which run through ``models/lm.py``.
-The frontends (Qwen2-VL-72B, HuBERT-XLarge) are not ported yet.
+same-family configuration for CPU tests). ``ARCH_IDS`` lists every
+configuration of the reference's, all of which run through
+``models/lm.py``: the attention-only dense models, the recurrent ones
+(RG-LRU with local attention, xLSTM), the MoE ones (DeepSeek-MoE-16B,
+Kimi-K2) and the two with a frontend (HuBERT X-Large: audio frames,
+encoder-only; Qwen2-VL-72B: image patches and M-RoPE). The port keeps its
+own order and appends the frontends.
 """
 
 from __future__ import annotations
@@ -145,6 +147,8 @@ ARCH_IDS = [
     "xlstm_1_3b",
     "deepseek_moe_16b",
     "kimi_k2_1t_a32b",
+    "hubert_xlarge",
+    "qwen2_vl_72b",
 ]
 
 

@@ -6,8 +6,11 @@ as a serving call, clean -> tokenize -> greedy generate -> decode, one
 batch at a time. ``--arch stablelm_3b`` (or another LM of
 ``repro_torch.configs.ARCH_IDS``) does what ``repro/launch/serve.py:21-55``
 does: random weights from the seed, prompts of 4-15 random tokens, and
-``serve_requests`` through ``--slots`` decode slots. Both run on the card
-unless ``--device`` names another.
+``serve_requests`` through ``--slots`` decode slots; ``--arch
+qwen2_vl_72b`` serves such token prompts too (no patches), and ``--arch
+hubert_xlarge`` exits with the reference's message, since an encoder-only
+model has no decode serving. Both run on the card unless ``--device`` names
+another.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b
@@ -123,6 +126,8 @@ def serve_summarizer(args, device: torch.device, sync: Callable[[], None]) -> No
 
 def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    if not cfg.causal:  # repro/launch/serve.py:32-33
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     model = LM(cfg, device, seed=args.seed)
     reqs = lm_requests(cfg, args.requests or 8, max_new=args.max_new, seed=args.seed)
     kw = dict(slots=args.slots, max_seq=args.max_seq)
@@ -146,9 +151,12 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 
 # kernel names of csrc/*.cu, as the profiler lists them
 HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "lstm_layer_bwd_kernel",
-                "text_scan_kernel", "flash_attention_kernel", "flash_bwd_delta_kernel",
-                "flash_bwd_kernel", "flash_bwd_dq_sum_kernel", "rg_lru_kernel", "rg_lru_bwd_kernel",
-                "mlstm_chunk_kernel", "mlstm_decode_kernel", "mlstm_bwd_gates_kernel",
+                "text_scan_kernel", "text_clean_kernel", "flash_attention_kernel",
+                "flash_train_kernel", "flash_bwd_delta_kernel", "flash_bwd_kernel",
+                "flash_bwd_dq_sum_kernel", "flash_bwd_dkv_sum_kernel", "rg_lru_kernel",
+                "rg_lru_bwd_kernel", "mlstm_chunk_kernel", "mlstm_decode_kernel",
+                "mlstm_train_slices_kernel", "mlstm_train_scores_kernel",
+                "mlstm_train_rows_kernel", "mlstm_bwd_slices_kernel", "mlstm_bwd_gates_kernel",
                 "mlstm_bwd_state_kernel", "mlstm_bwd_products_kernel",
                 "mlstm_bwd_scalars_kernel")
 # substrings of cuBLAS's matrix-product kernel names, lower-cased

@@ -11,7 +11,14 @@ step on restart). It runs on the card unless ``--device`` names another.
 The reference's mesh, ``tree_shardings`` and ``set_mesh`` become plain
 single-card tensors, so ``--model-parallel`` above 1 and
 ``--production-mesh`` raise; ``jax.jit(step, donate_argnums=(0, 1))`` is
-the plain step, which donates nothing. The reference's ``apply_tuned_env``
+``train_step_of``, the donating step (``make_train_step(..., donate=True)``:
+params and AdamW state updated in place), which lets StableLM-3B train at
+all 32 layers on one card. ``--arch qwen2_vl_72b`` trains on the token rows
+alone (no patches), as the reference does. ``--arch hubert_xlarge`` is
+refused up front: its loss needs frames and labels, which the token rows
+cannot give (the reference's launcher fails on it inside ``LM.loss``); it
+trains through ``make_train_step`` over ``LM.loss`` with frame batches.
+The reference's ``apply_tuned_env``
 (XLA flags and tcmalloc for forked workers) is left out: nothing here
 reads XLA's flags, and the planner's workers are spawned.
 """
@@ -66,6 +73,14 @@ def build_dataset(cfg, seq_len: int, corpus_mb: float, seed: int, device=None) -
     return np.asarray(stream[:n], np.int32).reshape(-1, seq_len) % cfg.vocab_size
 
 
+def train_step_of(model: LM, opt: AdamW, n_microbatches: int = 1):
+    """The launcher's step: ``make_train_step`` over ``model.loss``,
+    donating its params and optimizer state, as the reference launcher's
+    ``jax.jit(step, donate_argnums=(0, 1))`` does."""
+    return make_train_step(functional_loss(model), opt, TrainStepConfig(n_microbatches),
+                           donate=True)
+
+
 def main(argv: Sequence[str] | None = None) -> list[dict]:
     """Train as the flags say; returns the run's per-step metrics."""
     ap = argparse.ArgumentParser()
@@ -88,16 +103,20 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
         raise NotImplementedError(f"--model-parallel {args.model_parallel} / --production-mesh: "
                                   "the port trains on one card (multi-device training is "
                                   "ROADMAP.md Queue 1 item 6)")
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    if cfg.frontend == "audio":
+        raise SystemExit(f"{cfg.name} is encoder-only: its loss needs frames and labels, which "
+                         "the launcher's token rows cannot give; train it through "
+                         "make_train_step over LM.loss with frame batches")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     print(f"arch={cfg.name} device={device} params~{cfg.param_count() / 1e6:.1f}M")
 
     seqs = build_dataset(cfg, args.seq_len, args.corpus_mb, seed=0, device=device)
     model = LM(cfg, device, remat=True, dtype=torch.float32)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 10, args.steps))
-    step = make_train_step(functional_loss(model), opt, TrainStepConfig(args.microbatches))
+    step = train_step_of(model, opt, args.microbatches)
 
     def init_state():
         params = params_of(model)

@@ -1,4 +1,4 @@
-"""Multi-head attention: GQA, RoPE, sliding window, KV cache.
+"""Multi-head attention: GQA, RoPE and M-RoPE, sliding window, KV cache.
 
 Counterpart of ``repro/models/attention.py``. Every attention product is
 ``flash_attention_op``: the hand-written CUDA kernel on the card, its plain
@@ -16,10 +16,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention_op
-from .blocks import apply_rope, truncated_normal
+from .blocks import apply_mrope, apply_rope, truncated_normal
 
 
 class KVCache(NamedTuple):
@@ -64,15 +65,36 @@ def _project_qkv(p, x: torch.Tensor, cfg):
 
 
 def _rope(q, k, positions, cfg):
-    """Counterpart of ``repro/models/attention.py:70 _rope`` for ``rope``
-    and ``none``."""
+    """Counterpart of ``repro/models/attention.py:70 _rope``: ``rope``,
+    ``mrope`` (Qwen2-VL's split of the half head dim into t, h and w
+    sections of ``hd - 2·(hd//4)``, ``hd//4`` and ``hd//4`` slots) and
+    ``none``."""
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE waits for the vision frontend "
-                                  "(ROADMAP.md Queue 1: the rest of the LM family)")
+        hd = cfg.resolved_head_dim // 2
+        sections = (hd - 2 * (hd // 4), hd // 4, hd // 4)
+        pos3 = mrope_positions(positions, cfg)
+        q = apply_mrope(q, pos3, sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, sections, cfg.rope_theta)
     return q, k
+
+
+def mrope_positions(positions: torch.Tensor, cfg) -> torch.Tensor:
+    """``(3, b, s)`` temporal, height and width positions. Counterpart of
+    ``repro/models/attention.py:84 mrope_positions``, with its rules: for
+    the vision frontend every position below ``n_frontend_tokens`` lies on
+    a √n grid (``grid = int(√n)``; t 0, h and w its row and column),
+    whether or not the batch gave patches, and so does a short text prompt
+    in ``decode_step``; the rest is text (t = h = w)."""
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    grid = max(int(np.sqrt(max(n_img, 1))), 1)
+    is_img = positions < n_img
+    h = torch.where(is_img, (positions % (grid * grid)) // grid, positions)
+    w = torch.where(is_img, positions % grid, positions)
+    t = torch.where(is_img, torch.zeros_like(positions), positions)
+    return torch.stack([t, h, w])
 
 
 def attend(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,

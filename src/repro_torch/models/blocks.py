@@ -155,6 +155,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(half: int, sections: tuple[int, int, int], device: torch.device
+                   ) -> torch.Tensor:
+    """The position stream (0 t, 1 h, 2 w) of each of the ``half``
+    frequency slots, on ``device``, made once."""
+    sid = np.zeros(half, dtype=np.int64)
+    sid[sections[0] : sections[0] + sections[1]] = 1
+    sid[sections[0] + sections[1] :] = 2
+    return torch.from_numpy(sid).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections: tuple[int, int, int],
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x ``(..., seq, heads, head_dim)``,
+    ``positions_3d`` ``(3, ..., seq)`` (temporal, height, width streams);
+    frequency slot i of the half head dim rotates by the stream
+    ``sections`` gives it (the first ``sections[0]`` slots t, the next
+    ``sections[1]`` h, the rest w). Equal streams reduce it to
+    ``apply_rope``. Counterpart of ``repro/models/blocks.py:145 apply_mrope``."""
+    half = x.shape[-1] // 2
+    freqs = _rope_table(x.shape[-1], theta, x.device)  # (half,)
+    pos = positions_3d[_mrope_streams(half, tuple(sections), positions_3d.device)]
+    pos = torch.movedim(pos, 0, -1)  # (..., seq, half)
+    angles = pos[..., None, :].to(torch.float32) * freqs  # (..., seq, 1, half)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # -- loss -------------------------------------------------------------------------
 
 

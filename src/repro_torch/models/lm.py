@@ -1,30 +1,36 @@
-"""The LM of the port: attention, MoE, RG-LRU and xLSTM blocks.
+"""The LM of the port: attention, MoE, RG-LRU and xLSTM blocks, and the
+audio and vision frontends.
 
-Counterpart of ``repro/models/lm.py:180 LM`` without a frontend: the
-attention-only dense configurations (StableLM-3B, Granite-20B,
-Qwen2.5-32B, Command R+), the MoE ones (DeepSeek-MoE-16B, Kimi-K2: the
-first ``first_k_dense`` layers dense attention blocks with an MLP of
-``d_ff_dense``, the rest attention and MoE), Griffin (RecurrentGemma-9B:
-``rglru, rglru, attn`` with local attention) and xLSTM (xLSTM-1.3B: 7
-mLSTM + 1 sLSTM). Layer ``i`` has kind
+Counterpart of ``repro/models/lm.py:180 LM``: the attention-only dense
+configurations (StableLM-3B, Granite-20B, Qwen2.5-32B, Command R+), the
+MoE ones (DeepSeek-MoE-16B, Kimi-K2: the first ``first_k_dense`` layers
+dense attention blocks with an MLP of ``d_ff_dense``, the rest attention
+and MoE), Griffin (RecurrentGemma-9B: ``rglru, rglru, attn`` with local
+attention), xLSTM (xLSTM-1.3B: 7 mLSTM + 1 sLSTM), and the two with a
+frontend: HuBERT X-Large (``frames @ frontend/proj`` in place of the token
+embedding, non-causal, trained on per-frame ``labels``) and Qwen2-VL-72B
+(``patches @ frontend/proj`` over the first positions of the token
+embedding, M-RoPE). Layer ``i`` has kind
 ``block_pattern[i % len(block_pattern)]``, the order of the reference's
 unrolled ``head``, its stacked ``units`` and its unrolled ``tail``. A
 Python loop over the layers takes the place of ``lax.scan`` over the
 units, so each layer keeps its own parameters
 (``repro_torch.bridge.lm_params_from_jax`` splits the JAX package's
-stacked tree). The frontends raise ``NotImplementedError`` naming their
-ROADMAP item.
+stacked tree).
 
-``loss`` is the causal next-token cross entropy of
-``repro/models/lm.py:302 LM.loss`` plus ``router_aux_weight`` times the
-MoE layers' summed load-balance terms, differentiable through the
-attention, RG-LRU and mLSTM kernels' backward kernels on the card. With
-``remat`` each layer runs under ``torch.utils.checkpoint`` and is
+``loss`` is ``repro/models/lm.py:302 LM.loss``: the causal next-token
+cross entropy, or for the encoder-only configuration the per-position
+cross entropy against ``batch["labels"]``, plus ``router_aux_weight``
+times the MoE layers' summed load-balance terms, differentiable through
+the attention, RG-LRU and mLSTM kernels' backward kernels on the card.
+With ``remat`` each layer runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward, as ``jax.checkpoint`` wraps each unit of the
 reference (``:291``); a layer's kernel forward then launches twice a step.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -37,15 +43,12 @@ from . import rglru as RG
 from . import xlstm as XL
 from .attention import attend, init_attention, init_kv_cache
 from .blocks import (apply_mlp, apply_norm, cross_entropy_loss, embed_tokens, init_embed,
-                     init_mlp, init_norm, lm_logits)
+                     init_mlp, init_norm, lm_logits, truncated_normal)
 
 BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def _supported(cfg) -> None:
-    todo = "ROADMAP.md Queue 1: the rest of the LM family, its next slice"
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend waits for {todo}")
     unknown = set(cfg.block_pattern) - set(BLOCK_KINDS)
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
@@ -96,7 +99,10 @@ def _plain(sub: nn.ParameterDict) -> dict:
 
 class LM(nn.Module):
     """Parameters, with the JAX package's names per layer:
-    ``embed.{embedding,lm_head}``, ``layers.<i>.*`` (``{norm1,attn,norm2,mlp}``
+    ``embed.{embedding,lm_head}``, ``frontend.proj`` ``(frontend_dim,
+    d_model)`` for a configuration with a frontend (the audio one keeps its
+    unused token embedding, as the reference does), ``layers.<i>.*``
+    (``{norm1,attn,norm2,mlp}``
     for ``attn``, ``{norm1,attn,norm2,moe}`` for an MoE layer,
     ``{norm1,rec,norm2,mlp}`` for ``rglru``, ``{norm1,mix}`` for ``mlstm``
     and ``slstm``), ``final_norm.*``. Parameters do not
@@ -123,6 +129,10 @@ class LM(nn.Module):
         g.manual_seed(seed)
         kw = dict(dtype=dtype, device=device)
         self.embed = _params(init_embed(cfg, g, **kw))
+        if cfg.frontend:  # repro/models/lm.py:210-215
+            self.frontend = _params({"proj": truncated_normal(
+                (cfg.frontend_dim, cfg.d_model), cfg.init_scale / math.sqrt(cfg.frontend_dim),
+                g, **kw)})
         self.layers = nn.ModuleList(
             nn.ModuleDict({name: _params(t)
                            for name, t in _init_block(cfg, kind, moe, g, **kw).items()})
@@ -167,16 +177,30 @@ class LM(nn.Module):
             return x + ff, new_cache, aux
         return x + apply_mlp(layer["mlp"], h2, cfg), new_cache, None
 
-    def _trunk(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _embed(self, batch: dict) -> torch.Tensor:
+        """The first residual ``(b, s, d_model)``, as
+        ``repro/models/lm.py:258 _embed`` makes it: ``frames @ proj`` for the
+        audio frontend (no token embedding); the token embedding otherwise,
+        its first ``patches.shape[1]`` positions replaced by ``patches @
+        proj`` where the vision frontend's batch gives patches."""
+        cfg, dev = self.cfg, self.device
+        if cfg.frontend == "audio":
+            return batch["frames"].to(dev, self.dtype) @ self.frontend["proj"]
+        x = embed_tokens(self.embed, batch["tokens"].to(dev), cfg)
+        if cfg.frontend == "vision" and "patches" in batch:
+            pe = batch["patches"].to(dev, x.dtype) @ self.frontend["proj"]
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
+
+    def _trunk(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
         """``hidden`` without ``no_grad``, and the MoE layers' summed
         load-balance term (None without MoE): under grad with ``remat``
         each layer is a checkpoint. The checkpointed function gets the
         layer's tensors as plain dicts made here, so that its recompute in
         the backward reads the tensors this call saw (``functional_call``'s,
         which are gone from the module by then)."""
-        tokens = tokens.to(self.device)
-        x = embed_tokens(self.embed, tokens, self.cfg)
-        b, s = tokens.shape
+        x = self._embed(batch)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
         remat = self.remat and torch.is_grad_enabled()
         aux_total = None
@@ -195,36 +219,41 @@ class LM(nn.Module):
         return x, aux
 
     @torch.no_grad()
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden(self, batch: dict) -> torch.Tensor:
         """The residual stream after the last layer, before the final norm:
-        ``(b, s, d_model)`` for ``tokens`` ``(b, s)``."""
-        return self._trunk(tokens)[0]
+        ``(b, s, d_model)`` for a batch of ``forward``'s."""
+        return self._trunk(batch)[0]
 
-    def _logits(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-        x, aux = self._trunk(tokens)
+    def _logits(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
+        x, aux = self._trunk(batch)
         return lm_logits(self.embed, apply_norm(self.final_norm, x, self.cfg.norm), self.cfg), aux
 
     @torch.no_grad()
     def forward(self, batch: dict, *, with_aux: bool = False):
-        """Logits ``(b, s, vocab)`` for ``batch["tokens"]`` ``(b, s)``; with
-        ``with_aux`` also the MoE layers' summed load-balance term (fp32
-        0-d, 0 without MoE), as ``repro/models/lm.py:270 LM.forward``
-        returns (logits, moe_aux)."""
-        logits, aux = self._logits(batch["tokens"])
+        """Logits ``(b, s, vocab)`` for a batch of ``tokens`` ``(b, s)``
+        (with the vision frontend, optionally ``patches`` ``(b, n <= s,
+        frontend_dim)`` too) or, with the audio frontend, of ``frames`` ``(b,
+        s, frontend_dim)``; with ``with_aux`` also the MoE layers' summed
+        load-balance term (fp32 0-d, 0 without MoE), as
+        ``repro/models/lm.py:270 LM.forward`` returns (logits, moe_aux)."""
+        logits, aux = self._logits(batch)
         if not with_aux:
             return logits
         return logits, torch.zeros((), device=logits.device) if aux is None else aux
 
     def loss(self, batch: dict) -> torch.Tensor:
-        """The mean next-token cross entropy of ``batch["tokens"]`` ``(b,
-        s)`` plus ``router_aux_weight`` times the MoE layers' summed
-        load-balance term, fp32 0-d. Counterpart of
-        ``repro/models/lm.py:302 LM.loss`` for the causal configurations
-        (the encoder-only one has a frontend, which the port does not
-        take)."""
-        targets = batch["tokens"].to(self.device)[:, 1:]
-        logits, aux = self._logits(batch["tokens"])
-        ce = cross_entropy_loss(logits[:, :-1], targets, torch.ones_like(targets))
+        """The mean cross entropy, plus ``router_aux_weight`` times the MoE
+        layers' summed load-balance term, fp32 0-d. Counterpart of
+        ``repro/models/lm.py:302 LM.loss``: a causal configuration predicts
+        ``batch["tokens"]`` shifted by one; the encoder-only one classifies
+        every position against ``batch["labels"]`` ``(b, s)``, unshifted."""
+        logits, aux = self._logits(batch)
+        if self.cfg.causal:
+            targets = batch["tokens"].to(self.device)[:, 1:]
+            logits = logits[:, :-1]
+        else:
+            targets = batch["labels"].to(self.device)
+        ce = cross_entropy_loss(logits, targets, torch.ones_like(targets))
         if aux is None:
             return ce
         return ce + self.cfg.moe.router_aux_weight * aux

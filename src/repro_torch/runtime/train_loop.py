@@ -2,7 +2,8 @@
 
 Copy of ``repro/runtime/train_loop.py``: ``TrainStepConfig`` (``:20``),
 ``split_microbatches`` (``:26``), ``make_input_pipeline`` (``:39``) and
-``make_train_step`` (``:104``).
+``make_train_step`` (``:104``), which can also donate its params and
+optimizer state (``donate=True``: updated in place).
 ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over a loss that is
 pure in its parameters (``functional_loss``: the model's ``loss`` run
 with the given ``{path: tensor}`` in place of its own parameters, through
@@ -141,9 +142,20 @@ def make_train_step(
     loss_fn: Callable[[Params, dict], torch.Tensor],
     optimizer: AdamW,
     cfg: TrainStepConfig = TrainStepConfig(),
+    *,
+    donate: bool = False,
 ):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics) with metrics ``loss`` and ``grad_norm``, fp32 0-d tensors."""
+    metrics) with metrics ``loss`` and ``grad_norm``, fp32 0-d tensors.
+
+    By default the step is functional, as the reference's
+    ``make_train_step`` is: new params and state, the arguments left as
+    they were. With ``donate`` it is the counterpart of the reference
+    launcher's ``jax.jit(step, donate_argnums=(0, 1))``: ``AdamW.update_``
+    writes the new params and state into the tensors it was given (which
+    the step returns) and drops each gradient as soon as its parameter is
+    written, so no second copy of the trees is made. The values are the
+    functional step's bit for bit."""
     grads_of = value_and_grad(loss_fn)
 
     def train_step(params: Params, opt_state: AdamWState, batch):
@@ -160,6 +172,9 @@ def make_train_step(
                 loss = loss + mb_loss
             loss = loss / n
             grads = {k: g / n for k, g in grads.items()}
+        if donate:
+            gnorm = optimizer.update_(grads, opt_state, params)
+            return params, opt_state, {"loss": loss.float(), "grad_norm": gnorm}
         new_params, new_opt, gnorm = optimizer.update(grads, opt_state, params)
         return new_params, new_opt, {"loss": loss.float(), "grad_norm": gnorm}
 

@@ -44,11 +44,13 @@ def test_importing_the_port_imports_no_jax():
 
 def test_the_lm_family_modules_are_covered():
     """The scans above reach the MoE model, the mLSTM kernel's wrappers and
-    every configuration of ``ARCH_IDS``, the MoE ones too."""
+    every configuration of ``ARCH_IDS``, the MoE ones and the two with a
+    frontend too."""
     from repro_torch.configs import ARCH_IDS
 
     names = set(port_modules())
-    assert {"deepseek_moe_16b", "kimi_k2_1t_a32b"} <= set(ARCH_IDS)
+    assert {"deepseek_moe_16b", "kimi_k2_1t_a32b", "hubert_xlarge",
+            "qwen2_vl_72b"} <= set(ARCH_IDS)
     for name in ("models.moe", "models.lm", "kernels.mlstm_chunk.ops",
                  "kernels.mlstm_chunk.ref", *(f"configs.{a}" for a in ARCH_IDS)):
         assert f"repro_torch.{name}" in names

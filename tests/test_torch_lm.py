@@ -5,9 +5,11 @@ Qwen2.5-32B: GQA, qkv bias, RMSNorm, θ=1e6; Command R+: GQA, tied
 embeddings), the two recurrent ones (RecurrentGemma-9B: two RG-LRU
 blocks and one local-attention block per unit, a ring KV cache of the
 16-token window, two tail layers; xLSTM-1.3B: mLSTM and sLSTM blocks)
-and the two MoE ones (DeepSeek-MoE-16B, Kimi-K2: a dense head layer, then
-attention and routed experts),
-with parameters made by the JAX ``init`` at ``init_scale=1`` and carried
+the two MoE ones (DeepSeek-MoE-16B, Kimi-K2: a dense head layer, then
+attention and routed experts) and the two with a frontend (HuBERT X-Large:
+frames through ``frontend/proj``, non-causal, encoder-only, so it has its
+encoder cases and no decode ones; Qwen2-VL-72B: patches over the first
+positions, M-RoPE), with parameters made by the JAX ``init`` at ``init_scale=1`` and carried
 across by ``repro_torch.bridge``. At that scale, with the norms' scales and
 biases, the qkv biases and the recurrent gates' biases drawn at random,
 every sub-layer moves the logits by O(1), so a wrong MLP, norm, residual,
@@ -45,6 +47,8 @@ jax_attend = jax.jit(JA.attend, static_argnums=2)
 # static properties of the configurations, the same in every process
 WITH_ATTENTION = [n for n in ARCH_IDS if "attn" in get_smoke(n).block_pattern]
 ATTENTION_ONLY = [n for n in ARCH_IDS if tuple(get_smoke(n).block_pattern) == ("attn",)]
+# the causal configurations, which decode (HuBERT X-Large is encoder-only)
+DECODERS = [n for n in ARCH_IDS if get_smoke(n).causal]
 
 
 @pytest.fixture(scope="module", params=ARCH_IDS)
@@ -81,6 +85,21 @@ def randomize_constants(params, seed=0):
 
 def tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def batch_of(cfg, b, s, seed=0):
+    """A numpy batch the configuration takes: frames and labels for the
+    audio frontend, tokens with patches over fewer than ``s`` positions for
+    the vision one, tokens otherwise."""
+    if cfg.frontend == "audio":
+        rng = np.random.default_rng(seed)
+        return {"frames": rng.standard_normal((b, s, cfg.frontend_dim), dtype=np.float32),
+                "labels": tokens(cfg, b, s, seed + 1)}
+    batch = {"tokens": tokens(cfg, b, s, seed)}
+    if cfg.frontend == "vision":
+        batch["patches"] = np.random.default_rng(seed + 1).standard_normal(
+            (b, s // 2, cfg.frontend_dim), dtype=np.float32)
+    return batch
 
 
 def jax_layer(tree, cfg, i):
@@ -167,18 +186,30 @@ def test_attend_matches_with_and_without_cache(arch):
         close(ty, jy)
         close(cache.k, jcache.k)
         close(cache.v, jcache.v)
-        if not cfg.window:  # a window narrower than the sequence differs from it
+        # a window narrower than the sequence differs from the full pass, and
+        # so does a non-causal block, which sees no keys past the cache's end
+        if cfg.causal and not cfg.window:
             close(ty, want[:, start:end])
 
 
 def test_forward_matches(arch):
-    t = tokens(arch["cfg"], 2, 12)
-    want, _ = arch["jax"].forward(arch["params"], {"tokens": jnp.asarray(t)})
-    got = arch["port"]({"tokens": torch.from_numpy(t)})
+    batch = batch_of(arch["cfg"], 2, 12)
+    want, _ = arch["jax"].forward(arch["params"], {k: jnp.asarray(a) for k, a in batch.items()})
+    got = arch["port"]({k: torch.from_numpy(a) for k, a in batch.items()})
     assert tuple(got.shape) == want.shape
     close(got, want)
 
 
+def test_loss_matches(arch):
+    """``LM.loss`` of a batch the configuration takes (the encoder-only one
+    against its labels, unshifted) at rtol 1e-5."""
+    batch = batch_of(arch["cfg"], 2, 12, seed=4)
+    want = arch["jax"].loss(arch["params"], {k: jnp.asarray(a) for k, a in batch.items()})
+    got = arch["port"].loss({k: torch.from_numpy(a) for k, a in batch.items()})
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", DECODERS, indirect=True)
 def test_decode_steps_match(arch):
     """A 5-token block prefill, then 15 single steps (past the SMOKE window
     of 16, so a ring cache wraps), each against JAX; every step's logits
@@ -213,6 +244,7 @@ def test_bridge_round_trip_is_exact(arch):
     for i, kind in enumerate(arch["port"].kinds):
         mixer = {"attn": "attn/wq", "rglru": "rec/lam", "mlstm": "mix/w_q", "slstm": "mix/r"}
         assert f"layers/{i}/{mixer[kind]}" in flat
+    assert ("frontend/proj" in flat) == bool(cfg.frontend)
     back = lm_params_to_jax(arch["port"])
     la, ta = jax.tree_util.tree_flatten(back)
     lb, tb = jax.tree_util.tree_flatten(params)
@@ -244,18 +276,11 @@ def test_config_parameter_count_on_meta(name):
 
 
 def test_unported_blocks_raise():
-    """What the port does not take yet raises, naming its ROADMAP item: the
-    vision and audio frontends, M-RoPE, and a block of several tokens into a
-    ring KV cache at a position past 0."""
+    """What the port does not take yet raises, naming its ROADMAP item: a
+    block of several tokens into a ring KV cache at a position past 0."""
     base = get_smoke("stablelm_3b")
-    for cfg in (dataclasses.replace(base, frontend="vision"),
-                dataclasses.replace(base, frontend="audio")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(cfg, "cpu")
     p = A.init_attention(base, torch.Generator().manual_seed(0))
     x, pos = torch.zeros(1, 2, base.d_model), torch.arange(2)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.attend(p, x, dataclasses.replace(base, rope="mrope"), positions=pos)
     windowed = dataclasses.replace(base, window=4)
     ring = A.init_kv_cache(1, 8, windowed)
     assert ring.k.shape[1] == 4, "a windowed configuration's cache is a ring of the window"

@@ -171,7 +171,7 @@ def test_loss_is_the_next_token_cross_entropy_of_forward(reference):
     model.load_jax_params(tree)
     t = torch.from_numpy(tokens)
     logits = model({"tokens": t})
-    assert logits.grad_fn is None and model.hidden(t).grad_fn is None
+    assert logits.grad_fn is None and model.hidden({"tokens": t}).grad_fn is None
     loss = model.loss({"tokens": t})
     want = torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                                              t[:, 1:].reshape(-1).long())
