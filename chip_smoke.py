@@ -81,18 +81,21 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    ``make_input_pipeline(overlap=True)`` with exact ``lstm_cell`` and
    ``lstm_layer_bwd`` counts (and no ``lstm_cell_bwd``); each part's wall
    time, ``StageTimings`` and the feeds' ``OverlapReport``;
-10. the process shard executor against the thread executor on the same
-   corpus (``executors``), 4 workers, the ``device`` backend, the chain
-   without its dedup, the counters set to 0 just before each part and read
-   just after: ``fit_vocab`` (the same vocabulary), an epoch of
+10. the process and remote shard executors against the thread executor
+   on the same corpus (``executors``), 4 workers (the remote executor's
+   local TCP workers), the ``device`` backend, the chain without its
+   dedup, the counters set to 0 just before each part and read just after:
+   ``fit_vocab`` (the same vocabulary), an epoch of
    ``device_batches(overlap=True)`` (every batch equal bit for bit, the
    executors' start from construction to the first shard result), the
    shard cache cold and warm (the same counters, warm batches equal to
    cold), each with exactly 2 ``text_scan`` launches a shard, 0 warm, the
-   process workers' launches counted in the workers and added by the
-   caller; then 20 ``TrainController`` steps fed by
+   process and remote workers' launches counted in the workers and added
+   by the caller; then 20 ``TrainController`` steps fed by
    ``make_input_pipeline`` on each executor with exact ``lstm_cell`` and
-   ``lstm_layer_bwd`` counts (and no ``lstm_cell_bwd``);
+   ``lstm_layer_bwd`` counts (and no ``lstm_cell_bwd``); then the remote
+   epoch again with one worker SIGKILLed after the first result (the
+   threads' batches, exactly 2 launches a shard);
 11. text serving (``serve_text``): a row program of the abstract plan
    (``Dataset.row_program``, vocabulary fitted on the corpus), StableLM-3B
    at its published width and depth with that vocabulary (random weights
@@ -260,9 +263,9 @@ BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.00
                    ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326,
                    ("flash_attention_train", None): 0.04287,
                    ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287}
-# The phases' seconds before the frontends phase and the full-depth run were
-# added (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
-BEFORE_PHASES_SECONDS = 422.6
+# The phases' seconds before the remote executor's runs were added (PERF.md;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+BEFORE_PHASES_SECONDS = 489.6
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -279,7 +282,7 @@ P3SAPP_SCANS = {False: 2 * len(FIELDS), True: len(FIELDS)}
 # 4 executor threads, batches of 64 on the 2-D grid, 20 planner-fed steps.
 DATASET_WORKERS, DATASET_BATCH, DATASET_STEPS = 4, 64, 20
 # The executors phase: the same chain without its dedup on each executor.
-EXECUTORS = ("thread", "process")
+EXECUTORS = ("thread", "process", "remote")
 # The serve_text phase: StableLM-3B (the JAX launcher's default) over a row
 # program of the abstract plan; 28 requests in two waves sharing one ring
 # cache: the first 20 and an empty one into a queue of 32, then those 20
@@ -1141,10 +1144,11 @@ def counted(phase: str, label: str, want: int | None, fn, walls: dict, launches:
 
 
 @contextlib.contextmanager
-def timed_executors(into: list):
+def timed_executors(into: list, after_first=None):
     """Inside, each shard executor the planner makes is recorded in
     ``into``: its name, the seconds its construction took and the seconds
-    from then to its first shard result."""
+    from then to its first shard result; ``after_first(executor, record)``
+    runs once that first result is in."""
     from repro_torch.core import executor as EX
 
     real = EX.make_executor
@@ -1153,7 +1157,7 @@ def timed_executors(into: list):
         t0 = time.perf_counter()
         ex = real(*args, **kwargs)
         into.append({"name": ex.name, "construct_s": time.perf_counter() - t0})
-        return FirstResult(ex, t0, into[-1])
+        return FirstResult(ex, t0, into[-1], after_first)
 
     EX.make_executor = make
     try:
@@ -1167,24 +1171,40 @@ def cache_counters(stats: dict) -> dict:
                                          "token_cache_misses")}
 
 
+def same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x.keys() == y.keys() and all(
+        x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def kill_first_worker(executor, record: dict) -> None:
+    """SIGKILL the remote executor's first spawned worker, and keep it in
+    ``record`` to read its exit status after the run."""
+    import signal
+
+    victim = executor.workers[0]
+    victim.send_signal(signal.SIGKILL)
+    record["killed"] = victim
+
+
 def executors(workdir: Path) -> tuple[dict, dict]:
-    """The process shard executor against the thread executor under the
-    ``device`` backend, on the ``dataset`` phase's chain without its dedup
-    (a full-subset dedup keeps the reference on threads), 4 workers:
-    ``fit_vocab`` (the same vocabulary), an epoch of
-    ``device_batches(overlap=True)`` (every batch equal bit for bit), the
-    shard cache's cold and warm epochs (the same counters and batches),
-    each with 2 ``text_scan`` launches a shard (0 warm), the process
-    workers' counted by themselves and added by the caller; each
-    executor's start, from its construction to its first result; and
-    ``DATASET_STEPS`` ``TrainController`` steps fed by
+    """The process and remote shard executors against the thread executor
+    under the ``device`` backend, on the ``dataset`` phase's chain without
+    its dedup (a full-subset dedup keeps the reference on threads), 4
+    workers (the remote executor's: local TCP workers): ``fit_vocab`` (the
+    same vocabulary), an epoch of ``device_batches(overlap=True)`` (every
+    batch equal bit for bit), the shard cache's cold and warm epochs (the
+    same counters and batches), each with 2 ``text_scan`` launches a shard
+    (0 warm), the process and remote workers' counted by themselves and
+    added by the caller; each executor's start, from its construction to
+    its first result; ``DATASET_STEPS`` ``TrainController`` steps fed by
     ``make_input_pipeline`` under each, exact ``lstm_cell`` and
-    ``lstm_cell_bwd`` counts. Returns the launches and the ``executors``
-    line."""
+    ``lstm_layer_bwd`` counts; then the remote epoch again with one worker
+    SIGKILLed after the first result (the threads' batches, 2 launches a
+    shard). Returns the launches and the ``executors`` line."""
     import tempfile
 
     from repro_torch.configs.p3sapp_summarizer import CONFIG
-    from repro_torch.core import executor as EX
     from repro_torch.core.dataset import Dataset
     from repro_torch.core.expr import abstract_expr, col, title_expr
     from repro_torch.core.ingest import list_shards
@@ -1202,6 +1222,7 @@ def executors(workdir: Path) -> tuple[dict, dict]:
     keep = col("title").not_empty() & col("abstract").not_empty()
     specs = seq2seq_specs(CONFIG.max_abstract_len, CONFIG.max_title_len)
     walls, launches = {}, {}
+    others = [e for e in EXECUTORS if e != "thread"]
     line = {"shards": shards, "workers": DATASET_WORKERS, "executors": EXECUTORS}
 
     def chain(executor):
@@ -1219,7 +1240,11 @@ def executors(workdir: Path) -> tuple[dict, dict]:
         if stats.get("executor") != executor:
             fail(f"executors ({label}) ran on {stats.get('executor')}, not {executor}")
 
-    # 1. fit_vocab: the same vocabulary on either executor
+    def each(seconds):
+        """``seconds(executor)`` for every executor, as text."""
+        return ", ".join(f"{seconds(e):.3f} s on {e}" for e in EXECUTORS)
+
+    # 1. fit_vocab: the same vocabulary on every executor
     vocabs, fit_timings = {}, {}
     for executor in EXECUTORS:
         stats = {}
@@ -1228,50 +1253,49 @@ def executors(workdir: Path) -> tuple[dict, dict]:
         ran_on(f"fit_vocab {executor}", stats, executor)
         fit_timings[executor] = stats["timings"].as_dict()
     tok = vocabs["thread"]
-    if vocabs["process"].itos != tok.itos:
-        fail("executors: fit_vocab's vocabulary differs between threads and processes")
+    for executor in others:
+        if vocabs[executor].itos != tok.itos:
+            fail(f"executors: fit_vocab's vocabulary differs between threads and {executor}")
     line["fit_vocab"] = {"vocab": len(tok), "timings": fit_timings, "equal": True}
-    print(f"executors: fit_vocab {walls['fit_vocab_thread']:.3f} s on threads, "
-          f"{walls['fit_vocab_process']:.3f} s on processes, {per_pass} text_scan launches "
-          f"each, vocabularies equal ({len(tok)} words)")
+    print(f"executors: fit_vocab {each(lambda e: walls['fit_vocab_' + e])}, "
+          f"{per_pass} text_scan launches each, vocabularies equal ({len(tok)} words)")
 
     # 2. an epoch into DeviceFeed, and each executor's start
+    def epoch_run(executor, stats):
+        feed = batched(chain(executor), tok).device_batches(overlap=True, stats=stats)
+        got = []
+        try:
+            for batch in feed:
+                with feed.step(batch):
+                    got.append({k: batch[k].cpu().numpy() for k in batch})
+        finally:
+            feed.close()
+        return got, feed.report()
+
     batches, epoch = {}, {}
     for executor in EXECUTORS:
         stats, made = {}, []
-
-        def run():
-            feed = batched(chain(executor), tok).device_batches(overlap=True, stats=stats)
-            got = []
-            try:
-                for batch in feed:
-                    with feed.step(batch):
-                        got.append({k: batch[k].cpu().numpy() for k in batch})
-            finally:
-                feed.close()
-            return got, feed.report()
-
         with timed_executors(made):
-            batches[executor], report = scans(f"epoch_{executor}", per_pass, run)
+            batches[executor], report = scans(f"epoch_{executor}", per_pass,
+                                              lambda: epoch_run(executor, stats))
         ran_on(f"epoch {executor}", stats, executor)
         epoch[executor] = {"batches": len(batches[executor]),
                            "timings": stats["timings"].as_dict(), "feed": report.as_dict(),
                            "start": made[0]}
-    a, b = batches["thread"], batches["process"]
-    if len(a) != len(b) or not all(x.keys() == y.keys() and all(
-            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x)
-            for x, y in zip(a, b)):
-        fail("executors: the process executor's batches differ from the thread executor's")
+    for executor in others:
+        if not same_batches(batches[executor], batches["thread"]):
+            fail(f"executors: the {executor} executor's batches differ from the thread "
+                 "executor's")
     line["epoch"] = {**epoch, "equal": True}
-    print(f"executors: epoch {walls['epoch_thread']:.3f} s on threads, "
-          f"{walls['epoch_process']:.3f} s on processes ({len(a)} batches equal bit for bit, "
-          f"{per_pass} text_scan launches each, the process workers' summed); from "
-          f"construction to the first shard result: threads "
-          f"{epoch['thread']['start']['first_result_s']:.3f} s, processes "
-          f"{epoch['process']['start']['first_result_s']:.3f} s; StageTimings (thread-seconds, "
-          f"worker-seconds) {json.dumps({k: v['timings'] for k, v in epoch.items()})}")
+    print(f"executors: epoch {each(lambda e: walls['epoch_' + e])} "
+          f"({len(batches['thread'])} batches equal bit for bit, {per_pass} text_scan "
+          f"launches each, the process and remote workers' summed); from construction to "
+          f"the first shard result: "
+          f"{each(lambda e: epoch[e]['start']['first_result_s'])}; StageTimings "
+          f"(thread-seconds, worker-seconds) "
+          f"{json.dumps({k: v['timings'] for k, v in epoch.items()})}")
 
-    # 3. the shard cache, cold then warm: the same counters either way
+    # 3. the shard cache, cold then warm: the same counters on every executor
     cache = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache_root:
         for executor in EXECUTORS:
@@ -1294,18 +1318,19 @@ def executors(workdir: Path) -> tuple[dict, dict]:
                  token_cache_misses=per_pass),
             dict(cache_hits=0, cache_misses=0, token_cache_hits=per_pass,
                  token_cache_misses=0)]
-    if cache["process"]["counters"] != cache["thread"]["counters"] or \
-            cache["thread"]["counters"] != want:
-        fail(f"executors: cache counters {cache['thread']['counters']} on threads, "
-             f"{cache['process']['counters']} on processes, expected {want}")
-    if not all(np.array_equal(x[k], y[k]) for x, y in
-               zip(cache["process"].pop("batches"), cache["thread"].pop("batches")) for k in x):
-        fail("executors: the cached epochs' batches differ between the executors")
+    if any(cache[e]["counters"] != want for e in EXECUTORS):
+        fail(f"executors: cache counters "
+             f"{json.dumps({e: cache[e]['counters'] for e in EXECUTORS})}, expected {want}")
+    thread_cold = cache["thread"].pop("batches")
+    for executor in others:
+        if not all(np.array_equal(x[k], y[k]) for x, y in
+                   zip(cache[executor].pop("batches"), thread_cold) for k in x):
+            fail(f"executors: the cached epochs' batches differ between threads and "
+                 f"{executor}")
     line["cache"] = cache
-    print(f"executors: cache cold/warm {walls['cache_cold_thread']:.3f}/"
-          f"{walls['cache_warm_thread']:.3f} s on threads, {walls['cache_cold_process']:.3f}/"
-          f"{walls['cache_warm_process']:.3f} s on processes; text_scan launches "
-          f"{per_pass}/0 each; counters {json.dumps(want)} on both")
+    print(f"executors: cache cold {each(lambda e: walls['cache_cold_' + e])}; warm "
+          f"{each(lambda e: walls['cache_warm_' + e])}; text_scan launches {per_pass}/0 "
+          f"each; counters {json.dumps(want)} on each")
 
     # 4. make_input_pipeline feeds the train step at CONFIG width
     model = Seq2Seq(CONFIG, "cuda", seed=SEED)
@@ -1363,6 +1388,27 @@ def executors(workdir: Path) -> tuple[dict, dict]:
               f"step, median step {train[executor]['step_ms_median']:.1f} ms); launches "
               f"{json.dumps(got)}; loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}")
+
+    # 5. the remote epoch again, one worker SIGKILLed after the first result:
+    # its lease is released and a survivor runs its shard; the dedup keeps
+    # one result, and one report of launches, a shard
+    stats, made = {}, []
+    with timed_executors(made, after_first=kill_first_worker):
+        killed, _ = scans("epoch_remote_killed", per_pass, lambda: epoch_run("remote", stats))
+    ran_on("epoch remote killed", stats, "remote")
+    victim = made[0].pop("killed", None)
+    if victim is None or victim.wait(timeout=30) != -9:
+        fail(f"executors: the remote worker was not SIGKILLed "
+             f"({victim and victim.returncode})")
+    if not same_batches(killed, batches["thread"]):
+        fail("executors: the remote epoch with a worker SIGKILLed differs from the thread "
+             "executor's")
+    line["killed_worker"] = {"batches": len(killed), "equal": True,
+                             "timings": stats["timings"].as_dict(), "start": made[0],
+                             "exit": victim.returncode}
+    print(f"executors: remote epoch with one of {DATASET_WORKERS} workers SIGKILLed after "
+          f"the first result {walls['epoch_remote_killed']:.3f} s ({len(killed)} batches "
+          f"equal bit for bit to threads, {per_pass} text_scan launches)")
     walls["phase"] = time.perf_counter() - started
     line.update({"train": train, "seconds": walls, "text_scan_launches": launches})
     print(f"executors: phase wall {walls['phase']:.3f} s")
@@ -1374,17 +1420,22 @@ def executors(workdir: Path) -> tuple[dict, dict]:
 
 class FirstResult:
     """A shard executor whose first result's time is recorded in ``into``
-    (``first_result_s``, from ``t0``, just before its construction)."""
+    (``first_result_s``, from ``t0``, just before its construction), and
+    on which ``after_first(executor, into)`` runs then."""
 
-    def __init__(self, executor, t0: float, into: dict):
+    def __init__(self, executor, t0: float, into: dict, after_first=None):
         self._executor, self._t0, self._into = executor, t0, into
+        self._after_first = after_first
 
     def __getattr__(self, name):
         return getattr(self._executor, name)
 
     def __iter__(self):
         for res in self._executor:
-            self._into.setdefault("first_result_s", time.perf_counter() - self._t0)
+            if "first_result_s" not in self._into:
+                self._into["first_result_s"] = time.perf_counter() - self._t0
+                if self._after_first is not None:
+                    self._after_first(self._executor, self._into)
             yield res
 
 
@@ -4351,7 +4402,7 @@ def main() -> int:
     del p3sapp_records
     torch.cuda.empty_cache()
 
-    # 10. threads against processes on the same corpus
+    # 10. threads against processes and remote workers on the same corpus
     executors_launches, executors_line = executors(workdir)
     torch.cuda.empty_cache()
 
@@ -4534,7 +4585,7 @@ def main() -> int:
         print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
               f"(before: {before} ms, {before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s (before the "
-          f"frontends and the full-depth run: {BEFORE_PHASES_SECONDS} s)")
+          f"remote executor's runs: {BEFORE_PHASES_SECONDS} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
     for line in serve_lm_lines:

@@ -31,8 +31,8 @@ pass on ``device``, and ``device_batches`` copies batches to it: the card
 unless the chain (``.device(...)``) or the terminal (``device=``) names
 another, and without a card both raise. ``.workers(n)`` runs shards on
 spawned processes when ``n > 1``, as the reference's forked ones, and
-under the ``device`` backend each worker runs its scans on that device;
-``executor="remote"`` raises (:mod:`repro_torch.core.engine_config`).
+under the ``device`` backend each worker runs its scans on that device,
+the remote executor's TCP workers too (``.workers(n, remote=...)``).
 ``sharding=`` is refused.
 """
 
@@ -467,14 +467,21 @@ class Dataset:
     ) -> "Dataset":
         """Default worker count for every terminal of this chain (and, for
         streaming terminals, which physical executor runs the shards:
-        ``"thread"``/``"process"``; default picks processes when
-        ``n > 1``). ``"remote"`` or a ``remote=`` option raise here: the
-        remote executor is not ported yet. Copy of
+        ``"thread"``/``"process"``/``"remote"``; default picks processes
+        when ``n > 1``). Passing ``remote=...`` (True or an options dict,
+        see :class:`repro_torch.distributed.coordinator.RemoteShardExecutor`)
+        selects the remote data plane: a coordinator leasing shards to
+        ``n`` TCP worker processes with heartbeat liveness and
+        restart-safe reassignment. Copy of
         ``repro/core/dataset.py:475``."""
         if n < 1:
             raise ValueError(f"workers must be >= 1, got {n}")
-        EngineConfig(executor="remote" if remote is not None else executor).resolve_executor()
         opts: dict[str, Any] = {"workers": int(n)}
+        if remote is not None:
+            opts["remote"] = remote
+            if executor is None:
+                executor = "remote"
+        EngineConfig(executor=executor).resolve_executor()  # an unknown name raises here
         if executor is not None:
             opts["executor"] = executor
         return self._with_options(**opts)

@@ -7,8 +7,8 @@ its five knobs and their one resolution order:
                        >  environment variable  >  default
 
 =======================  =====================================================
-``REPRO_EXECUTOR``       shard executor: ``thread``/``process`` (empty =
-                         auto: processes when workers > 1)
+``REPRO_EXECUTOR``       shard executor: ``thread``/``process``/``remote``
+                         (empty = auto: processes when workers > 1)
 ``REPRO_WORKERS``        default worker count for every terminal
 ``REPRO_CACHE``          truthy = enable the on-disk shard cache
 ``REPRO_CACHE_DIR``      shard-cache root (with ``REPRO_CACHE`` or
@@ -19,9 +19,7 @@ its five knobs and their one resolution order:
 Where the port differs. The backend's default is ``device`` (the
 reference's is ``loops``): the port's entry points run on the card unless
 the caller asks for the host with ``backend="loops"`` or ``"fused"``, or
-``device="cpu"``. ``remote``, explicit or from ``REPRO_EXECUTOR``, raises
-``ValueError``: the remote executor is not ported yet (ROADMAP Queue 1).
-The reference's ``REPRO_PALLAS_INTERPRET`` has no counterpart.
+``device="cpu"``. The reference's ``REPRO_PALLAS_INTERPRET`` has no counterpart.
 
 This module imports neither torch nor the executor at import time: the
 stage pipeline's spawned pool workers and the process shard executor's
@@ -49,9 +47,7 @@ _TRUTHY = ("1", "true", "yes", "on")
 # from an explicit ``.cache(False)`` (stored as None: cache off, env ignored).
 _UNSET: Any = object()
 
-EXECUTORS = ("", "thread", "process")
-# The reference's executor that the port has not ported yet.
-UNPORTED_EXECUTORS = ("remote",)
+EXECUTORS = ("", "thread", "process", "remote")
 
 
 def _env_truthy(name: str) -> bool:
@@ -88,18 +84,14 @@ class EngineConfig:
     def resolve_executor(self, explicit: str | None = None) -> str:
         """``""`` means auto (processes when workers > 1, else threads:
         :func:`~repro_torch.core.executor.make_executor` applies that last
-        step because it also owns the fallback rules); ``ValueError`` for
-        ``remote``, which the port does not have, or an unknown name."""
+        step because it also owns the fallback rules); ``ValueError`` for an
+        unknown name."""
         choice = (explicit or self.executor or os.environ.get(ENV_EXECUTOR) or "")
         choice = choice.strip().lower()
-        if choice in UNPORTED_EXECUTORS:
-            raise ValueError(
-                f"executor {choice!r} is not ported to repro_torch yet (ROADMAP.md "
-                "Queue 1: the remote executor and its TCP data plane); use "
-                "executor='thread' or 'process'"
-            )
         if choice not in EXECUTORS:
-            raise ValueError(f"unknown executor {choice!r}; use 'thread' or 'process'")
+            raise ValueError(
+                f"unknown executor {choice!r}; use 'thread', 'process' or 'remote'"
+            )
         return choice
 
     def resolve_workers(self, explicit: int | None = None, default: int = 1) -> int:

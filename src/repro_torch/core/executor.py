@@ -1,8 +1,9 @@
 """Shard executors: reader threads or spawned worker processes, and the
 plan-fingerprint shard cache.
 
-Copy of ``repro/core/executor.py`` without the remote executor
-(``:78-1906``):
+Copy of ``repro/core/executor.py`` (``:78-1906``); its remote executor is
+:mod:`repro_torch.distributed.coordinator`, which :func:`make_executor`
+selects:
 
 * :class:`ShardProgram`: the per-shard physical program compiled from the
   frame-level plan (parse -> select/dropna/filter[/dedup] -> per-column
@@ -34,8 +35,8 @@ touched CUDA cannot use it. So this module imports no torch at import
 time, and a child under a host backend (``loops``, ``fused``) never
 imports it; under ``device`` each child makes ``program.device`` current
 before the first shard whose steps it runs, and runs its scans there
-itself, or raises. ``executor="remote"`` raises:
-the remote executor is not ported yet (ROADMAP Queue 1).
+itself, or raises. The remote executor's workers do the same
+(:mod:`repro_torch.distributed.worker`).
 """
 
 from __future__ import annotations
@@ -2024,17 +2025,35 @@ def make_executor(
     needs cross-shard dedup state, the platform lacks shared memory,
     ``workers <= 1``, the default choice lands on one core, or the program
     does not pickle (a lambda word predicate: workers are spawned, so the
-    program travels pickled). ``executor="remote"`` and a ``remote``
-    option raise ``ValueError``: the remote executor is not ported yet.
+    program travels pickled).
+
+    ``executor="remote"`` (or ``REPRO_EXECUTOR=remote``) runs shards on
+    the remote data plane, a coordinator leasing shards to TCP worker
+    processes (:mod:`repro_torch.distributed.coordinator`); ``remote``
+    carries its options (see :class:`RemoteShardExecutor`). Like the
+    process executor it falls back to threads for cross-shard dedup
+    programs and unpicklable programs.
     Copy of ``repro/core/executor.py:1824``, whose pickle check applies
     on spawn-only platforms, which the port's always-spawning executor
     makes every platform."""
     choice = EngineConfig(executor=executor).resolve_executor()
-    if remote is not None:
-        EngineConfig(executor="remote").resolve_executor()
     explicit = bool(choice)
     if not choice:
         choice = "process" if workers > 1 else "thread"
+    if choice == "remote":
+        if program.has_dedup or not _picklable(program):
+            choice = "thread"
+        else:
+            from ..distributed.coordinator import RemoteShardExecutor
+
+            return RemoteShardExecutor(
+                shards,
+                program,
+                workers=max(int(workers), 1),
+                cache_dir=cache_dir,
+                row_filters=row_filters,
+                remote=remote,
+            )
     # More worker processes than cores only adds spawn + scheduling cost;
     # clamp (the thread pool is unclamped — its readers overlap blocking
     # I/O, not CPU). When the *default* selection lands on one effective

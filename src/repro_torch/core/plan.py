@@ -936,7 +936,7 @@ def stream_batches(
     device=None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Per-shard streaming execution: parse → filter → clean each shard
-    on a shard executor, threads or processes (see
+    on a shard executor, threads, processes or remote workers (see
     :func:`repro_torch.core.executor.make_executor`), then tokenize and batch
     across shard boundaries.
 
@@ -956,8 +956,11 @@ def stream_batches(
     partial dedup *stacked with another dedup* is rejected.
 
     ``cache_dir`` enables the plan-fingerprint shard cache; ``executor``
-    is ``"thread"`` or ``"process"`` (``"remote"`` raises), ``device`` is
-    where the ``device`` backend's scan passes run. When ``stats`` is a dict it receives
+    forces ``"thread"``/``"process"``/``"remote"`` (default: env
+    ``REPRO_EXECUTOR``, then processes when ``workers > 1``); ``remote``
+    carries the remote data plane's options (see
+    :class:`repro_torch.distributed.coordinator.RemoteShardExecutor`);
+    ``device`` is where the ``device`` backend's scan passes run. When ``stats`` is a dict it receives
     ``executor``, ``cache_hits``, ``cache_misses`` and per-epoch ``timings``
     after each epoch completes.
     Copy of ``repro/core/plan.py:877``.

@@ -8,6 +8,11 @@ parameters ``init_state`` makes (the model's). ``run`` beats the
 heartbeat, records each step's metrics as floats, saves every
 ``save_every`` steps and once at the end. The reference's ``shardings``
 has no counterpart on one card.
+
+The remote data plane's workers import ``Heartbeat`` from here, and under
+a host backend they never import torch: so this module imports torch and
+the checkpointer only inside the functions that use them (the contract
+lint's rule R001).
 """
 
 from __future__ import annotations
@@ -16,11 +21,6 @@ import os
 import time
 from pathlib import Path
 from typing import Any, Callable, Iterator
-
-import torch
-
-from ..checkpoint.tree import flatten_with_paths
-from ..checkpoint.checkpointer import Checkpointer
 
 
 class Heartbeat:
@@ -64,7 +64,11 @@ class Heartbeat:
         return ts is not None and (time.time() - ts) < timeout_s
 
 
-def _device_of(tree: Any) -> torch.device:
+def _device_of(tree: Any) -> "torch.device":
+    import torch
+
+    from ..checkpoint.tree import flatten_with_paths
+
     for _, leaf in flatten_with_paths(tree):
         if isinstance(leaf, torch.Tensor):
             return leaf.device
@@ -84,6 +88,8 @@ class TrainController:
         keep: int = 3,
         heartbeat: Heartbeat | None = None,
     ):
+        from ..checkpoint.checkpointer import Checkpointer
+
         self.ckpt = Checkpointer(ckpt_dir, keep=keep)
         self.train_step = train_step
         self.save_every = save_every

@@ -4,8 +4,8 @@ and batches, whole-frame and streamed at 1 and 2 workers, equal to the
 reference's bit for bit (the port under ``loops``, ``fused`` and
 ``device`` on the CPU, the reference under ``loops``); the count of scans
 that reach the kernel equal to the reference's; the process executor
-where the reference picks it, and the remote one refused; and nothing put
-on the CPU unless the caller names it."""
+where the reference picks it, and the remote one where it is asked for;
+and nothing put on the CPU unless the caller names it."""
 
 from collections import Counter
 
@@ -244,42 +244,44 @@ def test_streamed_scan_counts_equal_the_reference(corpus, scan_counts):
     assert scan_counts == {"port": 4 * N_SHARDS, "ref": 4 * N_SHARDS}
 
 
-def test_the_executors_the_port_lacks_raise(corpus, monkeypatch):
+def test_the_remote_and_process_executors_give_the_thread_executors_result(corpus,
+                                                                          monkeypatch):
     """``remote``, as a name, a ``remote=`` option or ``REPRO_EXECUTOR``,
-    raises naming the ROADMAP; ``process``, explicit or from
-    ``REPRO_EXECUTOR``, runs and gives the thread executor's batches and
-    vocabulary, and the dedup chain falls back to threads as the
-    reference's does."""
+    and ``process``, explicit or from ``REPRO_EXECUTOR``, run and give the
+    thread executor's batches and vocabulary; an unknown name raises; the
+    dedup chain falls back to threads on either, as the reference's does."""
+    fast = {"lease_s": 5.0, "heartbeat_timeout": 3.0, "heartbeat_interval_s": 0.1}
     ds = port_chain(corpus, dedup=False)
     tok = ds.fit_vocab(vocab_size=400)
-    for kw in ({"executor": "remote"}, {"remote": True}):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            ds.workers(2, **kw)
     with pytest.raises(ValueError, match="unknown executor"):
         ds.workers(2, executor="fiber")
     shards = sorted(corpus.glob("*.jsonl"))
     program = PX.compile_shard_program([ds.plan[0]], backend="loops")
-    for kw in ({"executor": "remote"}, {"remote": {"port": 1}}):
-        with pytest.raises(ValueError, match="not ported"):
-            PX.make_executor(shards, program, **kw)
+    for remote in (fast, {"spawn": False}):
+        ex = PX.make_executor(shards, program, executor="remote", remote=remote)
+        try:
+            assert ex.name == "remote"
+        finally:
+            ex.stop()
     threads = list(batch_chain(ds, tok, PBT).workers(2, executor="thread").iter_batches())
+    for kw in ({"executor": "process"}, {"executor": "remote"}, {"remote": fast}):
+        stats = {}
+        assert_batches_equal(list(batch_chain(ds, tok, PBT).workers(2, **kw)
+                                  .iter_batches(stats=stats)), threads)
+        assert stats["executor"] == kw.get("executor", "remote")
+    for executor in ("process", "remote"):
+        stats = {}
+        assert len(list(batch_chain(port_chain(corpus), tok, PBT).workers(2, executor=executor)
+                        .iter_batches(stats=stats))) > 0
+        assert stats["executor"] == "thread"
+    for executor in ("process", "remote"):
+        monkeypatch.setenv("REPRO_EXECUTOR", executor)
+        stats = {}
+        assert ds.workers(2).fit_vocab(vocab_size=400, stats=stats).stoi == tok.stoi
+        assert stats["executor"] == executor
     stats = {}
-    assert_batches_equal(list(batch_chain(ds, tok, PBT).workers(2, executor="process")
-                              .iter_batches(stats=stats)), threads)
-    assert stats["executor"] == "process"
-    stats = {}
-    assert len(list(batch_chain(port_chain(corpus), tok, PBT).workers(2, executor="process")
-                    .iter_batches(stats=stats))) > 0
+    assert len(list(batch_chain(port_chain(corpus), tok, PBT).iter_batches(stats=stats))) > 0
     assert stats["executor"] == "thread"
-    monkeypatch.setenv("REPRO_EXECUTOR", "process")
-    stats = {}
-    assert ds.workers(2).fit_vocab(vocab_size=400, stats=stats).stoi == tok.stoi
-    assert stats["executor"] == "process"
-    monkeypatch.setenv("REPRO_EXECUTOR", "remote")
-    with pytest.raises(ValueError, match="not ported"):
-        ds.workers(2).fit_vocab(vocab_size=400)
-    with pytest.raises(ValueError, match="not ported"):
-        batch_chain(port_chain(corpus), tok, PBT).iter_batches()
     monkeypatch.setenv("REPRO_EXECUTOR", "thread")
     stats = {}
     assert len(list(batch_chain(port_chain(corpus), tok, PBT).workers(3)

@@ -66,6 +66,39 @@ def test_the_planner_modules_are_covered():
         assert f"repro_torch.{name}" in names
 
 
+def test_the_remote_data_plane_and_the_lint_are_covered():
+    """The scans above reach the three ``distributed`` modules and the two
+    of the contract lint; importing the worker tier loads no torch."""
+    names = set(port_modules())
+    for name in ("distributed", "distributed.transport", "distributed.worker",
+                 "distributed.coordinator", "analysis.contracts", "analysis.__main__"):
+        assert f"repro_torch.{name}" in names
+    code = (
+        "import sys, repro_torch.distributed.worker, repro_torch.distributed.transport\n"
+        "import repro_torch.analysis.contracts, repro_torch.analysis.__main__\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'triton', 'jax', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module,prog", [
+    ("repro_torch.distributed.worker", "python -m repro_torch.distributed.worker"),
+    ("repro_torch.analysis", "python -m repro_torch.analysis"),
+    ("repro_torch.launch.train", "train.py"),
+    ("repro_torch.launch.serve", "serve.py"),
+])
+def test_the_entry_points_answer_help(module, prog):
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith(f"usage: {prog}")
+
+
 def imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
