@@ -182,10 +182,34 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    of ``make_train_step`` over a pool of 4 frame batches labelled by their
    nearest seeded centroid (flash 48 x 2 forward and 48 backward a step,
    the loss falling; seconds a step, frames/s, peak memory);
-16. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+16. bf16 training (``lm_train_bf16``; its draws from a generator of its
+   own), as the JAX dry run's train cells build the LM (``remat``, bf16
+   parameters, AdamW with fp32 moments): ``flash_attention_train_bf16``
+   and ``flash_attention_bwd_bf16`` (bf16 tensor cores) against their
+   plain versions at the fp32 training shapes, HuBERT X-Large's and
+   Qwen2-VL-72B's, and StableLM-3B's train_4k microbatch (8 x 4,096, 32
+   heads of 80, causal): out and the gradients within 2e-2 abs/rel or 2e-2
+   of the tensor's max, lse within one bf16 unit of the row's largest
+   score (the scores are rounded to bf16) and 2e-5, twice bit for bit, no
+   input written; both timed at 8 x 64 and 8 x 4,096 beside their plain versions,
+   bounds and ``scaled_dot_product_attention`` in bf16; one bf16
+   ``value_and_grad`` of ``LM.loss`` card against CPU for StableLM-3B,
+   RecurrentGemma-9B, xLSTM-1.3B and DeepSeek-MoE-16B at
+   ``CARD_VS_CPU_LAYERS`` full-width layers (each gradient within 2e-2 of
+   the CPU's bf16 one or no further from the CPU's fp32 one than the
+   CPU's bf16 one, times 1.5, and where one misses both, the step split at
+   the residual stream held to the same rule; cuBLAS may not add partial
+   sums in bf16; launches exact, each token's expert set equal, and where
+   a token ranks its experts apart its ``moe_local`` output held); StableLM-3B
+   at all 32 layers in bf16 on 8 rows of 4,096 tokens of ``build_dataset``,
+   5 donating steps (64 flash forward and 32 backward launches a step,
+   finite losses; seconds a step, tokens/s, peak memory, one step traced,
+   the share of the bf16 peak);
+17. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
    line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
-   ``dataset``, ``executors``, ``serve_text``, ``lm_train`` and
-   ``frontends`` lines, the card line from nvidia-smi, and the result line.
+   ``dataset``, ``executors``, ``serve_text``, ``lm_train``, ``frontends``
+   and ``lm_train_bf16`` lines, the card line from nvidia-smi, and the
+   result line.
 """
 
 from __future__ import annotations
@@ -222,7 +246,7 @@ SERVE_LM_LAYERS = {"deepseek_moe_16b": 8, "qwen2_vl_72b": 4}
 # layers of the card-vs-CPU model: one layer of every kind of the pattern
 # (DeepSeek-MoE-16B: its dense first layer and one MoE layer)
 CARD_VS_CPU_LAYERS = {"stablelm_3b": 2, "recurrentgemma_9b": 3, "xlstm_1_3b": 8,
-                      "deepseek_moe_16b": 2, "qwen2_vl_72b": 2}
+                      "deepseek_moe_16b": 2, "qwen2_vl_72b": 1}
 # the kernel each kind of LM layer launches once per model pass
 KERNEL_OF_KIND = {"attn": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm_chunk"}
 # Per-card peaks from NVIDIA's data sheets: (name substring, device memory
@@ -263,9 +287,9 @@ BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.00
                    ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326,
                    ("flash_attention_train", None): 0.04287,
                    ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287}
-# The phases' seconds before the remote executor's runs were added (PERF.md;
+# The phases' seconds before the bf16 training phase was added (PERF.md;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
-BEFORE_PHASES_SECONDS = 489.6
+BEFORE_PHASES_SECONDS = 615.8
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -3999,10 +4023,11 @@ FRONTEND_ARCHS = ("hubert_xlarge", "qwen2_vl_72b")
 # pool of HUBERT_POOL seeded frame batches whose labels are the frames'
 # nearest of 504 seeded centroids (k-means ids, as HuBERT's targets are)
 HUBERT_STEPS, HUBERT_POOL, HUBERT_LR, HUBERT_WARMUP = 20, 4, 3e-4, 5
-# full-width layers of the card-vs-CPU check: Qwen2-VL-72B's two are 17 GB of
+# full-width layers of the card-vs-CPU check: Qwen2-VL-72B's one is 13.5 GB of
 # parameters in fp32 (3.51 GB a layer, 4.98 GB each for the embedding and
-# the untied head), and the CPU holds them and their gradients
-FRONTEND_CHECK_LAYERS = 2
+# the untied head), and the CPU holds them and their gradients; every one of
+# its layers is of one kind (cut from two to keep the phases under 800 s)
+FRONTEND_CHECK_LAYERS = {"hubert_xlarge": 2, "qwen2_vl_72b": 1}
 
 
 def check_flash_frontends(gen) -> dict:
@@ -4137,7 +4162,7 @@ def frontend_card_vs_cpu(arch: str) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
 
-    n_layers = FRONTEND_CHECK_LAYERS
+    n_layers = FRONTEND_CHECK_LAYERS[arch]
     small = dataclasses.replace(get(arch), n_layers=n_layers, init_scale=1.0)
     need = 3 * 4 * exact_param_count(small)
     available = host_available_bytes()
@@ -4145,7 +4170,7 @@ def frontend_card_vs_cpu(arch: str) -> dict:
         n_layers = 1
         small = dataclasses.replace(small, n_layers=1)
         print(f"{small.name}: the host has {available / 1e9:.1f} GB available, under the "
-              f"{need / 1e9:.1f} GB of {FRONTEND_CHECK_LAYERS} layers: checking 1 layer")
+              f"{need / 1e9:.1f} GB of {FRONTEND_CHECK_LAYERS[arch]} layers: checking 1 layer")
     card = LM(small, "cuda", seed=SEED)
     cpu = LM(small, "meta")
     cpu.to_empty(device="cpu")
@@ -4298,6 +4323,620 @@ def frontends(bw: float, flops: float) -> tuple[dict, dict]:
     return line, rows
 
 
+# The lm_train_bf16 phase: the LM family trained in bf16, as the JAX dry
+# run's train cells build it (src/repro/launch/dryrun.py:189 build_cell:
+# LM(cfg, remat=True, dtype=bf16), AdamW, make_train_step). bf16 peaks of
+# the tensor cores, dense, from NVIDIA's data sheets: (name substring,
+# FLOP/s). First match wins.
+BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12), ("H100", 989e12))
+# train_4k's microbatch for StableLM-3B: MICRO_ROWS["stablelm_3b"] = 8 rows
+# (src/repro/launch/dryrun.py:50) of 4,096 tokens; 32 heads of 80, causal
+TRAIN_4K_ROWS, TRAIN_4K_SEQ = 8, 4096
+TRAIN_4K_FLASH = (TRAIN_4K_ROWS, TRAIN_4K_SEQ, 32, 32, 80, True, 0)
+# (b, s, nq, nkv, hd, causal, window) of the bf16 kernels' checks: the fp32
+# training shapes, HuBERT X-Large's and Qwen2-VL-72B's, and train_4k's
+FLASH_BF16_CASES = FLASH_BWD_CASES + FLASH_BWD_FRONTENDS + [TRAIN_4K_FLASH]
+FLASH_BF16_TIMED = {"8x64": FLASH_BWD_CASES[0], "8x4096": TRAIN_4K_FLASH}
+# a plain version past this many fp32 scores runs one batch row at a time
+# (train_4k's whole batch would be 17 GB of scores, and several such tensors)
+PLAIN_ROW_SCORES = 1 << 30
+# the bf16 step card vs CPU: the fp32 check's models and depths
+BF16_CHECKED = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b", "deepseek_moe_16b")
+# StableLM-3B at all 32 layers in bf16: the dry run's 32 microbatches x dp of
+# 8 rows cut to one microbatch (TrainStepConfig(n_microbatches=1)), 5
+# donating steps, AdamW with fp32 moments, lr warmup_cosine(3e-4, 1, 5)
+BF16_STEPS, BF16_LR, BF16_WARMUP = 5, 3e-4, 1
+
+
+def bf16_peak(name: str) -> float:
+    for key, flops in BF16_PEAKS:
+        if key in name:
+            return flops
+    fail(f"no bf16 peak for card {name!r}")
+
+
+def held_bf16(got, want, what: str) -> float:
+    """bf16 within 2e-2 abs/rel elementwise, or within 2e-2 of the tensor's
+    largest element (the kernel rounds P from its running max, the plain
+    version from the row's; out and the gradients come out rounded to bf16).
+    Returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    worst = err.max().item() if err.numel() else 0.0
+    if not (torch.all(err <= 2e-2 + 2e-2 * want.float().abs())
+            or worst <= 2e-2 * want.float().abs().max().item()):
+        fail(f"{what}: max abs err {worst:.3e} against the plain version (largest element "
+             f"{want.float().abs().max().item():.3e}; tol 2e-2 abs/rel or 2e-2 of the largest)")
+    return worst
+
+
+def lse_slack(q, k, kw) -> torch.Tensor:
+    """``(b, nq, s)``: one bf16 unit of each row's largest visible scaled
+    score (2^-7 of it) plus fp32's 2e-5, what lse may differ by between the
+    card and the plain version. Each score is rounded to bf16, as the
+    reference's einsum returns it; where the card's fp32 sum and the plain
+    version's land on two sides of a rounding boundary the score moves by
+    one bf16 unit, and lse, 1-Lipschitz in the scores, by no more than the
+    largest such move. One batch row at a time past ``PLAIN_ROW_SCORES``."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        mask &= pos[None, :] <= pos[:, None]
+    if kw["window"] > 0:
+        mask &= pos[None, :] > pos[:, None] - kw["window"]
+    rows = range(b) if b * nq * s * s > PLAIN_ROW_SCORES else [None]
+    out = []
+    for i in rows:
+        qi, ki = (q, k) if i is None else (q[i:i + 1], k[i:i + 1])
+        qg = qi.float().reshape(qi.shape[0], s, nkv, nq // nkv, hd)
+        top = torch.einsum("bsngk,btnk->bngst", qg, ki.float()).abs().mul_(hd ** -0.5)
+        out.append(torch.where(mask, top, 0.0).amax(-1).reshape(qi.shape[0], nq, s))
+        del top
+    return torch.cat(out) * 2.0 ** -7
+
+
+def held_lse(got, want, slack, what: str) -> float:
+    """lse within ``slack`` (``lse_slack``) + 2e-5 |lse|. Returns the worst
+    miss over the slack, a fraction of it."""
+    err = (got - want).abs()
+    limit = slack + 2e-5 * (1 + want.abs())
+    if not torch.all(err <= limit):
+        worst = (err - limit).argmax()
+        fail(f"{what}: lse misses the plain version by {err.flatten()[worst].item():.3e} where "
+             f"one bf16 unit of the row's largest score and fp32 allow "
+             f"{limit.flatten()[worst].item():.3e}")
+    return (err / limit).max().item() if err.numel() else 0.0
+
+
+def flash_bf16_plain(q, k, v, dout, kw, lse=None):
+    """The plain versions on the card in bf16: (out, lse) and, given lse,
+    (dq, dk, dv) (the bf16 backward reads no out); one batch row at a time
+    past ``PLAIN_ROW_SCORES``."""
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_train_ref)
+
+    b, s, nq = q.shape[:3]
+    rows = [slice(i, i + 1) for i in range(b)] if b * nq * s * s > PLAIN_ROW_SCORES \
+        else [slice(0, b)]
+    if lse is None:
+        parts = [flash_attention_train_ref(q[r], k[r], v[r], **kw) for r in rows]
+    else:
+        parts = [flash_attention_bwd_ref(q[r], k[r], v[r], None, lse[r], dout[r], **kw)
+                 for r in rows]
+    return [torch.cat(ts) for ts in zip(*parts)]
+
+
+def flash_bf16_inputs(case, gen):
+    return [t.bfloat16() for t in flash_bwd_inputs(case, gen)]
+
+
+def check_flash_bf16(gen) -> tuple[float, float, float]:
+    """``flash_attention_train_bf16`` and ``flash_attention_bwd_bf16`` against
+    their plain versions on the card at ``FLASH_BF16_CASES`` (out, dq, dk, dv
+    by ``held_bf16``, lse by ``held_lse``), each launched twice and held
+    equal bit for bit, no input written. Returns the max abs errors of out,
+    of the gradients and lse's worst error as a fraction of its slack."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    e_out = e_grad = e_lse = 0.0
+    for case in FLASH_BF16_CASES:
+        kw = dict(causal=case[5], window=case[6])
+        q, k, v, dout = flash_bf16_inputs(case, gen)
+        inputs = [t.clone() for t in (q, k, v, dout)]
+        out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
+        out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
+        grads = flash_ops.flash_attention_bwd(q, k, v, None, lse, dout, **kw)
+        again = flash_ops.flash_attention_bwd(q, k, v, None, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16 or lse.dtype != torch.float32 or \
+                any(g.dtype != torch.bfloat16 for g in grads):
+            fail(f"flash bf16 {case}: out {out.dtype}, lse {lse.dtype}, grads "
+                 f"{[g.dtype for g in grads]}")
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            fail(f"flash_attention_train bf16 {case}: two launches differ")
+        if not all(torch.equal(g, r) for g, r in zip(grads, again)):
+            fail(f"flash_attention_bwd bf16 {case}: two launches differ")
+        if not all(torch.equal(t, u) for t, u in zip((q, k, v, dout), inputs)):
+            fail(f"flash bf16 {case}: an input was written")
+        want_out, want_lse = flash_bf16_plain(q, k, v, dout, kw)
+        e_out = max(e_out, held_bf16(out, want_out, f"flash_attention_train bf16 {case} out"))
+        e_lse = max(e_lse, held_lse(lse, want_lse, lse_slack(q, k, kw),
+                                    f"flash_attention_train bf16 {case}"))
+        del want_out, want_lse
+        want = flash_bf16_plain(q, k, v, dout, kw, lse)
+        e_grad = max(e_grad, *(held_bf16(g, w, f"flash_attention_bwd bf16 {case} d{name}")
+                               for name, g, w in zip("qkv", grads, want)))
+        del q, k, v, dout, out, out2, lse, lse2, grads, again, want, inputs
+        torch.cuda.empty_cache()
+    print(f"flash_attention_train_bf16 and flash_attention_bwd_bf16: match their plain versions "
+          f"at {len(FLASH_BF16_CASES)} shapes (the fp32 training shapes, HuBERT X-Large's "
+          f"8 x 512 non-causal 16 x 80, Qwen2-VL-72B's 64/8 x 128 at 2 x 64, StableLM-3B's "
+          f"train_4k microbatch {TRAIN_4K_FLASH}); out {e_out:.3e}, grads {e_grad:.3e} (tol 2e-2 "
+          f"abs/rel or 2e-2 of the tensor's max), lse at {e_lse:.3f} of its slack (one bf16 "
+          f"unit of the row's largest score and 2e-5 abs/rel); "
+          f"two launches identical bit for bit; no input written")
+    return e_out, e_grad, e_lse
+
+
+def time_flash_bf16(case, gen, bw: float, flops: float) -> dict:
+    """Both bf16 kernels at ``case``, both timers (the median of 10 calls, and
+    20 back to back, 2 past 0.5 ms a call: SDPA's autograd call is a score
+    of launches and the backward at 8 x 4,096 129, and more of them would
+    fill the launch queue behind the spin), beside their plain versions,
+    their bounds (bf16 tensor cores) and
+    ``scaled_dot_product_attention`` in bf16 (the port never calls it): its
+    forward, and its forward and backward over the kv heads repeated to
+    the query heads beforehand."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    b, s, nq, nkv, hd, causal = case[:6]
+    kw = dict(causal=causal, window=0)
+    q, k, v, dout = flash_bf16_inputs(case, gen)
+    out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
+    group = nq // nkv
+    qt, kt, vt = (heads_of_queries(t.transpose(1, 2), 1 if t is q else group)
+                  .detach().requires_grad_(True) for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def library():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    def library_forward():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def timed(fn):
+        ms = device_ms(fn, 10)
+        return ms, device_ms_burst(fn, 20 if ms <= 0.5 else 2)
+
+    pairs = b * nq * (s * (s + 1) // 2 if causal else s * s)  # visible (query, key) pairs
+    q_elems, kv_elems = b * s * nq * hd, b * s * nkv * hd
+    # forward: q, k, v read, out written (bf16), lse written (fp32); Q K^T and P V
+    fwd_bytes, fwd_ops = 2 * (2 * q_elems + 2 * kv_elems) + 4 * b * nq * s, 2 * 2 * hd * pairs
+    # backward: q, k, v, dout read, dq, dk, dv written (bf16), lse read; the
+    # five products of the reference's algebra (S, dP, dV, dQ, dK)
+    bwd_bytes, bwd_ops = 2 * (3 * q_elems + 4 * kv_elems) + 4 * b * nq * s, 5 * 2 * hd * pairs
+
+    def bound(n_bytes, n_ops):
+        return max(n_bytes / bw, n_ops / flops) * 1e3, \
+            "bytes" if n_bytes / bw >= n_ops / flops else "operations"
+
+    fwd_ms, fwd_burst = timed(lambda: flash_ops.flash_attention_train(q, k, v, **kw))
+    bwd_ms, bwd_burst = timed(lambda: flash_ops.flash_attention_bwd(q, k, v, None, lse, dout,
+                                                                    **kw))
+    lib_fwd, lib_fwd_burst = timed(library_forward)
+    lib, lib_burst = timed(library)
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+    row = {"shape": list(case),
+           "forward": {"ms": fwd_ms, "ms_burst": fwd_burst,
+                       "plain_ms": device_ms(lambda: flash_bf16_plain(q, k, v, dout, kw), 3),
+                       "bound_ms": fwd_bound, "bound_by": fwd_by, "bytes": fwd_bytes,
+                       "operations": fwd_ops, "library_ms": lib_fwd,
+                       "library_ms_burst": lib_fwd_burst,
+                       "library": "scaled_dot_product_attention forward, bf16"},
+           "backward": {"ms": bwd_ms, "ms_burst": bwd_burst,
+                        "plain_ms": device_ms(lambda: flash_bf16_plain(q, k, v, dout, kw, lse),
+                                              3),
+                        "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes,
+                        "operations": bwd_ops, "library_ms": lib, "library_ms_burst": lib_burst,
+                        "library": "scaled_dot_product_attention forward + backward, bf16"}}
+    row["forward_and_backward_ms"] = fwd_ms + bwd_ms
+    print(f"flash bf16 {case}: {json.dumps(row)}")
+    del q, k, v, dout, out, lse, qt, kt, vt, dt
+    torch.cuda.empty_cache()
+    return row
+
+
+def bf16_grad_misses(name: str, card: dict, cpu: dict, fp32) -> tuple[float, str, float, list]:
+    """Every gradient present and non-zero on the card, in the CPU's dtype.
+    Returns the worst distance from the CPU's bf16 gradient (as a share of
+    its largest element) and its gradient's path, the worst ratio of the card's distance from the
+    CPU's fp32 gradient to the CPU bf16 one's (0 if no gradient needed the
+    second way) and the gradients that miss both ways of the rule: within
+    2e-2 of the CPU bf16 gradient's largest element, or no further from the
+    CPU's fp32 gradient (of the same rounded parameters) than the CPU's
+    bf16 one is, times 1.5. ``fp32()`` gives the CPU's fp32 gradients; it
+    is called once, and only if a gradient misses 2e-2."""
+    if set(card) != set(cpu):
+        fail(f"{name} bf16 step: the card and the CPU give gradients of other parameters")
+    worst = worst_ratio = 0.0
+    worst_path, misses, grads32 = "", [], None
+    for path, w in cpu.items():
+        g = card[path]
+        if g.dtype != w.dtype:
+            fail(f"{name} bf16 step: {path}'s gradient is {g.dtype} on the card, {w.dtype} on "
+                 f"the CPU")
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        if scale == 0 or g.abs().max().item() == 0:
+            fail(f"{name} bf16 step: the gradient of {path} is zero")
+        err = (g - w).abs().max().item() / scale
+        if err > worst:
+            worst, worst_path = err, path
+        if err <= 2e-2:
+            continue
+        if grads32 is None:
+            grads32 = fp32()
+        f = grads32[path].float()
+        err32, ref32 = (g - f).abs().max().item(), (w - f).abs().max().item()
+        if ref32:
+            worst_ratio = max(worst_ratio, err32 / ref32)
+        if err32 > 1.5 * ref32:
+            misses.append({"path": path, "rel": err, "from_fp32": err32, "cpu_from_fp32": ref32})
+    return worst, worst_path, worst_ratio, misses
+
+
+@contextlib.contextmanager
+def recorded_moe_outputs():
+    """Every ``y`` that ``models.moe.moe_local`` returns while inside, in
+    call order (a list of CPU tensors)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    ys, local = [], moe.moe_local
+
+    def recording(*args, **kwargs):
+        y, aux = local(*args, **kwargs)
+        ys.append(y.detach().cpu())
+        return y, aux
+
+    with mock.patch.object(moe, "moe_local", recording):
+        yield ys
+
+
+@contextlib.contextmanager
+def residual_stream(model):
+    """Records, while inside, the residual stream of one pass of ``model``'s
+    loss at the layer boundaries: each layer's input X[i] and the last
+    layer's output X[L] into the first list it gives, and, as the backward
+    reaches them, the loss's cotangent of each, dX[i], into the dict. A
+    remat layer's recompute is not recorded."""
+    from unittest import mock
+
+    xs, dxs, block, n = [], {}, model._block, len(model.layers)
+
+    def recording(layer, kind, moe, x, positions, cache=None, cache_pos=0):
+        i = len(xs)
+        out = block(layer, kind, moe, x, positions, cache, cache_pos)
+        if i < n:
+            xs.append(x.detach().clone())
+            x.register_hook(lambda g: dxs.__setitem__(i, g.detach().clone()))
+        if i == n - 1:
+            xs.append(out[0].detach().clone())
+            out[0].register_hook(lambda g: dxs.__setitem__(n, g.detach().clone()))
+        return out
+
+    with mock.patch.object(model, "_block", recording):
+        yield xs, dxs
+
+
+def bf16_split_step(model, tokens, xs, dxs) -> tuple[dict, list]:
+    """``model``'s step split at the residual stream: each layer alone on
+    the input ``xs[i]`` with its output's cotangent ``dxs[i + 1]``, the
+    embedding with its output's cotangent ``dxs[0]``, the head (final norm,
+    logits, loss) on ``xs[-1]``, in ``model``'s dtype on its device (no
+    remat). -> (the gradients of the parameters and, as ``residual/<i>``,
+    of each ``xs[i]``; each layer's output)."""
+    from unittest import mock
+
+    from repro_torch.runtime.train_loop import functional_loss, params_of
+
+    dev, dt = model.device, model.dtype
+    xs = [x.to(dev, dt).requires_grad_(True) for x in xs]
+    dxs = [d.to(dev, dt) for d in dxs]
+    outs, terms, block, embed = [], [], model._block, model._embed
+
+    def split_block(layer, kind, moe, x, positions, cache=None, cache_pos=0):
+        i = len(outs)
+        y, new_cache, aux = block(layer, kind, moe, xs[i], positions, cache, cache_pos)
+        outs.append(y.detach().cpu())
+        terms.append((y.float() * dxs[i + 1].float()).sum())
+        return xs[i + 1], new_cache, aux
+
+    def split_embed(batch):
+        e = embed(batch)
+        terms.append((e.float() * dxs[0].float()).sum())
+        return e
+
+    leaves = {k: t.detach().requires_grad_(True) for k, t in params_of(model).items()}
+    model.remat = False
+    with torch.enable_grad(), mock.patch.object(model, "_block", split_block), \
+            mock.patch.object(model, "_embed", split_embed):
+        loss = functional_loss(model)(leaves, {"tokens": tokens.to(dev)})
+        grads = torch.autograd.grad(loss + sum(terms), [*leaves.values(), *xs])
+    model.remat = True
+    names = [*leaves, *(f"residual/{i}" for i in range(len(xs)))]
+    return {k: g.cpu() for k, g in zip(names, grads)}, outs
+
+
+def bf16_step_card_vs_cpu(arch: str) -> dict:
+    """One ``value_and_grad`` of ``LM.loss`` in bf16 at ``arch``'s width cut
+    to ``CARD_VS_CPU_LAYERS`` layers, ``init_scale=1``, parameters rounded to
+    bf16 (the router fp32): the card against the CPU in bf16 and, where a
+    gradient misses 2e-2, the CPU in fp32 on the same rounded parameters.
+    The loss at 2e-3 rel, each gradient by ``bf16_grad_misses``' rule, the
+    card's launches exact, a MoE model's expert ids equal on card and CPU,
+    call by call and token by token, as each token's set of k experts; where
+    a token ranks its experts apart, ``moe_local``'s output on that token
+    within 2e-2 of the CPU's largest element on those tokens.
+
+    Where a gradient misses both ways of the rule, the step is split at the
+    residual stream: each layer, the embedding and the head run alone on
+    the card from the CPU's bf16 boundary values (``residual_stream``,
+    ``bf16_split_step``), and every parameter gradient and boundary
+    cotangent is held to the same rule against the CPU's step (its split
+    step, bit for bit) and the CPU's fp32 split step; each layer's output
+    within 2e-2 of its largest element. At xLSTM-1.3B's 8 full-width layers
+    some gradients are mostly bf16 noise carried down from the layers
+    above: two CPU steps that differ only in fp32 roundings stand up to 59%
+    of such a gradient's largest element apart and miss the whole step's
+    rule against each other as often as card and CPU do
+    (``tools/bf16_card_vs_cpu.py``); split, each layer's gradients are its
+    own."""
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM, layer_kinds
+    from repro_torch.runtime.train_loop import functional_loss, params_of, value_and_grad
+
+    small = dataclasses.replace(get(arch), n_layers=CARD_VS_CPU_LAYERS[arch], init_scale=1.0)
+    card = LM(small, "cuda", dtype=torch.bfloat16, seed=SEED)
+    state = {k: t.cpu() for k, t in card.state_dict().items()}
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        4, small.vocab_size, size=(LM_TRAIN_CHECK_BATCH, LM_TRAIN_SEQ)).astype(np.int32))
+    counters = lm_train_counters()
+    zero_counters(counters)
+    with recorded_routes() as routes_card, recorded_moe_outputs() as ys_card:
+        loss_card, grads_card = value_and_grad(functional_loss(card))(params_of(card),
+                                                                      {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    launches = {name: counter[name] for name, counter in counters.items()}
+    grads_card = {k: g.cpu() for k, g in grads_card.items()}
+
+    def cpu_model(dtype):
+        cpu = LM(small, "meta", dtype=dtype)
+        cpu.to_empty(device="cpu")
+        cpu.load_state_dict({k: t.to(dtype) if t.dtype == torch.bfloat16 else t
+                             for k, t in state.items()})
+        return cpu
+
+    def cpu_step(dtype):
+        cpu = cpu_model(dtype)
+        with recorded_routes() as routes, recorded_moe_outputs() as ys, \
+                residual_stream(cpu) as (xs, dxs):
+            loss, grads = value_and_grad(functional_loss(cpu))(params_of(cpu), {"tokens": tokens})
+        return loss.item(), grads, routes, ys, (xs, [dxs[i] for i in range(len(xs))])
+
+    lp, grads_cpu, routes_cpu, ys_cpu, (xs, dxs) = cpu_step(torch.bfloat16)
+    fp32_loss = {}
+
+    def fp32():
+        fp32_loss["loss_cpu_fp32"], grads32, *_ = cpu_step(torch.float32)
+        return grads32
+
+    want = step_launches(layer_kinds(small), 1)
+    if launches != want:
+        fail(f"{small.name} bf16 card step: launches {launches}, expected {want}")
+    # the set of a token's k experts: their order follows their probabilities,
+    # which card and CPU may rank apart where two lie within bf16 noise; the
+    # k copies are added in that order, so such a token's output is held too
+    if len(routes_card) != len(routes_cpu) or not all(
+            torch.equal(a.sort(-1).values, b.sort(-1).values)
+            for a, b in zip(routes_card, routes_cpu)):
+        fail(f"{small.name} bf16 train step: the expert ids differ between the card and the CPU")
+    if small.moe is not None and not routes_card:
+        fail(f"{small.name} bf16 train step routed no token")
+    reordered, reordered_err = 0, 0.0
+    for a, b, yc, yp in zip(routes_card, routes_cpu, ys_card, ys_cpu):
+        rows = (a != b).any(-1).nonzero().flatten()
+        if not len(rows):
+            continue
+        reordered += len(rows)
+        yc, yp = (y.reshape(-1, y.shape[-1])[rows].float() for y in (yc, yp))
+        err = (yc - yp).abs().max().item() / yp.abs().max().item()
+        reordered_err = max(reordered_err, err)
+        if err > 2e-2:
+            fail(f"{small.name} bf16 train step: moe_local's output on the {len(rows)} tokens "
+                 f"that rank their experts apart is {err:.3e} of its largest element from the "
+                 f"CPU's (tol 2e-2)")
+    lc = loss_card.item()
+    if not np.isfinite(lc) or abs(lc - lp) > 2e-3 * abs(lp):
+        fail(f"{small.name} bf16 train step loss card {lc} vs CPU {lp} (rtol 2e-3)")
+    worst, worst_path, ratio, misses = bf16_grad_misses(small.name, grads_card, grads_cpu,
+                                                         fp32)
+    for m in misses:
+        print(f"  {m['path']}: {m['rel']:.3e} of its largest element from the CPU's bf16 "
+              f"gradient, {m['from_fp32']:.3e} from the fp32 one where the CPU's bf16 one is "
+              f"{m['cpu_from_fp32']:.3e}")
+    split = {}
+    if misses:
+        # the CPU's split step is its whole step, recorded at the boundaries
+        # (bit for bit: tests/test_torch_bf16_split.py)
+        split_cpu = {**grads_cpu, **{f"residual/{i}": d for i, d in enumerate(dxs)}}
+        outs_cpu = xs[1:]
+        split_card, outs_card = bf16_split_step(card, tokens, xs, dxs)
+        torch.cuda.synchronize()
+        split_out = 0.0
+        for i, (yc, yp) in enumerate(zip(outs_card, outs_cpu)):
+            err = (yc.float() - yp.float()).abs().max().item() / yp.float().abs().max().item()
+            split_out = max(split_out, err)
+            if err > 2e-2:
+                fail(f"{small.name} bf16 split step: layer {i}'s output on the CPU's input is "
+                     f"{err:.3e} of its largest element from the CPU's (tol 2e-2)")
+        split_worst, split_path, split_ratio, split_misses = bf16_grad_misses(
+            f"{small.name} split", split_card, split_cpu,
+            lambda: bf16_split_step(cpu_model(torch.float32), tokens, xs, dxs)[0])
+        for m in split_misses:
+            print(f"  split {m['path']}: {m['rel']:.3e} of its largest element from the CPU's "
+                  f"bf16 gradient, {m['from_fp32']:.3e} from the fp32 one where the CPU's bf16 "
+                  f"one is {m['cpu_from_fp32']:.3e}")
+        if split_misses:
+            fail(f"{small.name} bf16 step: {len(misses)} gradients miss the rule in the whole "
+                 f"step and {len(split_misses)} in the step split at the residual stream")
+        split = {"split_gradients": len(split_cpu), "split_grad_worst_rel": split_worst,
+                 "split_grad_worst_path": split_path,
+                 "split_worst_ratio": split_ratio, "split_layer_output_rel": split_out,
+                 "whole_step_misses": [m["path"] for m in misses]}
+    del card
+    torch.cuda.empty_cache()
+    print(f"{small.name} with {small.n_layers} layers at init_scale 1 in bf16, one train step "
+          f"card vs CPU (batch {tuple(tokens.shape)}): loss {lc:.6f} vs {lp:.6f}; all "
+          f"{len(grads_cpu)} gradients present and non-zero, worst max|dg|/max|g| against the "
+          f"CPU's bf16 {worst:.3e} ({worst_path})"
+          + (f" (CPU fp32 loss {fp32_loss['loss_cpu_fp32']:.6f}, worst distance from fp32 "
+             f"against the CPU bf16's {ratio:.2f}x)" if fp32_loss else "")
+          + (f"; {len(misses)} missed both ways, and split at the residual stream all "
+             f"{split['split_gradients']} gradients meet the rule (worst "
+             f"{split['split_grad_worst_rel']:.3e} from the CPU's bf16 at "
+             f"{split['split_grad_worst_path']}, distance from fp32 "
+             f"{split['split_worst_ratio']:.2f}x the CPU bf16's; layer outputs "
+             f"{split['split_layer_output_rel']:.3e})" if split else "")
+          + f"; {len(routes_card)} routings with equal expert sets ({reordered} tokens ranking "
+          f"them apart, moe_local's output there {reordered_err:.3e} of its largest element "
+          f"from the CPU's); launches {launches}")
+    return {"arch": small.name, "label": f"{small.name} bf16", "layers": small.n_layers,
+            "loss_card": lc, "loss_cpu": lp, **fp32_loss, **split,
+            "grad_tensors": len(grads_cpu), "grad_worst_rel": worst, "grad_worst_path": worst_path,
+            "grad_worst_ratio_to_cpu_bf16_vs_fp32": ratio, "routings_equal": len(routes_card),
+            "tokens_ranking_experts_apart": reordered,
+            "reordered_moe_output_rel": reordered_err, "launches": launches}
+
+
+def bf16_full_depth() -> dict:
+    """StableLM-3B at its full width and all 32 layers in bf16, on train_4k's
+    microbatch: ``TRAIN_4K_ROWS`` rows of ``TRAIN_4K_SEQ`` tokens of
+    ``build_dataset`` (exactly 2 ``text_scan`` launches), ``BF16_STEPS``
+    steps of the launcher's donating step (one microbatch) with AdamW's fp32
+    moments: exactly 64 flash forward and 32 backward launches a step (the
+    forward again under remat), finite losses; seconds a step, tokens/s,
+    peak memory, one more step traced, and 6 x active parameters x tokens a
+    second as a share of the card's bf16 peak (the dry run's model_flops,
+    src/repro/launch/dryrun.py:297)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.text_clean import ops as clean_ops
+    from repro_torch.launch.serve import profile
+    from repro_torch.launch.train import build_dataset, train_step_of
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.runtime.train_loop import params_of
+
+    cfg = get(LM_TRAIN_ARCH)
+    clean_ops.LAUNCHES["text_scan"] = 0
+    t0 = time.perf_counter()
+    rows = build_dataset(cfg, TRAIN_4K_SEQ, LM_TRAIN_CORPUS_MB, seed=SEED, device="cuda")
+    dataset_seconds = time.perf_counter() - t0
+    scans = clean_ops.LAUNCHES["text_scan"]
+    if scans != P3SAPP_SCANS[True]:
+        fail(f"build_dataset made {scans} text_scan launches, expected {P3SAPP_SCANS[True]}")
+    if len(rows) < TRAIN_4K_ROWS:
+        fail(f"build_dataset gave {len(rows)} rows of {TRAIN_4K_SEQ}, fewer than a microbatch")
+    t0 = time.perf_counter()
+    model = LM(cfg, "cuda", dtype=torch.bfloat16, seed=SEED)
+    opt = AdamW(learning_rate=warmup_cosine(BF16_LR, BF16_WARMUP, BF16_STEPS))
+    step = train_step_of(model, opt)
+    params = params_of(model)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 8)
+
+    def next_batch():
+        idx = rng.choice(len(rows), size=TRAIN_4K_ROWS, replace=False)
+        return {"tokens": torch.from_numpy(rows[idx]).cuda()}
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = lm_train_counters()
+    zero_counters(counters)
+    losses, step_seconds = [], []
+    for _ in range(BF16_STEPS):
+        batch = next_batch()
+        t1 = time.perf_counter()
+        _, _, metrics = step(params, state, batch)
+        losses.append(metrics["loss"].item())  # waits for the step
+        step_seconds.append(time.perf_counter() - t1)
+    launches = {name: counter[name] for name, counter in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = step_launches(model.kinds, BF16_STEPS)
+    if launches != want:
+        fail(f"StableLM-3B in bf16 at full depth made launches {launches}, expected {want}")
+    if not np.isfinite(losses).all():
+        fail(f"a non-finite bf16 loss at full depth: {losses}")
+    if {p.dtype for name, p in params.items() if "router" not in name} != {torch.bfloat16}:
+        fail("the bf16 model's parameters left bf16")
+    traced = profile(lambda: step(params, state, next_batch()), torch.device("cuda"),
+                     torch.cuda.synchronize, f"one bf16 {cfg.name} train step at all "
+                     f"{cfg.n_layers} layers, {TRAIN_4K_ROWS} x {TRAIN_4K_SEQ}")
+    steady = statistics.median(step_seconds[1:])
+    tokens = TRAIN_4K_ROWS * TRAIN_4K_SEQ
+    peak_flops = bf16_peak(torch.cuda.get_device_name(0))
+    share = 6 * cfg.active_param_count() * tokens / steady / peak_flops
+    print(f"LM train in bf16 at full depth: {cfg.name}, all {cfg.n_layers} layers "
+          f"({model.param_count()} parameters, built with its AdamW state in {built:.1f} s), "
+          f"{BF16_STEPS} donating steps of {TRAIN_4K_ROWS} x {TRAIN_4K_SEQ} (one microbatch of "
+          f"train_4k), median after the first {steady:.3f} s a step, {tokens / steady:.0f} "
+          f"tokens/s, {share:.2%} of the bf16 peak ({peak_flops / 1e12:.0f} TFLOP/s) as 6 x "
+          f"{cfg.active_param_count()} active parameters x tokens; losses {losses}; peak memory "
+          f"{peak / 1e9:.2f} GB; launches {launches}; {len(rows)} rows from build_dataset in "
+          f"{dataset_seconds:.2f} s ({scans} text_scan)")
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "params": model.param_count(),
+            "active_params": cfg.active_param_count(), "dtype": "bfloat16",
+            "moment_dtype": "float32", "rows": TRAIN_4K_ROWS, "seq": TRAIN_4K_SEQ,
+            "microbatches": 1, "steps": BF16_STEPS, "lr": BF16_LR,
+            "reduced": "train_4k's 32 microbatches x dp of 8 rows cut to one microbatch a step",
+            "step_seconds": step_seconds, "median_step_seconds": steady,
+            "tokens_per_s": tokens / steady, "bf16_peak_share": share,
+            "bf16_peak_flops": peak_flops, "peak_memory_bytes": peak, "losses": losses,
+            "launches": launches, "traced_step": traced, "build_seconds": built,
+            "build_dataset_rows": len(rows), "build_dataset_seconds": dataset_seconds,
+            "build_dataset_text_scan_launches": scans}
+    del model, params, state, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_bf16(bw: float) -> tuple[dict, dict]:
+    """The lm_train_bf16 phase; returns its line and the bf16 kernels' rows."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 9)  # the earlier checks' draws unchanged
+    flops = bf16_peak(torch.cuda.get_device_name(0))
+    e_out, e_grad, e_lse = check_flash_bf16(gen)
+    rows = {label: time_flash_bf16(case, gen, bw, flops)
+            for label, case in FLASH_BF16_TIMED.items()}
+    checked = []
+    for arch in BF16_CHECKED:
+        checked.append(bf16_step_card_vs_cpu(arch))
+        torch.cuda.empty_cache()
+    line = {"flash_max_abs_err": {"out": e_out, "grads": e_grad, "lse_of_slack": e_lse},
+            "card_vs_cpu": checked, "full_depth": bf16_full_depth()}
+    line["phase_seconds"] = time.perf_counter() - t0
+    print(f"lm_train_bf16 phase: {line['phase_seconds']:.1f} s")
+    return line, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -4305,9 +4944,18 @@ def main() -> int:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     started = time.perf_counter()
+    step_seconds, last = {}, [started]
+
+    def mark(step: str) -> None:
+        """Prints and keeps the seconds since the previous step ended."""
+        now = time.perf_counter()
+        step_seconds[step], last[0] = now - last[0], now
+        print(f"step {step}: {step_seconds[step]:.1f} s", flush=True)
+
     from repro_torch import device
     from repro_torch.data.synthetic import abstracts_and_titles
     from repro_torch.kernels import _build
@@ -4334,6 +4982,8 @@ def main() -> int:
         for kernel, resources in report["kernels"].items():
             print(f"    {kernel}: {resources}")
 
+    mark("1-2 card and build")
+
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
     abstracts, titles = abstracts_and_titles(N_CORPUS, seed=SEED)
@@ -4348,6 +4998,8 @@ def main() -> int:
     layer_gen = torch.Generator().manual_seed(SEED + 5)  # the draws above unchanged
     layer_err = check_lstm_layer_bwd(layer_gen)
 
+    mark("3 kernels against plain")
+
     # 4. timings
     lstm_t = time_lstm_cell(gen, bw, flops)
     scan_t = time_text_scan(abstracts, bw)
@@ -4357,8 +5009,12 @@ def main() -> int:
     bwd_t = time_lstm_cell_bwd(train_gen, bw, flops)
     layer_t = time_lstm_layer_bwd(layer_gen, bw, flops)
 
+    mark("4 timings")
+
     # 5. the summarizer at CONFIG width
     launches, serve_line = serve(abstracts, titles)
+
+    mark("5 summarizer serving")
 
     # 6. each LM at CONFIG width and depth, then card vs CPU at a few layers
     from repro_torch.configs import get
@@ -4382,12 +5038,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_lm_lines.append(line)
 
+    mark("6 LM serving and card vs CPU")
+
     # 7. preprocessing: corpus -> ingest -> pre_clean -> device cleaning
     workdir = ROOT / "build" / "chip_smoke_corpus"
     cleaned, pre_cleaned, abstracts_flat, clean_launches, preprocess_line = preprocess(workdir)
     clean_t = time_text_clean(gen, abstracts_flat, bw)
     del abstracts_flat
     torch.cuda.empty_cache()
+
+    mark("7 preprocessing")
 
     # 8. the paper's comparison: the abstract column's scan, CA, P3SAPP
     scan_held, scan_column = check_p3sapp_scan(pre_cleaned)
@@ -4397,27 +5057,39 @@ def main() -> int:
     p3sapp_launches, p3sapp_line, p3sapp_records = p3sapp(workdir, scan_held)
     torch.cuda.empty_cache()
 
+    mark("8 p3sapp")
+
     # 9. the Dataset planner on the same corpus: whole frame, streamed, cached, fed
     dataset_launches, dataset_line = dataset(workdir, p3sapp_records)
     del p3sapp_records
     torch.cuda.empty_cache()
 
+    mark("9 dataset")
+
     # 10. threads against processes and remote workers on the same corpus
     executors_launches, executors_line = executors(workdir)
     torch.cuda.empty_cache()
+
+    mark("10 executors")
 
     # 11. text serving through a row program of the same corpus's plan
     serve_text_launches, serve_text_line = serve_text_phase(workdir)
     shutil.rmtree(workdir)
     torch.cuda.empty_cache()
 
+    mark("11 serve_text")
+
     # 12. the feed into the summarizer's encoder
     feed_line = feed(cleaned)
     torch.cuda.empty_cache()
 
+    mark("12 feed")
+
     # 13. training: card vs CPU, 40 steps with a checkpoint, resume
     train_line = train(cleaned)
     torch.cuda.empty_cache()
+
+    mark("13 summarizer training")
 
     # 14. the LM launcher's training path: backward kernels, card vs CPU,
     # StableLM-3B at full width (4 layers, then all 32 through the donating
@@ -4425,11 +5097,23 @@ def main() -> int:
     lm_train_line, lm_rows = lm_train(bw, flops)
     torch.cuda.empty_cache()
 
+    mark("14 lm_train")
+
     # 15. the two configurations with a frontend: flash at their shapes,
     # card vs CPU, HuBERT X-Large at all 48 layers
     frontends_line, frontend_rows = frontends(bw, flops)
+    torch.cuda.empty_cache()
 
-    # 15. report
+    mark("15 frontends")
+
+    # 16. bf16 training: the bf16 flash kernels against their plain
+    # versions, card vs CPU, StableLM-3B at all 32 layers on train_4k's
+    # microbatch
+    bf16_line, bf16_rows = lm_train_bf16(bw)
+
+    mark("16 lm_train_bf16")
+
+    # 17. report
     def train_paths(name):
         """A kernel's launches on each LM training path that reached it."""
         paths = {c["label"]: c["launches"][name] for c in lm_train_line["card_vs_cpu"]}
@@ -4468,6 +5152,24 @@ def main() -> int:
                 "library": ("scaled_dot_product_attention forward" if "library_forward_ms" in row
                             else "none: no single PyTorch call"),
                 "shape": row["shape"]}
+
+    def bf16_row(name, part, source, replaces, err):
+        """A bf16 training kernel's row: its launches on the bf16 paths,
+        each counted from 0 around it; its times at train_4k's microbatch
+        (the full-depth run's shape), both timed shapes nested."""
+        key = "flash_attention" if part == "forward" else "flash_attention_bwd"
+        by_path = {c["label"]: c["launches"][key] for c in bf16_line["card_vs_cpu"]}
+        by_path[f"full depth {bf16_line['full_depth']['arch']} bf16"] = \
+            bf16_line["full_depth"]["launches"][key]
+        head = bf16_rows["8x4096"][part]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": err,
+                **{k: head[k] for k in ("ms", "ms_burst", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "library_ms_burst", "library")},
+                "shape": bf16_rows["8x4096"]["shape"],
+                "shapes": {label: {**r[part], "shape": r["shape"]}
+                           for label, r in bf16_rows.items()}}
 
     kernels = [
         {"name": "lstm_cell", "route": "cuda",
@@ -4567,6 +5269,17 @@ def main() -> int:
                           "none: XLA runs the training forward of "
                           "src/repro/models/xlstm.py:130 _mlstm_chunked",
                           train_paths("mlstm_chunk"), sum(train_paths("mlstm_chunk").values())),
+        # the bf16 training kernels count under the fp32 ones' names
+        # (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]):
+        # every launch on the bf16 paths is theirs
+        bf16_row("flash_attention_train_bf16", "forward",
+                 "src/repro_torch/kernels/csrc/flash_attention_train_bf16.cu",
+                 "none: XLA runs the training forward of src/repro/models/attention.py:97 sdpa "
+                 "in bf16", bf16_line["flash_max_abs_err"]["out"]),
+        bf16_row("flash_attention_bwd_bf16", "backward",
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+                 "none: XLA differentiates src/repro/models/attention.py:97 sdpa in bf16",
+                 bf16_line["flash_max_abs_err"]["grads"]),
     ]
     for entry in kernels:
         if entry.get("on_main_path", True) and not entry["launches"]:
@@ -4585,7 +5298,8 @@ def main() -> int:
         print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
               f"(before: {before} ms, {before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s (before the "
-          f"remote executor's runs: {BEFORE_PHASES_SECONDS} s)")
+          f"bf16 training phase: {BEFORE_PHASES_SECONDS} s); by step: "
+          + ", ".join(f"{step} {seconds:.1f}" for step, seconds in step_seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
     for line in serve_lm_lines:
@@ -4599,6 +5313,7 @@ def main() -> int:
     print(json.dumps({"serve_text": {**serve_text_line, "card": card}}))
     print(json.dumps({"lm_train": {**lm_train_line, "card": card}}))
     print(json.dumps({"frontends": {**frontends_line, "card": card}}))
+    print(json.dumps({"lm_train_bf16": {**bf16_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -122,6 +122,17 @@ class ArchConfig:
             total += (n_units + (1 if i < rem else 0)) * self._block_params(kind)
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: its top_k routed experts and
+        the shared ones). Copy of ``repro/configs/__init__.py:138``."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (self.n_layers - m.first_k_dense) * (
+            m.n_experts - m.top_k
+        ) * self._mlp_params(m.d_expert)
+        return self.param_count() - inactive
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -63,6 +63,12 @@ SIGNATURES = {
     # dk, dv; b, sq, skv, nq, nkv, hd; causal, window; the tiles dq_part
     # holds; the head split; scale; stream
     "flash_attention_bwd_f32": (_P,) * 12 + (_I,) * 10 + (_F, _P),
+    # the same for bf16 q, k, v, out (lse fp32)
+    "flash_attention_train_bf16": (_P,) * 5 + (_I,) * 8 + (_F, _P),
+    # the f32 entry's arguments for bf16 q, k, v, dout, dq, dk, dv, without
+    # out, with dq_acc (fp32 (b, sq, nq, hd) scratch: dQ's sum over the
+    # rounds, or null when dq_part is) after dkv_part
+    "flash_attention_bwd_bf16": (_P,) * 12 + (_I,) * 10 + (_F, _P),
     # a, b, h0 (or null), out, h_last; dtype (0 fp32, 1 bf16), batch, seq, d; stream
     "rg_lru": (_P,) * 5 + (_I,) * 4 + (_P,),
     # a, h, h0, dh, dlast (each of the last three or null), da, db, dh0 (or

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "flash_masks.cuh"
 
 namespace {
 
@@ -93,45 +94,6 @@ __host__ __device__ constexpr int row_ld(int hd) { return round8(hd) + 4; }
 
 __host__ __device__ constexpr int smem_floats(int bc, int hd) {
   return (2 * bc + 4 * kBr) * row_ld(hd) + 2 * bc * kLdP + 4 * kBr;
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
-  return (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-}
-
-// no query position of [q0, q1] sees any key of [k0, k1]: the masks hide a
-// whole tile, whose product is zero and skipped
-__device__ __forceinline__ bool hidden(int q0, int q1, int k0, int k1, int causal, int window) {
-  return (causal && k0 > q1) || (window > 0 && k1 <= q0 - window);
-}
-
-// [lo, hi): the query positions that see any key of [j0, j0 + nj)
-__host__ __device__ __forceinline__ void query_range(int j0, int nj, int sq, int causal,
-                                                     int window, int& lo, int& hi) {
-  lo = causal ? j0 : 0;
-  hi = window > 0 ? min(sq, j0 + nj - 1 + window) : sq;
-}
-
-// n rows of a (rows, heads, hd) layout from element offset `first` with
-// row stride `heads * hd`, into rows of ld floats (zeros past hd and past n,
-// up to `rows`): 16-byte cp.async when the rows are aligned, else plain
-// loads.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long first,
-                                          long long stride, int hd, int n, int rows, int ld,
-                                          bool vec) {
-  const int n4 = round8(hd) / 4;
-  if (vec) {
-    for (int i = threadIdx.x; i < rows * n4; i += kThreads) {
-      const int r = i / n4, c = (i - r * n4) * 4;
-      const bool ok = r < n && c < hd;
-      cp_async16(dst + r * ld + c, ok ? src + first + r * stride + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * n4 * 4; i += kThreads) {
-      const int r = i / (n4 * 4), c = i - r * n4 * 4;
-      dst[r * ld + c] = r < n && c < hd ? src[first + r * stride + c] : 0.0f;
-    }
-  }
 }
 
 // sum_d x[d] y[d] over one warp: lanes stride the row, then a fixed xor
@@ -196,8 +158,10 @@ flash_bwd_kernel(const BwdParams p) {
     const int h = head0 + c / n_rc, r0 = pos_lo + (c % n_rc) * kBr;
     const int nr = min(kBr, pos_hi - r0);
     const long long first = ((static_cast<long long>(bi) * p.sq + r0) * p.nq + h) * hd;
-    load_rows(qs + buf * kBr * ld, p.q, first, q_stride, hd, nr, kBr, ld, vec);
-    load_rows(dos + buf * kBr * ld, p.dout, first, q_stride, hd, nr, kBr, ld, vec);
+    load_rows<kThreads>(qs + buf * kBr * ld, p.q, first, q_stride, hd, round8(hd), nr, kBr,
+                        ld, vec);
+    load_rows<kThreads>(dos + buf * kBr * ld, p.dout, first, q_stride, hd, round8(hd), nr, kBr,
+                        ld, vec);
     if (tid < kBr) {
       const long long at = (static_cast<long long>(bi) * p.nq + h) * p.sq + r0 + tid;
       lse_s[buf * kBr + tid] = tid < nr ? p.lse[at] : 0.0f;
@@ -206,8 +170,8 @@ flash_bwd_kernel(const BwdParams p) {
   };
 
   const long long key0 = ((static_cast<long long>(bi) * p.skv + j0) * p.nkv + kvh) * hd;
-  load_rows(ks, p.k, key0, kv_stride, hd, nj, kBc, ld, vec);
-  load_rows(vs, p.v, key0, kv_stride, hd, nj, kBc, ld, vec);
+  load_rows<kThreads>(ks, p.k, key0, kv_stride, hd, round8(hd), nj, kBc, ld, vec);
+  load_rows<kThreads>(vs, p.v, key0, kv_stride, hd, round8(hd), nj, kBc, ld, vec);
   if (n_chunks > 0) load_chunk(0, 0);
   cp_async_commit();
 

@@ -23,7 +23,10 @@ With grad mode on and q, k or v requiring grad, the op is
 row's log-sum-exp), its backward ``csrc/flash_attention_bwd.cu``; on the
 CPU the two plain versions ``flash_attention_train_ref`` and
 ``flash_attention_bwd_ref``. Only the full sequence (``q_offset == 0``,
-``kv_len is None``) takes a gradient, in fp32.
+``kv_len is None``) takes a gradient, in fp32 or bf16: each dtype has its
+own pair of kernels (``flash_attention_train_bf16.cu`` and
+``flash_attention_bwd_bf16.cu`` on bf16 tensor cores for bf16), and any
+other dtype raises.
 ``LAUNCHES["flash_attention"]`` counts the serving kernel's and the
 training kernel's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
 backward call: one kernel when the keys fit one tile of ``bwd_key_tile``
@@ -45,6 +48,10 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref, flash_attention_t
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+# the training kernels' entries by dtype
+_TRAIN_ENTRY = {torch.float32: "flash_attention_train_f32",
+                torch.bfloat16: "flash_attention_train_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32", torch.bfloat16: "flash_attention_bwd_bf16"}
 MAX_HEAD_DIM = 256  # two 4-wide chunks of the head a lane in the kernel's p . v
 # csrc/flash_attention.cu's constants: the rows a block may own (kR), its
 # warps and the blocks of a cluster (the portable limit).
@@ -188,8 +195,8 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
     position ``q_offset + i``; only keys before ``kv_len`` (all when None)
     are seen, with the causal and sliding-window masks on top. Every query
     row must see at least one key; ``attend`` never makes a row that does
-    not. Differentiable (fp32, full sequence) when grad mode is on and q,
-    k or v requires grad."""
+    not. Differentiable (fp32 or bf16, full sequence) when grad mode is on
+    and q, k or v requires grad."""
     _check(q, k, v, q_offset, kv_len)
     if q.shape[1]:
         _check_every_row_sees_a_key(q.shape[1], k.shape[1], causal, window, q_offset, kv_len)
@@ -197,9 +204,8 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
         if q_offset != 0 or kv_len is not None:
             raise ValueError("flash_attention_op: a call with q_offset or kv_len (a KV cache) "
                              "takes no gradient; only the full sequence trains")
-        if q.dtype != torch.float32:
-            raise TypeError(f"flash_attention_op: gradients are fp32 only, got {q.dtype} "
-                            "(bf16 training is ROADMAP Queue 1)")
+        if q.dtype not in _TRAIN_ENTRY:
+            raise TypeError(f"flash_attention_op: gradients are fp32 or bf16, got {q.dtype}")
         return FlashAttentionFunction.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -236,16 +242,18 @@ def _launch(q, k, v, causal, window, q_offset, kv_len) -> torch.Tensor:
 
 
 def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
-    """The forward of a training step over the full sequence, fp32 -> (out
-    ``(b, sq, nq, hd)``, lse ``(b, nq, sq)`` fp32): ``flash_attention_train.cu``
+    """The forward of a training step over the full sequence, fp32 or bf16
+    -> (out ``(b, sq, nq, hd)`` in q's dtype, lse ``(b, nq, sq)`` fp32):
+    ``flash_attention_train.cu`` (fp32) or ``flash_attention_train_bf16.cu``
     on the card (one launch), ``flash_attention_train_ref`` on the CPU."""
     _check(q, k, v, 0, None)
     if q.device.type == "cpu":
         return flash_attention_train_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_train: unsupported device {q.device}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_train: the kernel takes float32, got {q.dtype}")
+    if q.dtype not in _TRAIN_ENTRY:
+        raise TypeError(f"flash_attention_train: the kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     if b * nq > 65535:
@@ -255,7 +263,7 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    err = _build.library().flash_attention_train_f32(
+    err = getattr(_build.library(), _TRAIN_ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv,
         nq, nkv, hd, int(causal), window, 1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention_train")
@@ -264,27 +272,39 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
-    """The backward of ``flash_attention_train``, fp32 -> (dq, dk, dv) in
-    the shapes of q, k, v: ``flash_attention_bwd.cu`` on the card (one call
-    of its entry), ``flash_attention_bwd_ref`` on the CPU."""
+    """The backward of ``flash_attention_train``, fp32 or bf16 -> (dq, dk,
+    dv) in the shapes and dtype of q, k, v; out and dout in q's dtype, lse
+    fp32: ``flash_attention_bwd.cu`` (fp32) or ``flash_attention_bwd_bf16.cu``
+    on the card (one call of its entry), ``flash_attention_bwd_ref`` on the
+    CPU. The bf16 versions compute D from P and dP and do not read out,
+    which may then be None."""
     _check(q, k, v, 0, None)
     b, sq, nq, hd = q.shape
-    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
-                           ("lse", lse, (b, nq, sq))):
-        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != q.device:
+    if q.dtype == torch.bfloat16:
+        out = None
+    elif out is None:
+        raise ValueError(f"flash_attention_bwd: {q.dtype} needs out")
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (b, nq, sq), torch.float32)):
+        if t is None:
+            continue
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, expected float32 {tuple(shape)} on {q.device}")
+                             f"{t.device}, expected {dtype} {tuple(shape)} on {q.device}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: the kernel takes float32, got {q.dtype}")
+    if q.dtype not in _BWD_ENTRY:
+        raise TypeError(f"flash_attention_bwd: the kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
     skv, nkv = k.shape[1], k.shape[2]
-    if b * nkv > 2**31 - 1 or -(-skv // 32) > 65535:
-        raise ValueError(f"flash_attention_bwd: {b} x {nkv} kv heads or {skv} keys exceed "
-                         "the grid")
-    q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
+    if b * nkv > 2**31 - 1 or -(-skv // 32) > 65535 or \
+            (q.dtype == torch.bfloat16 and b * nq > 65535):
+        raise ValueError(f"flash_attention_bwd: {b} x {nkv} kv heads, {b} x {nq} heads or "
+                         f"{skv} keys exceed the grid")
+    q, k, v, lse, dout = (t.contiguous() for t in (q, k, v, lse, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -295,10 +315,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
         if slots else None
     kv_part = torch.empty((2, split, *k.shape), dtype=torch.float32, device=q.device) \
         if split > 1 else None
-    err = _build.library().flash_attention_bwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), None if part is None else part.data_ptr(),
-        None if kv_part is None else kv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+    scratch = [part, kv_part]
+    inputs = (q, k, v, dout)
+    if out is not None:
+        inputs = (q, k, v, out.contiguous(), dout)
+    else:  # bf16: D is its own pass; dQ's sum over the rounds
+        scratch.append(torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                       if slots else None)
+    err = getattr(_build.library(), _BWD_ENTRY[q.dtype])(
+        *(t.data_ptr() for t in inputs), lse.data_ptr(), delta.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, sq, skv, nq, nkv, hd, int(causal), window, slots, split,
         1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention_bwd")
@@ -307,22 +333,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention_op`` over the full sequence with a gradient: the
-    training forward saves q, k, v, out and each row's log-sum-exp; the
-    backward recomputes the probabilities from them."""
+    """``flash_attention_op`` over the full sequence with a gradient, fp32
+    or bf16: the training forward saves q, k and v in their dtype, each
+    row's log-sum-exp in fp32 and, in fp32, out (the bf16 backward does not
+    read it); the backward recomputes the probabilities from them. The
+    incoming gradient is taken in out's dtype, as autograd gives it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         out, lse = flash_attention_train(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse, *(() if q.dtype == torch.bfloat16 else (out,)))
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                                         window=ctx.window)
+        q, k, v, lse, *out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out[0] if out else None, lse, dout,
+                                         causal=ctx.causal, window=ctx.window)
         need = ctx.needs_input_grad
         return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
                 None, None)

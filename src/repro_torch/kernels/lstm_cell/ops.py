@@ -75,8 +75,10 @@ def lstm_cell_op(x, h, c, wx, wh, b):
     _check(x, h, c, wx, wh, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h, c, wx, wh, b)):
         if x.dtype != torch.float32:
-            raise TypeError(f"lstm_cell_op: gradients are fp32 only, got {x.dtype} "
-                            "(bf16 training is ROADMAP Queue 1)")
+            raise TypeError(f"lstm_cell_op: gradients are fp32 only, got {x.dtype}: every "
+                            "entry point of the reference trains Seq2Seq in fp32, and a bf16 "
+                            "gradient waits for one LSTM backward kernel (ROADMAP.md Queue 1 "
+                            "item 3, then Queue 2 item 7)")
         return LSTMCellFunction.apply(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
         return lstm_cell_ref(x, h, c, wx, wh, b)
@@ -252,8 +254,10 @@ def lstm_layer_op(xs, h0, c0, wx, wh, b):
         return xs.new_zeros(0, *h0.shape), h0, c0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, h0, c0, wx, wh, b)):
         if xs.dtype != torch.float32:
-            raise TypeError(f"lstm_layer_op: gradients are fp32 only, got {xs.dtype} "
-                            "(bf16 training is ROADMAP Queue 1)")
+            raise TypeError(f"lstm_layer_op: gradients are fp32 only, got {xs.dtype}: every "
+                            "entry point of the reference trains Seq2Seq in fp32, and a bf16 "
+                            "gradient waits for one LSTM backward kernel (ROADMAP.md Queue 1 "
+                            "item 3, then Queue 2 item 7)")
         return LSTMLayerFunction.apply(xs, h0, c0, wx, wh, b)
     hs, h, c = [], h0, c0
     for x_t in xs:

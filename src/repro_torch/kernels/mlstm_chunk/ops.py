@@ -58,8 +58,11 @@ def mlstm_chunk_op(q, k, v, i_gate, f_gate, c, n, m):
     _check(q, k, v, i_gate, f_gate, c, n, m)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_gate, f_gate, c, n, m)):
         if any(t.dtype != torch.float32 for t in (q, k, v, i_gate, f_gate)):
-            raise TypeError(f"mlstm_chunk_op: gradients are fp32 only, got {q.dtype} "
-                            "(bf16 training is ROADMAP Queue 1)")
+            raise TypeError(f"mlstm_chunk_op: gradients are fp32 only, got {q.dtype}: "
+                            "the reference computes the mLSTM recurrence in fp32 (it casts "
+                            "q, k and v, repro/models/xlstm.py:92 and :154), as "
+                            "models/xlstm.py does before this call (ROADMAP.md Queue 1 "
+                            "item 3)")
         return MLSTMFunction.apply(q, k, v, i_gate, f_gate, c, n, m)
     if q.device.type == "cpu":
         h, c_new, n_new, m_new = mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m)

@@ -53,8 +53,10 @@ def rg_lru_op(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     _check(a, b, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (a, b, h0)):
         if any(t is not None and t.dtype != torch.float32 for t in (a, b, h0)):
-            raise TypeError(f"rg_lru_op: gradients are fp32 only, got {a.dtype} and {b.dtype} "
-                            "(bf16 training is ROADMAP Queue 1)")
+            raise TypeError(f"rg_lru_op: gradients are fp32 only, got {a.dtype} and {b.dtype}: "
+                            "the reference computes the RG-LRU recurrence in fp32 "
+                            "(repro/models/rglru.py:73-95), and the model gives it fp32 a "
+                            "and b in every dtype (ROADMAP.md Queue 1 item 3)")
         return RGLRUFunction.apply(a, b, h0)
     return _forward(a, b, h0)
 

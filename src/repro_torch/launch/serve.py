@@ -69,6 +69,7 @@ def lm_requests(cfg, n: int, *, max_new: int, seed: int = 0) -> list[Request]:
 
 def main(argv: Sequence[str] | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=["p3sapp_summarizer", *ARCH_IDS],
@@ -153,14 +154,16 @@ def serve_lm(args, device: torch.device, sync: Callable[[], None]) -> None:
 HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "lstm_layer_bwd_kernel",
                 "text_scan_kernel", "text_clean_kernel", "flash_attention_kernel",
                 "flash_train_kernel", "flash_bwd_delta_kernel", "flash_bwd_kernel",
-                "flash_bwd_dq_sum_kernel", "flash_bwd_dkv_sum_kernel", "rg_lru_kernel",
+                "flash_bwd_dq_sum_kernel", "flash_bwd_dkv_sum_kernel", "flash_train_bf16_kernel",
+                "flash_bwd_bf16_delta_kernel", "flash_bwd_bf16_kernel",
+                "flash_bwd_bf16_dq_sum_kernel", "flash_bwd_bf16_dkv_sum_kernel", "rg_lru_kernel",
                 "rg_lru_bwd_kernel", "mlstm_chunk_kernel", "mlstm_decode_kernel",
                 "mlstm_train_slices_kernel", "mlstm_train_scores_kernel",
                 "mlstm_train_rows_kernel", "mlstm_bwd_slices_kernel", "mlstm_bwd_gates_kernel",
                 "mlstm_bwd_state_kernel", "mlstm_bwd_products_kernel",
                 "mlstm_bwd_scalars_kernel")
 # substrings of cuBLAS's matrix-product kernel names, lower-cased
-GEMM = ("gemm", "gemv")
+GEMM = ("gemm", "gemv", "nvjet")  # nvjet: cuBLAS's Hopper kernels (bf16 among them)
 
 
 def _where(device: torch.device) -> str:

@@ -109,6 +109,7 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
                          "the launcher's token rows cannot give; train it through "
                          "make_train_step over LM.loss with frame batches")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
     print(f"arch={cfg.name} device={device} params~{cfg.param_count() / 1e6:.1f}M")

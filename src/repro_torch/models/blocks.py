@@ -57,11 +57,31 @@ def apply_norm(p, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 # -- MLP (GLU or plain) ---------------------------------------------------------
 
-_ACTS = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default form
-    "relu": F.relu,
-}
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d CPU constant in ``like``'s dtype, as JAX rounds a weak-typed
+    Python scalar to the array's dtype (a scalar on any device)."""
+    return torch.tensor(value, dtype=like.dtype)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: fused in fp32; in bf16 written out as XLA runs it,
+    x · 1/(1 + exp(−x)), each operation rounded to bf16."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form: fused in fp32; in bf16 written
+    out as JAX does, each operation and constant rounded to bf16 (x³ as x ·
+    x², its ``integer_pow``)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * (x * (x * x)))
+    return x * (_const(0.5, x) * (1 + torch.tanh(inner)))
+
+
+_ACTS = {"silu": _silu, "gelu": _gelu, "relu": F.relu}
 
 
 def init_mlp(cfg, generator: torch.Generator, d_ff: int | None = None,

@@ -59,8 +59,9 @@ def _route(xf: torch.Tensor, router: torch.Tensor, m):
     """Top-k routing of ``xf`` ``(N, d)`` -> (expert ids ``(N, k)``, their
     renormalised probabilities ``(N, k)`` in xf's dtype, the load-balance
     term ``E · Σ_e f_e · P_e`` (fp32 0-d)). Counterpart of
-    ``repro/models/moe.py:75 _route``."""
-    logits = (xf.float() @ router).float()  # (N, E)
+    ``repro/models/moe.py:75 _route``; a router in another dtype is cast to
+    fp32, as JAX promotes ``fp32 @ bf16``."""
+    logits = xf.float() @ router.float()  # (N, E)
     probs_full = torch.softmax(logits, dim=-1)
     probs, ids = torch.topk(probs_full, m.top_k, dim=-1)
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)  # renorm (DeepSeek)
@@ -132,8 +133,10 @@ def moe_local(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed experts over ``x`` ``(b, s, d)`` on one device -> (y,
     aux). Counterpart of ``repro/models/moe.py:144 moe_local``: the
     capacity factor is ``capacity_factor + 0.25`` as it passes it. Each
-    token's k copies are contiguous, so their weighted sum is a reshape and
-    a sum (the reference's scatter-add)."""
+    token's k copies are contiguous, so in fp32 or fp64 their weighted sum
+    is a reshape and a sum (the reference's scatter-add); in bf16 they are added
+    one after another, each add rounded, as that scatter-add
+    (``.at[tok_idx].add``) rounds them."""
     m = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(-1, d)
@@ -142,7 +145,13 @@ def moe_local(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     tok_idx = torch.arange(n, device=x.device).repeat_interleave(k)
     out_flat = _expert_ffn(xf[tok_idx], ids.reshape(-1), p, m.n_experts, impl=m.expert_impl,
                            capacity_factor=m.capacity_factor + 0.25)
-    y = (out_flat * probs.reshape(-1)[:, None]).reshape(n, k, d).sum(1)
+    weighted = (out_flat * probs.reshape(-1)[:, None]).reshape(n, k, d)
+    if x.dtype in (torch.float32, torch.float64):
+        y = weighted.sum(1)
+    else:
+        y = weighted[:, 0]
+        for j in range(1, k):
+            y = y + weighted[:, j]
     return y.reshape(b, s, d), aux
 
 

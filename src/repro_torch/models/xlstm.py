@@ -97,6 +97,9 @@ def mlstm_scan(p, x: torch.Tensor, cfg, state: MLSTMState | None = None
     if state is None:
         state = init_mlstm_state(b, cfg, x.device)
     q, k, v, i_t, f_t, z = _mlstm_inputs(p, x, cfg)
+    # the recurrence in fp32, as the reference casts q, k and v
+    # (repro/models/xlstm.py:92, :154)
+    q, k, v = q.float(), k.float(), v.float()
     hs, c, n, m = mlstm_chunk_op(q, k, v, i_t, f_t, state.c, state.n, state.m)
     hs = hs.reshape(b, s, -1).to(x.dtype)
     y = (hs * F.silu(z.float()).to(x.dtype)) @ p["w_down"]

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time ``flash_attention_bwd`` where the keys span several of the
 backward's key tiles, beside the training shape, whose keys fit one; and
-the training forward (``flash_attention_train``) at the same shapes.
+the training forward (``flash_attention_train``) at the same shapes; in
+fp32 at ``SHAPES`` and in bf16 (the bf16 kernels) at ``BF16_SHAPES``.
 
-    python3 tools/flash_bwd_shapes.py [--src DIR] [--label NAME]
+    python3 tools/flash_bwd_shapes.py [--src DIR] [--label NAME] [--dtype fp32|bf16|all]
 
 Past one key tile the kernel runs its multi-tile path: a D pass, then per
 round of ``bwd_part_tiles`` tiles the main kernel and the sum of the
@@ -26,7 +27,10 @@ backward together (``sdpa_fwd_bwd_ms``, the same inputs with ``dout`` as
 the cotangent; the difference of the two is SDPA's backward), the memory
 the backward allocates at its peak (the gradients, D and the scratch),
 and, for a version that has them, the scratch's tiles and rounds and the
-head split; then the card's name and power limit.
+head split; then the card's name and power limit. Each row names its
+dtype; a version without the bf16 kernels prints no bf16 rows. The plain
+versions run one batch row at a time past ``PLAIN_ROW_SCORES`` scores
+(StableLM-3B's 8 x 4,096 would be 17 GB of fp32 scores at once).
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [(8, 64, 32, 32, 80, True, 0), (2, 64, 16, 1, 256, True, 2048),
           (8, 512, 32, 32, 80, True, 0), (8, 2048, 32, 32, 80, True, 0),
           (2, 2048, 16, 1, 256, True, 2048)]
+# bf16: StableLM-3B's heads at 64, 512, 2,048 and 4,096 positions (the last
+# the JAX dry run's train_4k microbatch, 8 rows)
+BF16_SHAPES = [(8, s, 32, 32, 80, True, 0) for s in (64, 512, 2048, 4096)]
+PLAIN_ROW_SCORES = 1 << 30
 
 
 def timed(fn, n: int = 20) -> tuple[float, float]:
@@ -74,10 +82,20 @@ def timed(fn, n: int = 20) -> tuple[float, float]:
     return ev, start.elapsed_time(end) / n
 
 
+def by_rows(fn, b, s, nq, *tensors):
+    """``fn`` over the batch, one row at a time past ``PLAIN_ROW_SCORES``
+    scores; the outputs concatenated."""
+    if b * nq * s * s <= PLAIN_ROW_SCORES:
+        return fn(*tensors)
+    parts = [fn(*(t[i:i + 1] for t in tensors)) for i in range(b)]
+    return [torch.cat(ts) for ts in zip(*parts)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--label", default="")
+    ap.add_argument("--dtype", choices=("fp32", "bf16", "all"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("flash_bwd_shapes: needs a CUDA card")
@@ -86,18 +104,27 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_train_ref)
 
-    for shape in SHAPES:
+    runs = []
+    if args.dtype in ("fp32", "all"):
+        runs += [(shape, torch.float32) for shape in SHAPES]
+    if args.dtype in ("bf16", "all") and torch.bfloat16 in getattr(ops, "_TRAIN_ENTRY", {}):
+        runs += [(shape, torch.bfloat16) for shape in BF16_SHAPES]
+    for shape, dtype in runs:
         b, s, nq, nkv, hd, causal, window = shape
+        kw = dict(causal=causal, window=window)
         gen = torch.Generator("cuda").manual_seed(0)
-        q, dout = (torch.randn(b, s, nq, hd, device="cuda", generator=gen) for _ in range(2))
-        k, v = (torch.randn(b, s, nkv, hd, device="cuda", generator=gen) for _ in range(2))
+        q, dout = (torch.randn(b, s, nq, hd, device="cuda", generator=gen).to(dtype)
+                   for _ in range(2))
+        k, v = (torch.randn(b, s, nkv, hd, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
         def fwd():
-            return ops.flash_attention_train(q, k, v, causal=causal, window=window)
+            return ops.flash_attention_train(q, k, v, **kw)
 
         out, lse = fwd()
-        fwd_err = max(((g - w).abs().max() / w.abs().max()).item() for g, w in
-                      zip((out, lse), flash_attention_train_ref(q, k, v, causal=causal,
-                                                                window=window)))
+        fwd_err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                      for g, w in zip((out, lse), by_rows(
+                          lambda q, k, v: flash_attention_train_ref(q, k, v, **kw), b, s, nq,
+                          q, k, v)))
         fwd_ev, fwd_b2b = timed(fwd)
         sdpa = sdpa_pair = None
         if causal and (window == 0 or window >= s):  # a window past the keys cuts none
@@ -122,8 +149,10 @@ def main() -> int:
             return ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
 
         got = bwd()
-        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
-        err = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+        want = by_rows(lambda *t: flash_attention_bwd_ref(*t, **kw), b, s, nq,
+                       q, k, v, out, lse, dout)
+        err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                  for g, w in zip(got, want))
         del got, want
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -132,7 +161,8 @@ def main() -> int:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         ev, b2b = timed(bwd)
-        row = {"label": args.label, "shape": list(shape), "ev_ms": ev, "b2b_ms": b2b,
+        row = {"label": args.label, "dtype": str(dtype).removeprefix("torch."),
+               "shape": list(shape), "ev_ms": ev, "b2b_ms": b2b,
                "max_err_of_max": err, "peak_bytes": peak, "fwd_ev_ms": fwd_ev,
                "fwd_b2b_ms": fwd_b2b, "fwd_max_err_of_max": fwd_err, "sdpa_fwd_ms": sdpa,
                "sdpa_fwd_bwd_ms": sdpa_pair}
