@@ -185,14 +185,18 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
 16. bf16 training (``lm_train_bf16``; its draws from a generator of its
    own), as the JAX dry run's train cells build the LM (``remat``, bf16
    parameters, AdamW with fp32 moments): ``flash_attention_train_bf16``
-   and ``flash_attention_bwd_bf16`` (bf16 tensor cores) against their
+   and ``flash_attention_bwd_bf16`` (wgmma, TMA and mbarriers) against their
    plain versions at the fp32 training shapes, HuBERT X-Large's and
-   Qwen2-VL-72B's, and StableLM-3B's train_4k microbatch (8 x 4,096, 32
-   heads of 80, causal): out and the gradients within 2e-2 abs/rel or 2e-2
-   of the tensor's max, lse within one bf16 unit of the row's largest
-   score (the scores are rounded to bf16) and 2e-5, twice bit for bit, no
-   input written; both timed at 8 x 64 and 8 x 4,096 beside their plain versions,
-   bounds and ``scaled_dot_product_attention`` in bf16; one bf16
+   Qwen2-VL-72B's, StableLM-3B's train_4k microbatch (8 x 4,096, 32
+   heads of 80, causal) and the new tilings' edges (lengths past one tile
+   and not multiples of 128, non-causal, a head not a multiple of 8, an
+   input at an odd element offset): out and the gradients within 2e-2
+   abs/rel or 2e-2 of the tensor's max, lse within one bf16 unit of the
+   row's largest score (the scores are rounded to bf16) and 2e-5, twice bit
+   for bit, no input written; both timed at 8 x 64, 512, 2,048 and 4,096
+   beside their plain versions, bounds and ``scaled_dot_product_attention``
+   in bf16, the backward's kernels a call counted by its library and held
+   to its plan (2, or 3 with a head split); one bf16
    ``value_and_grad`` of ``LM.loss`` card against CPU for StableLM-3B,
    RecurrentGemma-9B, xLSTM-1.3B and DeepSeek-MoE-16B at
    ``CARD_VS_CPU_LAYERS`` full-width layers (each gradient within 2e-2 of
@@ -277,7 +281,8 @@ BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
              ("mlstm_chunk", "prefill"): 0.02070, ("text_clean", "matrix"): 0.01133,
              ("text_clean", "abstracts"): 0.10571, ("flash_attention_bwd", None): 0.1347,
              ("flash_attention_train", None): 0.04581, ("mlstm_chunk_train", None): 1.2992,
-             ("mlstm_chunk_bwd", None): 0.7314}
+             ("mlstm_chunk_bwd", None): 0.7314, ("flash_attention_train_bf16", None): 7.638,
+             ("flash_attention_bwd_bf16", None): 54.79}
 # The byte kernels (tools/byte_kernel_times.py against a git archive of the
 # tree before them), flash's backward, the two training forwards and the
 # mLSTM backward (this script, before their tensor-core designs) by the
@@ -286,7 +291,9 @@ BEFORE_MS = {("lstm_cell", None): 0.01327, ("text_scan", None): 0.006816,
 BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.008276,
                    ("text_clean", "abstracts"): 0.103428, ("flash_attention_bwd", None): 0.1326,
                    ("flash_attention_train", None): 0.04287,
-                   ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287}
+                   ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287,
+                   ("flash_attention_train_bf16", None): 7.461,
+                   ("flash_attention_bwd_bf16", None): 55.04}
 # The phases' seconds before the bf16 training phase was added (PERF.md;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
 BEFORE_PHASES_SECONDS = 615.8
@@ -4335,8 +4342,17 @@ TRAIN_4K_ROWS, TRAIN_4K_SEQ = 8, 4096
 TRAIN_4K_FLASH = (TRAIN_4K_ROWS, TRAIN_4K_SEQ, 32, 32, 80, True, 0)
 # (b, s, nq, nkv, hd, causal, window) of the bf16 kernels' checks: the fp32
 # training shapes, HuBERT X-Large's and Qwen2-VL-72B's, and train_4k's
-FLASH_BF16_CASES = FLASH_BWD_CASES + FLASH_BWD_FRONTENDS + [TRAIN_4K_FLASH]
-FLASH_BF16_TIMED = {"8x64": FLASH_BWD_CASES[0], "8x4096": TRAIN_4K_FLASH}
+# The bf16 kernels' tilings' edges (128-row and 128-key tiles, 64 and 32
+# at hd 256; 64- and 32-row chunks): lengths past one tile and not
+# multiples of 128, a window, non-causal, a head of 36 (padded to 40), and
+# a view one element past an aligned base (copied by the wrapper)
+FLASH_BF16_ODD_VIEW = (2, 96, 8, 4, 64, True, 0)
+FLASH_BF16_EDGES = [(2, 200, 8, 2, 80, True, 0), (1, 129, 16, 1, 256, True, 0),
+                    (2, 513, 32, 32, 80, True, 100), (2, 300, 4, 4, 128, False, 0),
+                    (1, 100, 4, 1, 36, True, 0), FLASH_BF16_ODD_VIEW]
+FLASH_BF16_CASES = FLASH_BWD_CASES + FLASH_BWD_FRONTENDS + [TRAIN_4K_FLASH] + FLASH_BF16_EDGES
+FLASH_BF16_TIMED = {"8x64": FLASH_BWD_CASES[0], "8x512": (8, 512, 32, 32, 80, True, 0),
+                    "8x2048": (8, 2048, 32, 32, 80, True, 0), "8x4096": TRAIN_4K_FLASH}
 # a plain version past this many fp32 scores runs one batch row at a time
 # (train_4k's whole batch would be 17 GB of scores, and several such tensors)
 PLAIN_ROW_SCORES = 1 << 30
@@ -4431,6 +4447,15 @@ def flash_bf16_inputs(case, gen):
     return [t.bfloat16() for t in flash_bwd_inputs(case, gen)]
 
 
+def odd_view(t):
+    """``t``'s values in a contiguous view one element past the start of
+    its buffer (2 bytes off a 16-byte boundary in bf16)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+
+
 def check_flash_bf16(gen) -> tuple[float, float, float]:
     """``flash_attention_train_bf16`` and ``flash_attention_bwd_bf16`` against
     their plain versions on the card at ``FLASH_BF16_CASES`` (out, dq, dk, dv
@@ -4443,6 +4468,10 @@ def check_flash_bf16(gen) -> tuple[float, float, float]:
     for case in FLASH_BF16_CASES:
         kw = dict(causal=case[5], window=case[6])
         q, k, v, dout = flash_bf16_inputs(case, gen)
+        if case == FLASH_BF16_ODD_VIEW:
+            q, k, v, dout = (odd_view(t) for t in (q, k, v, dout))
+            if q.data_ptr() % 16 == 0:
+                fail(f"flash bf16 {case}: the odd view is aligned")
         inputs = [t.clone() for t in (q, k, v, dout)]
         out, lse = flash_ops.flash_attention_train(q, k, v, **kw)
         out2, lse2 = flash_ops.flash_attention_train(q, k, v, **kw)
@@ -4472,7 +4501,8 @@ def check_flash_bf16(gen) -> tuple[float, float, float]:
     print(f"flash_attention_train_bf16 and flash_attention_bwd_bf16: match their plain versions "
           f"at {len(FLASH_BF16_CASES)} shapes (the fp32 training shapes, HuBERT X-Large's "
           f"8 x 512 non-causal 16 x 80, Qwen2-VL-72B's 64/8 x 128 at 2 x 64, StableLM-3B's "
-          f"train_4k microbatch {TRAIN_4K_FLASH}); out {e_out:.3e}, grads {e_grad:.3e} (tol 2e-2 "
+          f"train_4k microbatch {TRAIN_4K_FLASH}, the tilings' edges {FLASH_BF16_EDGES}, the "
+          f"last a view at an odd element offset); out {e_out:.3e}, grads {e_grad:.3e} (tol 2e-2 "
           f"abs/rel or 2e-2 of the tensor's max), lse at {e_lse:.3f} of its slack (one bf16 "
           f"unit of the row's largest score and 2e-5 abs/rel); "
           f"two launches identical bit for bit; no input written")
@@ -4532,6 +4562,15 @@ def time_flash_bf16(case, gen, bw: float, flops: float) -> dict:
     lib, lib_burst = timed(library)
     fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+    plan = flash_ops.bwd_bf16_plan(b, s, s, nq, nkv, hd)
+    before = flash_ops.bwd_bf16_kernels()
+    flash_ops.flash_attention_bwd(q, k, v, None, lse, dout, **kw)
+    kernels = flash_ops.bwd_bf16_kernels() - before
+    if kernels != plan.launches:
+        fail(f"flash_attention_bwd bf16 {case}: {kernels} kernels a call, its plan says "
+             f"{plan.launches}")
+    print(f"flash_attention_bwd bf16 {case}: {kernels} kernels a call (head split "
+          f"{plan.head_split}), as its plan says")
     row = {"shape": list(case),
            "forward": {"ms": fwd_ms, "ms_burst": fwd_burst,
                        "plain_ms": device_ms(lambda: flash_bf16_plain(q, k, v, dout, kw), 3),
@@ -4544,7 +4583,10 @@ def time_flash_bf16(case, gen, bw: float, flops: float) -> dict:
                                               3),
                         "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes,
                         "operations": bwd_ops, "library_ms": lib, "library_ms_burst": lib_burst,
-                        "library": "scaled_dot_product_attention forward + backward, bf16"}}
+                        "library": "scaled_dot_product_attention forward + backward, bf16",
+                        "kernels_a_call": kernels, "head_split": plan.head_split,
+                        # the design's own floor: nine products where the algebra has five
+                        "design_floor_ms": max(bwd_bytes / bw, 9 / 5 * bwd_ops / flops) * 1e3}}
     row["forward_and_backward_ms"] = fwd_ms + bwd_ms
     print(f"flash bf16 {case}: {json.dumps(row)}")
     del q, k, v, dout, out, lse, qt, kt, vt, dt

@@ -65,10 +65,10 @@ SIGNATURES = {
     "flash_attention_bwd_f32": (_P,) * 12 + (_I,) * 10 + (_F, _P),
     # the same for bf16 q, k, v, out (lse fp32)
     "flash_attention_train_bf16": (_P,) * 5 + (_I,) * 8 + (_F, _P),
-    # the f32 entry's arguments for bf16 q, k, v, dout, dq, dk, dv, without
-    # out, with dq_acc (fp32 (b, sq, nq, hd) scratch: dQ's sum over the
-    # rounds, or null when dq_part is) after dkv_part
-    "flash_attention_bwd_bf16": (_P,) * 12 + (_I,) * 10 + (_F, _P),
+    # q, k, v, dout (bf16), lse, rows (fp32 scratch: lse and D for the
+    # key-tile kernel), dkv_part (or null), dq, dk, dv; b, sq, skv, nq, nkv,
+    # hd; causal, window; the head split; scale; stream
+    "flash_attention_bwd_bf16": (_P,) * 10 + (_I,) * 9 + (_F, _P),
     # a, b, h0 (or null), out, h_last; dtype (0 fp32, 1 bf16), batch, seq, d; stream
     "rg_lru": (_P,) * 5 + (_I,) * 4 + (_P,),
     # a, h, h0, dh, dlast (each of the last three or null), da, db, dh0 (or
@@ -86,7 +86,7 @@ SIGNATURES = {
 }
 # entry points that return a size, not an error code
 SIZES = {"mlstm_chunk_bwd_workspace": (_I,) * 4, "mlstm_chunk_train_workspace": (_I,) * 4,
-         "lstm_layer_bwd_max_hidden": ()}
+         "lstm_layer_bwd_max_hidden": (), "flash_attention_bwd_bf16_kernels": ()}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

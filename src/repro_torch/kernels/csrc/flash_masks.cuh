@@ -2,13 +2,13 @@
 // share, fp32 (flash_attention_train.cu, flash_attention_bwd.cu) and bf16
 // (flash_attention_train_bf16.cu, flash_attention_bwd_bf16.cu): which keys
 // a query sees (causal, a sliding window), whether a tile is hidden from
-// all of a range of queries, which queries see a range of keys, and the
-// copy of a tile of rows into shared memory with zeros past its edges.
-// Include it after mma_tf32.cuh or mma_bf16.cuh, whose cp_async16 it calls.
+// all of a range of queries, which queries see a range of keys, and (for
+// the fp32 kernels, whose tiles are not TMA's) the copy of a tile of rows
+// into shared memory with zeros past its edges. Include it after
+// mma_tf32.cuh, whose cp_async16 load_rows calls, or hopper_bf16.cuh.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,10 +34,6 @@ template <typename T>
 __device__ __forceinline__ T zero_value();
 template <>
 __device__ __forceinline__ float zero_value<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
 
 // n rows of a (rows, heads, hd) layout from element offset `first` with
 // row stride `stride`, into rows of ld values (zeros past hd, up to width,

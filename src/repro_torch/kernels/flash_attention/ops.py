@@ -29,10 +29,16 @@ own pair of kernels (``flash_attention_train_bf16.cu`` and
 other dtype raises.
 ``LAUNCHES["flash_attention"]`` counts the serving kernel's and the
 training kernel's launches, ``LAUNCHES["flash_attention_bwd"]`` one per
-backward call: one kernel when the keys fit one tile of ``bwd_key_tile``
-keys, else a D pass, then per round of ``bwd_part_tiles`` key tiles the
-main kernel and the sum of their partial dQ; where ``bwd_head_split``
-splits a kv group's query heads over blocks, a last sum of dK and dV.
+backward call. The fp32 backward is one kernel when the keys fit one tile
+of ``bwd_key_tile`` keys, else a D pass, then per round of
+``bwd_part_tiles`` key tiles the main kernel and the sum of their partial
+dQ; where ``bwd_head_split`` splits a kv group's query heads over blocks,
+a last sum of dK and dV. The bf16 backward is two kernels at every length,
+``bwd_bf16_plan``'s: a query-tile kernel (D, then dQ from its own sweep)
+and a key-tile kernel (dK, dV), and a third, the sum of dK and dV, where
+its head split is above 1. The bf16 kernels load their tiles by TMA, which
+takes a head of a multiple of 8 from a 16-byte-aligned base: ``tma_ready``
+pads or copies what is not so, and the outputs are cut back to hd.
 """
 
 from __future__ import annotations
@@ -63,6 +69,15 @@ SMS = 132  # an H100's SMs: a launch with this many blocks is not split further
 # the key tiles' partial dQ
 BWD_PART_BYTES = 1 << 28
 BWD_BLOCKS = 2 * SMS  # blocks a round of the backward aims for before it splits heads
+# csrc/flash_attention_bwd_bf16.cu's instances: the head's width (hd rounded
+# up to one of them) and, for each, (a) the query rows of a block and the
+# keys of its tiles, (b) the keys of a block and the query rows of its
+# chunks; up to BF16_SMALL rows and keys (and a head of at most 128),
+# BF16_BWD_SMALL's blocks of one warpgroup, two an SM
+BF16_BWD_TILES = {64: (192, 64, 192, 32), 80: (192, 64, 192, 32), 96: (192, 64, 128, 32),
+                  128: (128, 64, 128, 32), 256: (64, 32, 64, 32)}
+BF16_BWD_SMALL = (64, 64, 64, 32)
+BF16_SMALL = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +162,71 @@ def bwd_head_split(b: int, sq: int, skv: int, nq: int, nkv: int, hd: int) -> int
         if group % split == 0:
             best = split
     return best
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdBf16Plan:
+    """The bf16 backward's launches (``csrc/flash_attention_bwd_bf16.cu``)."""
+    width: int  # hd padded to a multiple of 8: the head the kernels are given
+    head_width: int  # the instance's head width in shared memory
+    query_rows: int  # (a) the query-tile kernel: query rows a block
+    query_keys: int  # keys a tile of its two sweeps
+    query_grid: tuple[int, int]  # (row tiles, b * nq)
+    key_keys: int  # (b) the key-tile kernel: keys a block
+    key_rows: int  # query rows a chunk
+    key_grid: tuple[int, int]  # (b * nkv * head_split, key tiles)
+    head_split: int  # blocks of (b) that share a (key tile, kv head)
+    dq_scratch_bytes: int  # partial dQ: none
+    dkv_scratch_bytes: int  # the head split's fp32 dK, dV parts
+    row_scratch_bytes: int  # lse and D for (b), (2, b, nq, sq rounded up to 4) fp32
+    launches: int  # kernels a call
+
+
+def tma_width(hd: int) -> int:
+    """hd rounded up to a multiple of 8: a row of bf16 then spans a
+    multiple of 16 bytes, as a TMA tensor map's strides must."""
+    return -(-hd // 8) * 8
+
+
+def bwd_bf16_plan(b: int, sq: int, skv: int, nq: int, nkv: int, hd: int) -> BwdBf16Plan:
+    """The bf16 backward's launch for these shapes: the instance by the
+    padded head, each kernel's tiles and grid, and the head split, the
+    smallest divisor of the group that gives the key-tile kernel
+    ``BWD_BLOCKS`` blocks, short of one whose fp32 dK, dV parts (``2 x
+    split x |k|``) would pass ``BWD_PART_BYTES``; 1 where the group is 1 or
+    the blocks are enough. 2 launches, 3 with a split, at every length."""
+    width = tma_width(hd)
+    head = next(w for w in sorted(BF16_BWD_TILES) if w >= width)
+    small = sq <= BF16_SMALL and skv <= BF16_SMALL and head <= 128
+    q_rows, q_keys, k_keys, k_rows = BF16_BWD_SMALL if small else BF16_BWD_TILES[head]
+    key_tiles = -(-skv // k_keys)
+    group = nq // nkv
+    blocks = b * nkv * key_tiles
+    kv_bytes = 4 * b * skv * nkv * width
+    split = 1
+    for s in range(2, group + 1):
+        if blocks * split >= BWD_BLOCKS or 2 * s * kv_bytes > BWD_PART_BYTES:
+            break
+        if group % s == 0:
+            split = s
+    return BwdBf16Plan(
+        width=width, head_width=head, query_rows=q_rows, query_keys=q_keys,
+        query_grid=(-(-sq // q_rows), b * nq), key_keys=k_keys, key_rows=k_rows,
+        key_grid=(b * nkv * split, key_tiles), head_split=split, dq_scratch_bytes=0,
+        dkv_scratch_bytes=2 * split * kv_bytes if split > 1 else 0,
+        row_scratch_bytes=2 * 4 * b * nq * (-(-sq // 4) * 4), launches=2 + (split > 1))
+
+
+def tma_ready(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` as the bf16 kernels' TMA loads take it: contiguous, its last
+    dimension zero-padded to ``width`` (``tma_width``), from a 16-byte-aligned
+    base. ``t`` itself where it already is so, else a fresh tensor (the
+    allocators' bases are aligned) with the same values."""
+    if t.shape[-1] != width:
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _check(q, k, v, q_offset, kv_len) -> None:
@@ -258,17 +338,20 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
     skv, nkv = k.shape[1], k.shape[2]
     if b * nq > 65535:
         raise ValueError(f"flash_attention_train: {b} x {nq} heads exceed the grid")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16  # TMA's loads: a head of a multiple of 8
+    width = tma_width(hd) if bf16 else hd
+    q, k, v = (tma_ready(t, width) if bf16 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, sq, nq, width), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :hd], lse
     err = getattr(_build.library(), _TRAIN_ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv,
-        nq, nkv, hd, int(causal), window, 1.0 / math.sqrt(hd), _build.current_stream(q.device))
+        nq, nkv, width, int(causal), window, 1.0 / math.sqrt(hd),
+        _build.current_stream(q.device))
     _build.check(err, "flash_attention_train")
     LAUNCHES["flash_attention"] += 1
-    return out, lse
+    return (out if width == hd else out[..., :hd].contiguous()), lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
@@ -300,11 +383,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
         raise TypeError(f"flash_attention_bwd: the kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
     skv, nkv = k.shape[1], k.shape[2]
-    if b * nkv > 2**31 - 1 or -(-skv // 32) > 65535 or \
-            (q.dtype == torch.bfloat16 and b * nq > 65535):
-        raise ValueError(f"flash_attention_bwd: {b} x {nkv} kv heads, {b} x {nq} heads or "
-                         f"{skv} keys exceed the grid")
-    q, k, v, lse, dout = (t.contiguous() for t in (q, k, v, lse, dout))
+    if q.dtype == torch.bfloat16:
+        return _bwd_bf16(q, k, v, lse, dout, causal, window)
+    if b * nkv > 2**31 - 1 or -(-skv // 32) > 65535:
+        raise ValueError(f"flash_attention_bwd: {b} x {nkv} kv heads or {skv} keys exceed the "
+                         f"grid")
+    q, k, v, out, lse, dout = (t.contiguous() for t in (q, k, v, out, lse, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -315,22 +399,50 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
         if slots else None
     kv_part = torch.empty((2, split, *k.shape), dtype=torch.float32, device=q.device) \
         if split > 1 else None
-    scratch = [part, kv_part]
-    inputs = (q, k, v, dout)
-    if out is not None:
-        inputs = (q, k, v, out.contiguous(), dout)
-    else:  # bf16: D is its own pass; dQ's sum over the rounds
-        scratch.append(torch.empty(q.shape, dtype=torch.float32, device=q.device)
-                       if slots else None)
     err = getattr(_build.library(), _BWD_ENTRY[q.dtype])(
-        *(t.data_ptr() for t in inputs), lse.data_ptr(), delta.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, sq, skv, nq, nkv, hd, int(causal), window, slots, split,
+        *(t.data_ptr() for t in (q, k, v, out, dout)), lse.data_ptr(), delta.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (part, kv_part)), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, skv, nq, nkv, hd, int(causal), window, slots, split,
         1.0 / math.sqrt(hd), _build.current_stream(q.device))
     _build.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
+
+def bwd_bf16_kernels() -> int:
+    """The kernels ``flash_attention_bwd_bf16.cu`` has launched in this
+    process, as its library counts them: read around a call, its kernels."""
+    return _build.library().flash_attention_bwd_bf16_kernels()
+
+
+def _bwd_bf16(q, k, v, lse, dout, causal, window):
+    """``flash_attention_bwd_bf16.cu`` on CUDA tensors, as ``bwd_bf16_plan``
+    lays it out: the head padded to ``tma_width``, the gradients cut back."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    launch = bwd_bf16_plan(b, sq, skv, nq, nkv, hd)
+    if b * nq > 65535 or launch.key_grid[1] > 65535 or launch.key_grid[0] > 2**31 - 1:
+        raise ValueError(f"flash_attention_bwd: {b} x {nq} heads, {b} x {nkv} kv heads or "
+                         f"{skv} keys exceed the grid")
+    width = launch.width
+    q, k, v, dout = (tma_ready(t, width) for t in (q, k, v, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return tuple(t[..., :hd].zero_() for t in (dq, dk, dv))
+    rows = torch.empty(launch.row_scratch_bytes // 4, dtype=torch.float32, device=q.device)
+    kv_part = torch.empty(launch.dkv_scratch_bytes // 4, dtype=torch.float32, device=q.device) \
+        if launch.head_split > 1 else None
+    err = _build.library().flash_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, dout, lse, rows)),
+        None if kv_part is None else kv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, skv, nq, nkv, width, int(causal), window, launch.head_split,
+        1.0 / math.sqrt(hd), _build.current_stream(q.device))
+    _build.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    if width == hd:
+        return dq, dk, dv
+    return tuple(t[..., :hd].contiguous() for t in (dq, dk, dv))
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``flash_attention_op`` over the full sequence with a gradient, fp32

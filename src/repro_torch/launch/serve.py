@@ -155,8 +155,8 @@ HAND_WRITTEN = ("lstm_cell_kernel", "lstm_cell_bwd_kernel", "lstm_layer_bwd_kern
                 "text_scan_kernel", "text_clean_kernel", "flash_attention_kernel",
                 "flash_train_kernel", "flash_bwd_delta_kernel", "flash_bwd_kernel",
                 "flash_bwd_dq_sum_kernel", "flash_bwd_dkv_sum_kernel", "flash_train_bf16_kernel",
-                "flash_bwd_bf16_delta_kernel", "flash_bwd_bf16_kernel",
-                "flash_bwd_bf16_dq_sum_kernel", "flash_bwd_bf16_dkv_sum_kernel", "rg_lru_kernel",
+                "flash_bwd_bf16_query_kernel", "flash_bwd_bf16_key_kernel",
+                "flash_bwd_bf16_dkv_sum_kernel", "rg_lru_kernel",
                 "rg_lru_bwd_kernel", "mlstm_chunk_kernel", "mlstm_decode_kernel",
                 "mlstm_train_slices_kernel", "mlstm_train_scores_kernel",
                 "mlstm_train_rows_kernel", "mlstm_bwd_slices_kernel", "mlstm_bwd_gates_kernel",

@@ -6,12 +6,15 @@ fp32 at ``SHAPES`` and in bf16 (the bf16 kernels) at ``BF16_SHAPES``.
 
     python3 tools/flash_bwd_shapes.py [--src DIR] [--label NAME] [--dtype fp32|bf16|all]
 
-Past one key tile the kernel runs its multi-tile path: a D pass, then per
-round of ``bwd_part_tiles`` tiles the main kernel and the sum of the
-tiles' partial dQ in a scratch of up to ``BWD_PART_BYTES``. ``--src``
-names the ``src`` directory whose ``repro_torch`` is timed (default: this
-checkout's), so two versions of the kernel can be timed on one card in
-one session: run the script once per version, alternating (A, B, B, A).
+Past one key tile the fp32 kernel runs its multi-tile path: a D pass,
+then per round of ``bwd_part_tiles`` tiles the main kernel and the sum of
+the tiles' partial dQ in a scratch of up to ``BWD_PART_BYTES``; the bf16
+backward is ``bwd_bf16_plan``'s two kernels (three with a head split) at
+every length. ``--src`` names the ``src`` directory whose ``repro_torch``
+is timed (default: this checkout's), so two versions of the kernel can be
+timed on one card in one session: run the script once per version,
+alternating (A, B, B, A), e.g. against ``git archive`` of an earlier
+commit's ``src`` unpacked under ``build/``.
 Run from the root of a checkout on a machine with a CUDA card; the
 kernels are built as ``chip_smoke.py`` builds them.
 
@@ -27,7 +30,12 @@ backward together (``sdpa_fwd_bwd_ms``, the same inputs with ``dout`` as
 the cotangent; the difference of the two is SDPA's backward), the memory
 the backward allocates at its peak (the gradients, D and the scratch),
 and, for a version that has them, the scratch's tiles and rounds and the
-head split; then the card's name and power limit. Each row names its
+head split (the bf16 rows: ``bwd_bf16_plan``'s split and launches where
+the version has it); for bf16 each kernel's device time in one backward
+and one forward call (``kernel_us``, ``fwd_kernel_us``: ``torch.profiler``
+over 5 calls, divided by 5) and the number of kernels a backward call
+launches (the library's own count where the version keeps one, else
+``torch.profiler``'s); then the card's name and power limit. Each row names its
 dtype; a version without the bf16 kernels prints no bf16 rows. The plain
 versions run one batch row at a time past ``PLAIN_ROW_SCORES`` scores
 (StableLM-3B's 8 x 4,096 would be 17 GB of fp32 scores at once).
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,8 +61,10 @@ SHAPES = [(8, 64, 32, 32, 80, True, 0), (2, 64, 16, 1, 256, True, 2048),
           (8, 512, 32, 32, 80, True, 0), (8, 2048, 32, 32, 80, True, 0),
           (2, 2048, 16, 1, 256, True, 2048)]
 # bf16: StableLM-3B's heads at 64, 512, 2,048 and 4,096 positions (the last
-# the JAX dry run's train_4k microbatch, 8 rows)
-BF16_SHAPES = [(8, s, 32, 32, 80, True, 0) for s in (64, 512, 2048, 4096)]
+# the JAX dry run's train_4k microbatch, 8 rows), and RecurrentGemma-9B's
+# multi-query 16/1 heads of 256 at 2,048
+BF16_SHAPES = [(8, s, 32, 32, 80, True, 0) for s in (64, 512, 2048, 4096)] + \
+    [(2, 2048, 16, 1, 256, True, 2048)]
 PLAIN_ROW_SCORES = 1 << 30
 
 
@@ -80,6 +91,32 @@ def timed(fn, n: int = 20) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return ev, start.elapsed_time(end) / n
+
+
+def kernel_us(fn, n: int = 5) -> tuple[dict[str, float], int]:
+    """Each kernel's device time in one call of ``fn`` (µs) over ``n``
+    profiled calls, and the kernels one call launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for event in prof.key_averages():
+        us = getattr(event, "device_time_total", 0.0)
+        if us:
+            # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+            m = re.search(r"::([A-Za-z_]\w*(?:<[^>]*>)?)\(", event.key)
+            name = m.group(1) if m else event.key[:60]
+            out[name] = out.get(name, 0.0) + us / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # one call's kernels
+        fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def by_rows(fn, b, s, nq, *tensors):
@@ -175,6 +212,17 @@ def main() -> int:
                        scratch_bytes=4 * part * b * s * nq * hd)
         if hasattr(ops, "bwd_head_split"):
             row["head_split"] = ops.bwd_head_split(b, s, s, nq, nkv, hd)
+        if dtype == torch.bfloat16:
+            row["kernel_us"], row["kernels_a_call"] = kernel_us(bwd)
+            row["fwd_kernel_us"] = kernel_us(fwd)[0]
+            if hasattr(ops, "bwd_bf16_plan"):
+                plan = ops.bwd_bf16_plan(b, s, s, nq, nkv, hd)
+                before = ops.bwd_bf16_kernels()  # the library's own count
+                bwd()
+                row.update(head_split=plan.head_split, plan_launches=plan.launches,
+                           kernels_a_call=ops.bwd_bf16_kernels() - before)
+                for key in ("key_tile", "tiles", "part_tiles", "rounds", "scratch_bytes"):
+                    row.pop(key, None)
         print(json.dumps(row), flush=True)
         del q, k, v, out, lse, dout
         torch.cuda.empty_cache()
