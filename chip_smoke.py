@@ -209,11 +209,24 @@ the JAX package ``repro``; any failure exits non-zero. Phases:
    5 donating steps (64 flash forward and 32 backward launches a step,
    finite losses; seconds a step, tokens/s, peak memory, one step traced,
    the share of the bf16 peak);
-17. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
+17. the dry run (``dryrun``, ``python -m repro_torch.launch.dryrun``): the
+   StableLM-3B train_4k cell counted on meta tensors at full size (FLOPs,
+   bytes, ``model_flops`` and their ratio; one counted microbatch over
+   phase 16's median full-depth step, the counted share of the bf16 peak
+   beside the 6·N·T share); one bf16 donating step of StableLM-3B at 2
+   full-width layers on 8 x 4,096 tokens counted twice, run on the card
+   under the counter and on meta: FLOPs and bytes equal exactly, each
+   kernel's counted calls its ``LAUNCHES`` (flash's forward 4, backward
+   2), the arguments' bytes within 1% of what the card allocated for them,
+   the meta peak beside the card's; the same for DeepSeek-MoE-16B at 2
+   layers (dense, then MoE) on 2 x 64 tokens, FLOPs equal and the card's
+   bytes at most the meta count (which takes the routing that hits the
+   most experts);
+18. print the ``kernels`` line, one ``serve`` line and one ``serve_lm``
    line per LM, the ``preprocess``, ``feed``, ``train``, ``p3sapp``,
-   ``dataset``, ``executors``, ``serve_text``, ``lm_train``, ``frontends``
-   and ``lm_train_bf16`` lines, the card line from nvidia-smi, and the
-   result line.
+   ``dataset``, ``executors``, ``serve_text``, ``lm_train``, ``frontends``,
+   ``lm_train_bf16`` and ``dryrun`` lines, the card line from nvidia-smi,
+   and the result line.
 """
 
 from __future__ import annotations
@@ -294,9 +307,9 @@ BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.00
                    ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287,
                    ("flash_attention_train_bf16", None): 7.461,
                    ("flash_attention_bwd_bf16", None): 55.04}
-# The phases' seconds before the bf16 training phase was added (PERF.md;
+# The phases' seconds before the dryrun phase was added (PERF.md;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
-BEFORE_PHASES_SECONDS = 615.8
+BEFORE_PHASES_SECONDS = 817.1
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -4979,6 +4992,113 @@ def lm_train_bf16(bw: float) -> tuple[dict, dict]:
     return line, rows
 
 
+# The dryrun phase: the cell counted at full size on meta, and the steps
+# counted on the card and on meta: (arch, layers, rows, seq, bytes equal).
+DRYRUN_CELL = ("stablelm_3b", "train_4k")
+DRYRUN_STEPS = (("stablelm_3b", 2, TRAIN_4K_ROWS, TRAIN_4K_SEQ, True),
+                ("deepseek_moe_16b", 2, 2, 64, False))
+
+
+def dryrun_card_vs_meta(arch: str, layers: int, rows: int, seq: int, exact: bool) -> dict:
+    """One bf16 donating step of ``arch`` at full width and ``layers``
+    layers on ``rows`` x ``seq`` tokens (one microbatch, as the dry run
+    builds a train cell), counted by ``launch/hlo_cost.py`` on meta and
+    then run on the card under it: FLOPs equal, bytes equal (``exact``) or
+    the card's at most the meta count, each kernel's calls its launches,
+    the arguments' bytes within 1% of what the card allocated for them."""
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import analyze
+
+    cfg = dataclasses.replace(get(arch), n_layers=layers)
+    kw = dict(cfg=cfg, shape=ShapeConfig("train", seq, rows, "train"),
+              plan={**dryrun.BASELINE_PLAN, "micro_rows": rows})
+    t0 = time.perf_counter()
+    meta = dryrun.count_cell(arch, "train", **kw)
+    meta_seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    step, args, _ = dryrun.build_cell(arch, "train", device="cuda", seed=SEED, **kw)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    counters = lm_train_counters()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    card = analyze(step, *args)
+    torch.cuda.synchronize()
+    card_seconds = time.perf_counter() - t0
+    launches = {name: counter[name] for name, counter in counters.items() if counter[name]}
+    card_peak = torch.cuda.max_memory_allocated() - before - allocated
+    if card["flops"] != meta["flops"]:
+        fail(f"dryrun {arch}: the card counted {card['flops']} FLOPs, meta {meta['flops']}")
+    if (card["bytes"] != meta["bytes"]) if exact else (card["bytes"] > meta["bytes"]):
+        fail(f"dryrun {arch}: the card counted {card['bytes']} bytes, meta {meta['bytes']}")
+    calls = {name: k["calls"] for name, k in card["kernels"].items()}
+    if calls != launches or {n: k["calls"] for n, k in meta["kernels"].items()} != launches:
+        fail(f"dryrun {arch}: counted kernel calls {calls} (meta "
+             f"{ {n: k['calls'] for n, k in meta['kernels'].items()} }), launches {launches}")
+    if arch == "stablelm_3b" and launches != {"flash_attention": 2 * layers,
+                                              "flash_attention_bwd": layers}:
+        fail(f"dryrun {arch}: launches {launches}, expected {2 * layers} and {layers}")
+    argument = meta["memory"]["argument"]
+    if card["memory"]["argument"] != argument or abs(argument - allocated) > 0.01 * allocated:
+        fail(f"dryrun {arch}: argument bytes {argument} (card {card['memory']['argument']}), "
+             f"the card allocated {allocated} for them")
+    print(f"dryrun {cfg.name} at {layers} layers, {rows} x {seq} bf16: {card['flops']:.6e} "
+          f"FLOPs on card and meta, bytes card {card['bytes']:.6e} meta {meta['bytes']:.6e}; "
+          f"kernel calls {calls} = launches; arguments {argument} B (card allocated "
+          f"{allocated}); peak beyond them: meta {meta['memory']['temp']} B, card "
+          f"{card_peak} B; counted in {meta_seconds:.1f} s on meta, {card_seconds:.1f} s on "
+          f"the card")
+    return {"arch": cfg.name, "layers": layers, "rows": rows, "seq": seq, "dtype": "bfloat16",
+            "flops": card["flops"], "card_bytes": card["bytes"], "meta_bytes": meta["bytes"],
+            "kernels": card["kernels"], "launches": launches, "argument_bytes": argument,
+            "card_allocated_bytes": allocated, "meta_temp_bytes": meta["memory"]["temp"],
+            "card_peak_bytes": card_peak, "meta_seconds": meta_seconds,
+            "card_seconds": card_seconds}
+
+
+def dryrun_phase(bf16_line: dict) -> dict:
+    """The dryrun phase: the StableLM-3B train_4k cell on meta at full size,
+    its counted share of the bf16 peak from phase 16's full-depth step,
+    then ``DRYRUN_STEPS`` card vs meta."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    arch, shape = DRYRUN_CELL
+    rec = dryrun.run_cell(arch, shape, ROOT / "build" / "dryrun_torch",
+                          plan=dryrun.BASELINE_PLAN)
+    if not rec["ok"]:
+        fail(f"dryrun {arch} x {shape}: {rec['error']}")
+    flops, n_micro = rec["cost_analysis"]["flops"], rec["n_microbatches"]
+    full = bf16_line["full_depth"]
+    if (full["rows"], full["seq"]) != (rec["micro_rows"], TRAIN_4K_SEQ):
+        fail(f"the full-depth step's {full['rows']} x {full['seq']} is not the cell's "
+             f"microbatch of {rec['micro_rows']} x {TRAIN_4K_SEQ}")
+    step = full["median_step_seconds"]
+    peak = full["bf16_peak_flops"]
+    counted_share = flops / n_micro / step / peak
+    print(f"dryrun {arch} x {shape} on meta: {flops:.6e} FLOPs, "
+          f"{rec['cost_analysis']['bytes']:.6e} bytes, model_flops {rec['model_flops']:.6e} "
+          f"({flops / rec['model_flops']:.4f}x), {n_micro} microbatches, counted in "
+          f"{rec['count_s']} s; one counted microbatch over the full-depth step's {step:.3f} s: "
+          f"{counted_share:.2%} of the bf16 peak ({peak / 1e12:.0f} TFLOP/s), against "
+          f"{full['bf16_peak_share']:.2%} as 6·N·T")
+    line = {"cell": {k: rec[k] for k in ("arch", "shape", "cost_analysis", "model_flops",
+                                         "memory_analysis", "fits_one_card", "n_microbatches",
+                                         "micro_rows", "count_s")},
+            "flops_over_model_flops": flops / rec["model_flops"],
+            "microbatch_flops": flops / n_micro, "full_depth_step_seconds": step,
+            "counted_bf16_peak_share": counted_share,
+            "six_n_t_bf16_peak_share": full["bf16_peak_share"],
+            "card_vs_meta": [dryrun_card_vs_meta(*case) for case in DRYRUN_STEPS]}
+    torch.cuda.empty_cache()
+    line["phase_seconds"] = time.perf_counter() - t0
+    print(f"dryrun phase: {line['phase_seconds']:.1f} s")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -5155,7 +5275,13 @@ def main() -> int:
 
     mark("16 lm_train_bf16")
 
-    # 17. report
+    # 17. the dry run: a cell counted on meta at full size, its counted share
+    # of the bf16 peak, and two steps counted on the card and on meta
+    dryrun_line = dryrun_phase(bf16_line)
+
+    mark("17 dryrun")
+
+    # 18. report
     def train_paths(name):
         """A kernel's launches on each LM training path that reached it."""
         paths = {c["label"]: c["launches"][name] for c in lm_train_line["card_vs_cpu"]}
@@ -5203,6 +5329,8 @@ def main() -> int:
         by_path = {c["label"]: c["launches"][key] for c in bf16_line["card_vs_cpu"]}
         by_path[f"full depth {bf16_line['full_depth']['arch']} bf16"] = \
             bf16_line["full_depth"]["launches"][key]
+        for c in dryrun_line["card_vs_meta"]:
+            by_path[f"dryrun {c['arch']}"] = c["launches"].get(key, 0)
         head = bf16_rows["8x4096"][part]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -5340,7 +5468,7 @@ def main() -> int:
         print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
               f"(before: {before} ms, {before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s (before the "
-          f"bf16 training phase: {BEFORE_PHASES_SECONDS} s); by step: "
+          f"dryrun phase: {BEFORE_PHASES_SECONDS} s); by step: "
           + ", ".join(f"{step} {seconds:.1f}" for step, seconds in step_seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
@@ -5356,6 +5484,7 @@ def main() -> int:
     print(json.dumps({"lm_train": {**lm_train_line, "card": card}}))
     print(json.dumps({"frontends": {**frontends_line, "card": card}}))
     print(json.dumps({"lm_train_bf16": {**bf16_line, "card": card}}))
+    print(json.dumps({"dryrun": {**dryrun_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Architecture configuration registry of the port.
 
-Copy of ``repro/configs/__init__.py:19-197``: ``MoEConfig``, ``ArchConfig``
-(with its analytic parameter count), ``ShapeConfig``/``SHAPES`` and
-``get``/``get_smoke``. Each ``<id>.py`` module
+Copy of ``repro/configs/__init__.py:19-207``: ``MoEConfig``, ``ArchConfig``
+(with its analytic parameter count and ``is_subquadratic``),
+``ShapeConfig``/``SHAPES``, ``get``/``get_smoke`` and the dry run's grid,
+``supported_shapes`` and ``all_cells``. Each ``<id>.py`` module
 exports ``CONFIG`` (the published configuration) and ``SMOKE`` (a reduced
 same-family configuration for CPU tests). ``ARCH_IDS`` lists every
 configuration of the reference's, all of which run through
@@ -73,6 +74,16 @@ class ArchConfig:
     @property
     def resolved_d_rnn(self) -> int:
         return self.d_rnn or self.d_model
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """False iff the configuration has unwindowed full attention. Copy
+        of ``repro/configs/__init__.py:81``."""
+        return not ("attn" in self.block_pattern and self.window == 0)
 
     # -- analytic parameter counts ------------------------------------------
     def _attn_params(self) -> int:
@@ -173,3 +184,21 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def supported_shapes(cfg: ArchConfig) -> list[str]:
+    """The shapes a configuration runs: train and prefill always; decode
+    for a decoder; the 500k decode for a decoder without unwindowed full
+    attention. Copy of ``repro/configs/__init__.py:190``."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.is_decoder:
+        out.append("decode_32k")
+        if cfg.is_subquadratic:
+            out.append("long_500k")
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (configuration, shape) pair the dry run counts, in
+    ``ARCH_IDS`` order. Copy of ``repro/configs/__init__.py:200``."""
+    return [(arch, s) for arch in ARCH_IDS for s in supported_shapes(get(arch))]

@@ -6,8 +6,14 @@ flash_attention_op`` with two more runtime arguments, ``q_offset`` and
 a KV cache and a one-token decode step. Tensors stay in the model layout
 ``(b, s, heads, hd)``; the kernel reads them through their strides, so a
 KV cache is read in place. CPU tensors go to the plain version in
-``ref.py``; CUDA tensors go to the kernel or raise.
+``ref.py`` (its outputs made contiguous, as the kernel's are); CUDA
+tensors go to the kernel or raise; meta tensors get empty outputs of the
+shapes, dtypes and layout the kernel returns.
 ``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
+Every entry runs inside ``cost.kernel``: its FLOPs are those of the plain
+attention it replaces, ``repro/models/attention.py:114`` and ``:128``
+(``4·b·nq·sq·skv·hd`` over every key of the sequence or cache, masked
+pairs included), and for the backward the four products XLA makes of them.
 
 ``plan`` decides the launch from the shapes alone: how many query rows a
 block owns and over how many blocks of a cluster each tile's keys are
@@ -48,7 +54,8 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, cost
+from ..cost import contiguous
 from .ref import flash_attention_bwd_ref, flash_attention_ref, flash_attention_train_ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -287,10 +294,21 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
         if q.dtype not in _TRAIN_ENTRY:
             raise TypeError(f"flash_attention_op: gradients are fp32 or bf16, got {q.dtype}")
         return FlashAttentionFunction.apply(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, kv_len=kv_len)
-    return _launch(q, k, v, causal, window, q_offset, kv_len)
+    with cost.kernel("flash_attention", attention_flops(q, k), cost.nbytes(q, k, v, q)):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len).contiguous()
+        if q.device.type == "meta":
+            return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return _launch(q, k, v, causal, window, q_offset, kv_len)
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, backward: bool = False) -> int:
+    """The reference's dot-product FLOPs for attention of q over k: the
+    scores and the weighted sum, ``2·b·nq·sq·skv·hd`` each, every key
+    counted; the backward's four products (dQ, dK, dP, dV) twice that."""
+    b, sq, nq, hd = q.shape
+    return (8 if backward else 4) * b * nq * sq * k.shape[1] * hd
 
 
 def _launch(q, k, v, causal, window, q_offset, kv_len) -> torch.Tensor:
@@ -327,8 +345,21 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
     ``flash_attention_train.cu`` (fp32) or ``flash_attention_train_bf16.cu``
     on the card (one launch), ``flash_attention_train_ref`` on the CPU."""
     _check(q, k, v, 0, None)
+    b, sq, nq, hd = q.shape
+    lse_bytes = 4 * b * nq * sq
+    with cost.kernel("flash_attention", attention_flops(q, k),
+                     cost.nbytes(q, k, v, q) + lse_bytes):
+        return _train(q, k, v, causal, window)
+
+
+def _train(q, k, v, causal, window):
+    """``flash_attention_train`` by device."""
     if q.device.type == "cpu":
-        return flash_attention_train_ref(q, k, v, causal=causal, window=window)
+        return contiguous(flash_attention_train_ref(q, k, v, causal=causal, window=window))
+    if q.device.type == "meta":
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                            device=q.device))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_train: unsupported device {q.device}")
     if q.dtype not in _TRAIN_ENTRY:
@@ -375,8 +406,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected {dtype} {tuple(shape)} on {q.device}")
+    with cost.kernel("flash_attention_bwd", attention_flops(q, k, backward=True),
+                     cost.nbytes(q, k, v, out, lse, dout, q, k, v)):
+        return _bwd(q, k, v, out, lse, dout, causal, window)
+
+
+def _bwd(q, k, v, out, lse, dout, causal, window):
+    """``flash_attention_bwd`` by device."""
+    b, sq, nq, hd = q.shape
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        return contiguous(flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                                  window=window))
+    if q.device.type == "meta":
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     if q.dtype not in _BWD_ENTRY:

@@ -6,7 +6,10 @@ state ``(C, n, m)`` in and out and any sequence length: one call serves a
 block prefill and a one-token decode step. Without a gradient C is
 updated IN PLACE (the returned C is the tensor given), as the KV cache is;
 n and m come back as fresh tensors. CPU tensors go to the plain version in
-``ref.py``; CUDA tensors go to the kernel or raise.
+``ref.py``; CUDA tensors go to the kernel or raise; meta tensors get empty
+outputs of the kernel's shapes and dtypes. Each entry runs inside
+``cost.kernel`` with the FLOPs of the reference's recurrence
+(``mlstm_flops``) and its bytes.
 ``LAUNCHES["mlstm_chunk"]`` counts kernel launches (the serving entry's
 and the training forward's, one a call) and nothing else.
 
@@ -24,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, cost
+from ..cost import contiguous
 from .ref import CHUNK, mlstm_chunk_bwd_ref, mlstm_chunk_ref, mlstm_chunk_train_ref
 
 LAUNCHES = {"mlstm_chunk": 0, "mlstm_chunk_bwd": 0}
@@ -64,10 +68,39 @@ def mlstm_chunk_op(q, k, v, i_gate, f_gate, c, n, m):
                             "models/xlstm.py does before this call (ROADMAP.md Queue 1 "
                             "item 3)")
         return MLSTMFunction.apply(q, k, v, i_gate, f_gate, c, n, m)
+    with cost.kernel("mlstm_chunk", mlstm_flops(*q.shape),
+                     cost.nbytes(q, k, v, i_gate, f_gate, c, n, m, q, c, n, m)):
+        return _serve(q, k, v, i_gate, f_gate, c, n, m)
+
+
+def mlstm_flops(b: int, s: int, H: int, dh: int, backward: bool = False) -> int:
+    """The dot-product FLOPs of the reference's mLSTM over ``s`` steps, as
+    ``repro/models/xlstm.py:115 mlstm_scan`` dispatches, and of the products
+    XLA keeps in its backward (the others are outer products, which it runs
+    as multiplies). From ``2·CHUNK`` steps in whole chunks, the einsums of
+    ``:130 _mlstm_chunked``, a chunk of L: the scores q·kᵀ and W·v,
+    ``2·b·H·L²·dh`` each; q·C_in and the new C, ``2·b·H·L·dh²`` each; q·n_in
+    and the new n, ``2·b·H·L·dh`` each; the backward two products of each
+    but three of the last two's four. Else ``:92 _mlstm_step``'s C·q
+    (``2·b·H·dh²``) and n·q (``2·b·H·dh``) at every step; the backward only
+    C's product with the gradient, ``2·b·H·dh²`` a step."""
+    if s >= 2 * CHUNK and s % CHUNK == 0:
+        L = CHUNK
+        square = 4 if backward else 2  # products of the L² and dh² kinds
+        vector = 3 if backward else 2
+        return (s // L) * 2 * b * H * (square * (L * L * dh + L * dh * dh) + vector * L * dh)
+    return s * 2 * b * H * (dh * dh if backward else dh * dh + dh)
+
+
+def _serve(q, k, v, i_gate, f_gate, c, n, m):
+    """``mlstm_chunk_op`` without a gradient, by device."""
     if q.device.type == "cpu":
         h, c_new, n_new, m_new = mlstm_chunk_ref(q, k, v, i_gate, f_gate, c, n, m)
         c.copy_(c_new)
-        return h.to(q.dtype), c, n_new, m_new
+        return h.to(q.dtype).contiguous(), c, n_new.contiguous(), m_new.contiguous()
+    if q.device.type == "meta":
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device), c,
+                *(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (n, m)))
     _on_card(q, "mlstm_chunk_op")
     if not c.is_contiguous():
         raise ValueError("mlstm_chunk_op: C must be contiguous (it is written in place)")
@@ -102,10 +135,27 @@ def mlstm_chunk_train(q, k, v, i_gate, f_gate, c, n, m):
     scores kernel, then the rows kernel), the plain ``mlstm_chunk_train_ref``
     on the CPU."""
     _check(q, k, v, i_gate, f_gate, c, n, m)
+    n_chunks = -(-q.shape[1] // CHUNK)
+    with cost.kernel("mlstm_chunk", mlstm_flops(*q.shape),
+                     cost.nbytes(q, k, v, i_gate, f_gate, c, n, m)
+                     + 4 * (q.numel() + (1 + n_chunks) * (c.numel() + n.numel() + m.numel()))):
+        return _train(q, k, v, i_gate, f_gate, c, n, m)
+
+
+def _train(q, k, v, i_gate, f_gate, c, n, m):
+    """``mlstm_chunk_train`` by device."""
     if q.device.type == "cpu":
-        return mlstm_chunk_train_ref(q, k, v, i_gate, f_gate, c, n, m)
-    _on_card(q, "mlstm_chunk_train")
+        return contiguous(mlstm_chunk_train_ref(q, k, v, i_gate, f_gate, c, n, m))
     b, s, H, dh = q.shape
+    if q.device.type == "meta":
+        n_chunks = -(-s // CHUNK)
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+        return (empty(b, s, H, dh), empty(*c.shape), empty(*n.shape), empty(*m.shape),
+                empty(n_chunks, *c.shape), empty(n_chunks, *n.shape), empty(n_chunks, *m.shape))
+    _on_card(q, "mlstm_chunk_train")
     qf, kf, vf, gi, gf, c_in, n_in, m_in = (
         t.float().contiguous() for t in (q, k, v, i_gate, f_gate, c, n, m))
     n_chunks = -(-s // CHUNK)
@@ -148,8 +198,24 @@ def mlstm_chunk_bwd(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc, dn, dm
         if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"mlstm_chunk_bwd: {name} is {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected float32 {tuple(shape)} on {q.device}")
+    args = (q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc, dn, dm)
+    with cost.kernel("mlstm_chunk_bwd", mlstm_flops(b, s, H, d, backward=True),
+                     cost.nbytes(*args, q, k, v, i_gate, f_gate)
+                     + cost.nbytes(c_in, n_in, m_in) // n_chunks):
+        return _bwd(*args)
+
+
+def _bwd(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc, dn, dm):
+    """``mlstm_chunk_bwd`` by device."""
+    b, s, H, d = q.shape
     if q.device.type == "cpu":
-        return mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh, dc, dn, dm)
+        return contiguous(mlstm_chunk_bwd_ref(q, k, v, i_gate, f_gate, c_in, n_in, m_in, h, dh,
+                                              dc, dn, dm))
+    if q.device.type == "meta":
+        return (*(torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                  for t in (q, k, v, i_gate, f_gate)),
+                *(torch.empty(t.shape[1:], dtype=torch.float32, device=t.device)
+                  for t in (c_in, n_in, m_in)))
     _on_card(q, "mlstm_chunk_bwd")
     q, k, v, i_gate, f_gate, c_in, n_in, m_in, h = (
         t.contiguous() for t in (q, k, v, i_gate, f_gate, c_in, n_in, m_in, h))

@@ -4,7 +4,10 @@ Counterpart of ``repro/kernels/rg_lru/ops.py:14 rg_lru_op``: the
 recurrence runs in fp32 and the outputs come back in the input's dtype.
 It also returns the last h in fp32, the Griffin block's recurrent state,
 so the block needs no slice and copy of its own. CPU tensors go to the
-plain version in ``ref.py``; CUDA tensors go to the kernel or raise. The
+plain version in ``ref.py``; CUDA tensors go to the kernel or raise; meta
+tensors get empty outputs of the kernel's shapes and dtypes. Each entry
+runs inside ``cost.kernel`` with 0 FLOPs (the reference's scan has no dot
+product) and its bytes. The
 kernel reads fp32 or bf16 a and b and writes h in their dtype, so either is
 one launch; other dtypes are cast to fp32 around it, as the JAX op casts.
 ``LAUNCHES["rg_lru"]`` counts kernel launches and nothing else.
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, cost
+from ..cost import contiguous
 from .ref import rg_lru_bwd_ref, rg_lru_ref
 
 LAUNCHES = {"rg_lru": 0, "rg_lru_bwd": 0}
@@ -64,9 +68,19 @@ def rg_lru_op(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
 def _forward(a, b, h0):
     """``rg_lru_op`` without a gradient: the plain version on the CPU, the
     kernel on the card."""
+    batch, _, d = a.shape
+    with cost.kernel("rg_lru", 0, cost.nbytes(a, b, h0, a) + 4 * batch * d):
+        return _forward_on(a, b, h0)
+
+
+def _forward_on(a, b, h0):
+    """``_forward`` by device."""
+    if a.device.type == "meta":
+        return (torch.empty(a.shape, dtype=a.dtype, device=a.device),
+                torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device))
     if a.device.type == "cpu":
         h, last = rg_lru_ref(a, b, h0)
-        return h.to(a.dtype), last
+        return contiguous((h.to(a.dtype), last))
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru_op: unsupported device {a.device}")
     batch, seq, d = a.shape
@@ -104,8 +118,19 @@ def rg_lru_bwd(a, h, h0, dh, dlast):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != a.device:
             raise ValueError(f"rg_lru_bwd: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"expected float32 {shape} on {a.device}")
+    with cost.kernel("rg_lru_bwd", 0, cost.nbytes(a, h, h0, dh, dlast, a, a, h0)):
+        return _bwd(a, h, h0, dh, dlast)
+
+
+def _bwd(a, h, h0, dh, dlast):
+    """``rg_lru_bwd`` by device."""
+    batch, seq, d = a.shape
+    if a.device.type == "meta":
+        return (torch.empty(a.shape, dtype=a.dtype, device=a.device),
+                torch.empty(a.shape, dtype=a.dtype, device=a.device),
+                None if h0 is None else torch.empty(h0.shape, dtype=h0.dtype, device=h0.device))
     if a.device.type == "cpu":
-        return rg_lru_bwd_ref(a, h, h0, dh, dlast)
+        return contiguous(rg_lru_bwd_ref(a, h, h0, dh, dlast))
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru_bwd: unsupported device {a.device}")
     if batch > 65535:

@@ -159,8 +159,9 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _rope_table(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     """fp32 frequencies on ``device``, made once: a copy to the card on
-    every call would wait for the card twice per layer."""
-    return torch.from_numpy(rope_frequencies(head_dim, theta)).to(torch.float32).to(device)
+    every call would wait for the card twice per layer. Rounded to fp32 on
+    the host, so that making it runs no operator on any device."""
+    return torch.from_numpy(rope_frequencies(head_dim, theta).astype(np.float32)).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:

@@ -15,6 +15,16 @@ once per MoE layer (``HOST_SYNCS`` counts those reads and the seconds the
 host waited in them). ``impl="batched"`` is the reference's capacity-bounded
 form: a stable sort, an ``(E, cap, d)`` buffer filled in sorted order with
 the copies past an expert's capacity dropped, and three batched products.
+
+On the meta device (the dry run, ``launch/dryrun.py``) the counts cannot
+be read. The ragged path then takes the routing that hits the most
+experts a layer can hit, ``min(E, m)`` of them for ``m`` token copies,
+with the rows split evenly (``meta_counts``). Its FLOPs are the card's
+whatever the routing, since the three products take all ``m`` rows. Its
+bytes are the most any routing moves, since every expert hit reads its
+weights and adds its slice's terms; ``kernels/cost.record`` adds the
+count that the card reads back. The batched path's capacity mask has a
+shape that depends on the routing, so it does not run on meta.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from ..kernels import cost
 from .blocks import truncated_normal
 
 HOST_SYNCS = {"count": 0, "seconds": 0.0}
@@ -66,10 +77,31 @@ def _route(xf: torch.Tensor, router: torch.Tensor, m):
     probs, ids = torch.topk(probs_full, m.top_k, dim=-1)
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)  # renorm (DeepSeek)
     pe = probs_full.mean(0)
-    fe = torch.bincount(ids.reshape(-1), minlength=m.n_experts).float()
+    fe = bincount(ids.reshape(-1), m.n_experts).float()
     fe = fe / torch.clamp(fe.sum(), min=1.0)
     aux = m.n_experts * torch.sum(fe * pe)
     return ids, probs.to(xf.dtype), aux
+
+
+def bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` of ids below ``n``; on the meta
+    device an empty int64 ``(n,)`` whose bytes are recorded as the
+    operator's (its input and its result)."""
+    if ids.device.type != "meta":
+        return torch.bincount(ids, minlength=n)
+    out = torch.empty((n,), dtype=torch.int64, device=ids.device)
+    cost.record(moved=cost.nbytes(ids, out))
+    return out
+
+
+def meta_counts(ids: torch.Tensor, n_experts: int) -> list[int]:
+    """Rows per expert on the meta device for the ``m`` ids: the first
+    ``min(E, m)`` experts hit, the rows split evenly. Records the bytes
+    of the bincount the card reads back."""
+    bincount(ids, n_experts)  # records the count's bytes
+    m = ids.numel()
+    hit = min(n_experts, m)
+    return [m // hit + (e < m % hit) if e < hit else 0 for e in range(n_experts)]
 
 
 def _glu(x, w_gate, w_up, w_down):
@@ -93,10 +125,13 @@ def _expert_ffn(tokens: torch.Tensor, eids: torch.Tensor, p, n_experts: int,
     if impl == "ragged":
         safe = torch.clamp(eids, max=n_experts - 1)
         order = torch.argsort(safe, stable=True)
-        t0 = time.perf_counter()
-        counts = torch.bincount(safe, minlength=n_experts).tolist()  # the host's one sync
-        HOST_SYNCS["count"] += 1
-        HOST_SYNCS["seconds"] += time.perf_counter() - t0
+        if tokens.device.type == "meta":
+            counts = meta_counts(safe, n_experts)
+        else:
+            t0 = time.perf_counter()
+            counts = torch.bincount(safe, minlength=n_experts).tolist()  # the host's one sync
+            HOST_SYNCS["count"] += 1
+            HOST_SYNCS["seconds"] += time.perf_counter() - t0
         sorted_tok = tokens[order]
         # unbind, not w[e]: the backward of E selections would build E
         # full-size zero gradients and add them; unbind's stacks once
@@ -115,7 +150,7 @@ def _expert_ffn(tokens: torch.Tensor, eids: torch.Tensor, p, n_experts: int,
     cap = max(int(math.ceil(m / n_experts * capacity_factor)), 1)
     order = torch.argsort(eids, stable=True)
     eid_s = eids[order]
-    counts = torch.bincount(eid_s, minlength=n_experts + 1)
+    counts = bincount(eid_s, n_experts + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(m, device=tokens.device) - starts[eid_s]
     valid = (pos < cap) & (eid_s < n_experts)

@@ -162,8 +162,10 @@ def slstm_scan(p, x: torch.Tensor, cfg, state: SLSTMState | None = None
     wx = x @ p["w"] + p["b"]  # (b, s, 4dr)
     r = p["r"].float()
     hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_step(r, state, wx[:, t])
+    # unbind, not wx[:, t]: the backward of s selections would build s
+    # full-size zero gradients and add them (O(s²) bytes); unbind's stacks once
+    for wx_t in wx.unbind(1):
+        state = _slstm_step(r, state, wx_t)
         hs.append(state.h)
     return torch.stack(hs, dim=1).to(x.dtype) @ p["w_down"], state
 

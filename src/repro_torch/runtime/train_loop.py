@@ -144,6 +144,7 @@ def make_train_step(
     cfg: TrainStepConfig = TrainStepConfig(),
     *,
     donate: bool = False,
+    grads_of: Callable[[Params, dict], tuple[torch.Tensor, Params]] | None = None,
 ):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) with metrics ``loss`` and ``grad_norm``, fp32 0-d tensors.
@@ -155,8 +156,10 @@ def make_train_step(
     writes the new params and state into the tensors it was given (which
     the step returns) and drops each gradient as soon as its parameter is
     written, so no second copy of the trees is made. The values are the
-    functional step's bit for bit."""
-    grads_of = value_and_grad(loss_fn)
+    functional step's bit for bit. ``grads_of`` stands in for
+    ``value_and_grad(loss_fn)``: the dry run (``launch/dryrun.py``) counts
+    the first microbatch's and replays its count for the others."""
+    grads_of = grads_of or value_and_grad(loss_fn)
 
     def train_step(params: Params, opt_state: AdamWState, batch):
         n = cfg.n_microbatches

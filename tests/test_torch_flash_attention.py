@@ -138,8 +138,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention_op(q, k, v, kv_len=-2)
     with pytest.raises(ValueError, match="k is on meta"):
         ops.flash_attention_op(q, k.to("meta"), v)
-    with pytest.raises(ValueError, match="unsupported device meta"):
-        ops.flash_attention_op(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta tensors (the dry run) get an empty output of the kernel's shape;
+    # the checks still hold there
+    out = ops.flash_attention_op(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape and out.is_contiguous()
+    with pytest.raises(ValueError, match="v has shape"):
+        ops.flash_attention_op(q.to("meta"), k.to("meta"), v[:, :-1].to("meta"))
 
 
 @pytest.mark.parametrize("case", [
