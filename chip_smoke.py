@@ -307,9 +307,9 @@ BEFORE_BURST_MS = {("text_scan", None): 0.003862, ("text_clean", "matrix"): 0.00
                    ("mlstm_chunk_train", None): 1.2948, ("mlstm_chunk_bwd", None): 0.7287,
                    ("flash_attention_train_bf16", None): 7.461,
                    ("flash_attention_bwd_bf16", None): 55.04}
-# The phases' seconds before the dryrun phase was added (PERF.md;
-# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
-BEFORE_PHASES_SECONDS = 817.1
+# The phases' seconds before the mesh phase was added (PERF.md; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's.
+BEFORE_PHASES_SECONDS = 789.1
 # The preprocessing phase: corpus size, shards and the columns cleaned.
 CORPUS_BYTES, CORPUS_FILES = 64 << 20, 8
 FIELDS = ("title", "abstract")
@@ -5099,6 +5099,195 @@ def dryrun_phase(bf16_line: dict) -> dict:
     return line
 
 
+# The mesh phase: the multi-device layer on a one-rank NCCL mesh. StableLM-3B
+# at full width and 2 of its 32 layers, MESH_STEPS donating steps on 8 x 64
+# tokens fed by DeviceFeed(sharding=...); RecurrentGemma-9B and xLSTM-1.3B
+# forwards at SMOKE; one DeepSeek-MoE-16B MoE layer at full width through
+# moe_ep on 4 x 128 tokens; each held to the same work off the mesh.
+MESH_LAYERS, MESH_STEPS, MESH_BATCH, MESH_LR = 2, 3, (8, 64), 1e-4
+MESH_FORWARD_BATCH, MESH_MOE_TOKENS, MESH_TOL = (8, 64), (4, 128), 2e-5
+
+
+def mesh_held(got, want, what: str) -> float:
+    """``got`` within MESH_TOL of ``want`` (rtol, and atol relative to
+    want's largest element); returns the largest absolute difference."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=MESH_TOL, atol=MESH_TOL * scale):
+        fail(f"mesh: {what} differs from off the mesh by {err:.3e} (scale {scale:.3e})")
+    return err
+
+
+def mesh_phase() -> dict:
+    """The mesh phase (``launch/mesh.py``, ``distributed/sharding.py``,
+    ``MeshContext``, ``moe_ep``, ``optim/grad_compression.py``,
+    ``runtime/elastic.py``, ``DeviceFeed(sharding=...)``) on a ``(1, 1)``
+    mesh over an NCCL group of one rank, which the phase leaves on its way
+    out. At one rank every redistribution is a no-op: each check holds the
+    mesh's result to the same work off the mesh at MESH_TOL and says
+    whether they are equal bit for bit. The kernels' launches are counted
+    from 0 around each mesh run and must be above 0."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.func import functional_call
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.core.device_pipeline import DeviceFeed
+    from repro_torch.distributed.sharding import NamedSharding, batch_spec, data_axis_names
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+    from repro_torch.launch.train import train_step_of
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.lm import LM, MeshContext
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.grad_compression import (compress_tree, decompress_tree,
+                                                    psum_compressed)
+    from repro_torch.runtime.elastic import remesh
+    from repro_torch.runtime.train_loop import params_of
+
+    t0 = time.perf_counter()
+    counters = lm_train_counters()
+    rng = np.random.default_rng(SEED + 9)
+    mesh = make_host_mesh(1, device="cuda")
+    try:
+        mctx = MeshContext(mesh, data_axis_names(mesh), "model")
+        line = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "backend": torch.distributed.get_backend()}
+
+        # StableLM-3B: MESH_STEPS donating steps off the mesh, then on it
+        cfg = dataclasses.replace(get("stablelm_3b"), n_layers=MESH_LAYERS)
+        plain = LM(cfg, "cuda", seed=SEED)
+        meshed = LM(cfg, "cuda", mctx=mctx, seed=SEED)
+        meshed.load_state_dict(plain.state_dict())
+        host = [{"tokens": rng.integers(4, cfg.vocab_size, MESH_BATCH).astype(np.int64)}
+                for _ in range(MESH_STEPS)]
+        opt = AdamW(learning_rate=MESH_LR)
+        params = {k: t.clone() for k, t in params_of(plain).items()}
+        state, step = opt.init(params), train_step_of(plain, opt)
+        off = []
+        for b in host:
+            params, state, m = step(params, state, {"tokens": torch.from_numpy(b["tokens"])
+                                                    .cuda()})
+            off.append(m["loss"])
+        zero_counters(counters)
+        t1 = time.perf_counter()
+        dparams = meshed.distribute_params(params_of(meshed))
+        dstate, dstep = opt.init(dparams), train_step_of(meshed, opt)
+        feed = DeviceFeed(iter(host), sharding=NamedSharding(mesh, batch_spec(mesh, MESH_BATCH[0])),
+                          device="cuda", prefetch=1)
+        on = []
+        for batch in feed:
+            if not isinstance(batch["tokens"], DTensor):
+                fail("mesh: DeviceFeed(sharding=...) gave a plain tensor")
+            with feed.step(batch):
+                dparams, dstate, m = dstep(dparams, dstate, {"tokens": batch["tokens"]})
+                on.append(m["loss"])
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - t1
+        launches = {k: counters[k][k] for k in ("flash_attention", "flash_attention_bwd")}
+        if not all(launches.values()) or len(on) != MESH_STEPS:
+            fail(f"mesh: the sharded steps ran {len(on)} steps with launches {launches}")
+        loss_err = mesh_held(torch.stack(on), torch.stack(off), "the sharded steps' losses")
+        param_err = max(mesh_held(dparams[k].full_tensor(), params[k], f"parameter {k}")
+                        for k in params)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(on, off)) and all(
+            torch.equal(dparams[k].full_tensor(), params[k]) for k in params)
+        placed = remesh(dparams, meshed.param_axes(), mesh)
+        remesh_equal = all(torch.equal(placed[k].full_tensor(), dparams[k].full_tensor())
+                           for k in dparams)
+        if not remesh_equal:
+            fail("mesh: a remesh round trip changed a parameter")
+        line["stablelm"] = {
+            "arch": cfg.name, "layers": MESH_LAYERS, "published_layers": get("stablelm_3b").n_layers,
+            "batch": list(MESH_BATCH), "steps": MESH_STEPS, "lr": MESH_LR,
+            "losses_on": [float(x) for x in on], "losses_off": [float(x) for x in off],
+            "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+            "bit_equal": bit_equal, "remesh_bit_equal": remesh_equal,
+            "launches": launches, "seconds": train_seconds}
+        del plain, meshed, params, state, dparams, dstate, placed
+        torch.cuda.empty_cache()
+
+        # the recurrent families' forwards at SMOKE, their kernels on the mesh
+        line["forwards"] = []
+        for arch, kernel in (("recurrentgemma_9b", "rg_lru"), ("xlstm_1_3b", "mlstm_chunk")):
+            cfg = get_smoke(arch)
+            plain = LM(cfg, "cuda", seed=SEED)
+            meshed = LM(cfg, "cuda", mctx=mctx, seed=SEED)
+            meshed.load_state_dict(plain.state_dict())
+            tokens = torch.from_numpy(rng.integers(4, cfg.vocab_size, MESH_FORWARD_BATCH)).cuda()
+            want = plain({"tokens": tokens})
+            zero_counters(counters)
+            dparams = meshed.distribute_params(params_of(meshed))
+            got = functional_call(meshed, {k.replace("/", "."): v for k, v in dparams.items()},
+                                  ({"tokens": tokens},))
+            torch.cuda.synchronize()
+            n = {k: counters[k][k] for k in ("flash_attention", "rg_lru", "mlstm_chunk")}
+            if not n[kernel]:
+                fail(f"mesh: {cfg.name}'s forward on the mesh launched no {kernel}")
+            err = mesh_held(got.full_tensor(), want, f"{cfg.name}'s logits")
+            line["forwards"].append({"arch": cfg.name, "batch": list(MESH_FORWARD_BATCH),
+                                     "launches": {k: v for k, v in n.items() if v},
+                                     "max_abs_err": err,
+                                     "bit_equal": torch.equal(got.full_tensor(), want)})
+
+        # one DeepSeek-MoE-16B MoE layer at full width through moe_ep
+        cfg = get("deepseek_moe_16b")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+        p = MOE.init_moe(cfg, g, device="cuda")
+        x = torch.randn((*MESH_MOE_TOKENS, cfg.d_model), generator=g, device="cuda") * 0.5
+        want_y, want_aux = MOE.moe_local(p, x, cfg)
+        rep, ex = [Replicate(), Replicate()], [Replicate(), Shard(0)]
+        pd = {k: DTensor.from_local(p[k], mesh, ex if k.startswith("w_") else rep)
+              for k in ("router", "w_gate", "w_up", "w_down")}
+        t1 = time.perf_counter()
+        y, aux = MOE.moe_ep(pd, DTensor.from_local(x, mesh, [Shard(0), Replicate()]), cfg,
+                            mesh, ("data",), "model")
+        y, aux = y.full_tensor(), aux.full_tensor()
+        torch.cuda.synchronize()
+        line["moe_ep"] = {"arch": cfg.name, "experts": cfg.moe.n_experts,
+                          "d_model": cfg.d_model, "d_expert": cfg.moe.d_expert,
+                          "tokens": list(MESH_MOE_TOKENS),
+                          "y_max_abs_err": mesh_held(y, want_y, "moe_ep's y"),
+                          "aux_abs_err": mesh_held(aux, want_aux, "moe_ep's aux"),
+                          "bit_equal": torch.equal(y, want_y) and torch.equal(aux, want_aux),
+                          "seconds": time.perf_counter() - t1}
+        del p, pd, x, y, want_y
+        torch.cuda.empty_cache()
+
+        # the int8 all-reduce over NCCL against compress -> decompress
+        grads = {f"g{i}": torch.randn(shape, generator=g, device="cuda") * 10.0 ** -i
+                 for i, shape in enumerate(((2560, 2560), (6912,), (3, 5, 7)))}
+        summed, err = psum_compressed(grads, (mesh, data_axis_names(mesh)))
+        q, s, err_ref = compress_tree(grads)
+        deq = decompress_tree(q, s)
+        psum_equal = all(torch.equal(summed[k], deq[k]) and torch.equal(err[k], err_ref[k])
+                         for k in grads)
+        if not psum_equal:
+            fail("mesh: psum_compressed over NCCL differs from compress -> decompress")
+        line["psum_compressed"] = {"leaves": {k: list(t.shape) for k, t in grads.items()},
+                                   "bit_equal": psum_equal}
+    finally:
+        destroy_process_group()
+    torch.cuda.empty_cache()
+    line["launches"] = {
+        "flash_attention": line["stablelm"]["launches"]["flash_attention"]
+        + sum(f["launches"].get("flash_attention", 0) for f in line["forwards"]),
+        "flash_attention_bwd": line["stablelm"]["launches"]["flash_attention_bwd"],
+        **{k: sum(f["launches"].get(k, 0) for f in line["forwards"])
+           for k in ("rg_lru", "mlstm_chunk")}}
+    line["phase_seconds"] = time.perf_counter() - t0
+    print(f"mesh: {line['stablelm']['arch']} at {MESH_LAYERS} layers, {MESH_STEPS} sharded "
+          f"steps on the {line['mesh']} {line['backend']} mesh held to the steps off it "
+          f"(loss err {line['stablelm']['loss_max_abs_err']:.3e}, params "
+          f"{line['stablelm']['param_max_abs_err']:.3e}, bit-equal "
+          f"{line['stablelm']['bit_equal']}); forwards "
+          + ", ".join(f"{f['arch']} err {f['max_abs_err']:.3e} bit-equal {f['bit_equal']}"
+                      for f in line["forwards"])
+          + f"; moe_ep y err {line['moe_ep']['y_max_abs_err']:.3e} bit-equal "
+          f"{line['moe_ep']['bit_equal']}; psum_compressed bit-equal; remesh bit-equal; "
+          f"launches {line['launches']}; {line['phase_seconds']:.1f} s")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -5281,7 +5470,12 @@ def main() -> int:
 
     mark("17 dryrun")
 
-    # 18. report
+    # 18. the multi-device layer on a one-rank NCCL mesh
+    mesh_line = mesh_phase()
+
+    mark("18 mesh")
+
+    # 19. report
     def train_paths(name):
         """A kernel's launches on each LM training path that reached it."""
         paths = {c["label"]: c["launches"][name] for c in lm_train_line["card_vs_cpu"]}
@@ -5300,7 +5494,10 @@ def main() -> int:
         rows = timed[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(lm_launches[name].values()),
-                "launches_by_arch": lm_launches[name], "max_abs_err": err,
+                "launches_by_arch": lm_launches[name],
+                "launches_by_path": {**{f"serve {a}": n for a, n in lm_launches[name].items()},
+                                     "mesh": mesh_line["launches"][name]},
+                "max_abs_err": err,
                 **{k: rows["decode"][k] for k in ("ms", "plain_ms", "library_ms", "ms_burst",
                                                   "library_ms_burst", "bound_ms", "bound_by")},
                 **rows}
@@ -5407,7 +5604,8 @@ def main() -> int:
          "replaces": "none: XLA differentiates src/repro/models/attention.py:97 sdpa",
          "launches": lm_train_line["launches"]["flash_attention_bwd"],
          "launches_by_path": {"lm_train_steps": lm_train_line["launches"]["flash_attention_bwd"],
-                              **train_paths("flash_attention_bwd")},
+                              **train_paths("flash_attention_bwd"),
+                              "mesh": mesh_line["launches"]["flash_attention_bwd"]},
          **lm_rows["flash_attention_bwd"],
          "frontend_shapes": {k: r for k, r in frontend_rows.items() if k.startswith("train")},
          "frontend_max_abs_err": frontends_line["flash_max_abs_err"]["bwd"]},
@@ -5468,7 +5666,7 @@ def main() -> int:
         print(f"{kernel}{' ' + row if row else ''}: {now:.6f} ms a launch back to back "
               f"(before: {before} ms, {before / now:.2f}x)")
     print(f"chip_smoke.py ran its phases in {time.perf_counter() - started:.1f} s (before the "
-          f"dryrun phase: {BEFORE_PHASES_SECONDS} s); by step: "
+          f"mesh phase: {BEFORE_PHASES_SECONDS} s); by step: "
           + ", ".join(f"{step} {seconds:.1f}" for step, seconds in step_seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {**serve_line, "card": card}}))
@@ -5485,6 +5683,7 @@ def main() -> int:
     print(json.dumps({"frontends": {**frontends_line, "card": card}}))
     print(json.dumps({"lm_train_bf16": {**bf16_line, "card": card}}))
     print(json.dumps({"dryrun": {**dryrun_line, "card": card}}))
+    print(json.dumps({"mesh": {**mesh_line, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -13,7 +13,15 @@ other wrote:
   (``tree.flatten_with_paths``: NamedTuple fields by name);
   a bf16 leaf is written as ``np.save`` writes JAX's (2-byte void).
 * **Restore** onto a device: leaves are loaded to the host and copied to
-  ``device`` (in place of the reference's ``shardings``).
+  ``device``; with ``shardings`` (a tree of
+  ``distributed.sharding.NamedSharding`` of the same structure, None for
+  a leaf kept whole on the mesh's device) each rank keeps its block of
+  every leaf as a DTensor, the reference's ``shardings``. The mesh may
+  differ from the one that saved: that is the elastic path.
+* **DTensor leaves** (a model on a mesh) are saved whole: every rank takes
+  each leaf's full value (a collective), rank 0 alone writes and commits,
+  and every rank waits at a barrier for the commit, so no two ranks race
+  on it.
 * **Retention**: keep the last ``keep`` checkpoints.
 """
 
@@ -59,6 +67,12 @@ def _dtype_name(leaf, arr: np.ndarray) -> str:
     return str(arr.dtype)
 
 
+def _has_dtensor(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(leaf, DTensor) for _, leaf in flatten_with_paths(tree))
+
+
 class Checkpointer:
     def __init__(self, directory: str | Path, keep: int = 3):
         self.dir = Path(directory)
@@ -69,6 +83,20 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: dict | None = None) -> Path:
+        final = self.dir / f"step_{step:010d}"
+        if _has_dtensor(tree):
+            import torch.distributed as dist
+
+            from ..distributed.sharding import full_value
+
+            whole = map_with_paths(lambda _, leaf: full_value(leaf), tree)
+            if dist.get_rank() == 0:
+                self._write(step, whole, extra)
+            dist.barrier()
+            return final
+        return self._write(step, tree, extra)
+
+    def _write(self, step: int, tree: Any, extra: dict | None) -> Path:
         tmp = self.dir / f"step_{step:010d}.tmp"
         final = self.dir / f"step_{step:010d}"
         if tmp.exists():
@@ -98,6 +126,9 @@ class Checkpointer:
         change it); the file writes run in a thread. ``wait()`` joins it
         and raises what it raised."""
         self.wait()
+        if _has_dtensor(tree):  # the collectives run on every rank, now
+            self.save(step, tree, extra)
+            return
         host_tree = map_with_paths(lambda _, leaf: _snapshot(leaf), tree)
 
         def work() -> None:
@@ -130,10 +161,20 @@ class Checkpointer:
         return s[-1] if s else None
 
     def restore(self, tree_like: Any, step: int | None = None,
-                device: str | torch.device | None = None) -> tuple[Any, dict]:
+                device: str | torch.device | None = None,
+                shardings: Any | None = None) -> tuple[Any, dict]:
         """Restore into the structure of ``tree_like`` (its leaves only give
         the paths), every leaf a tensor on ``device`` (the card unless the
-        caller names another), in the dtype it was saved with."""
+        caller names another), in the dtype it was saved with. With
+        ``shardings`` (same structure) each leaf is a DTensor placed by its
+        ``NamedSharding`` (each rank keeps its own block; no collective),
+        or, where the sharding is None, a plain tensor on the mesh's
+        device."""
+        if shardings is not None:
+            by_sharding = dict(flatten_with_paths(shardings))
+            mesh = next(s.mesh for s in by_sharding.values() if s is not None)
+            device = torch.device(mesh.device_type, torch.cuda.current_device()
+                                  if mesh.device_type == "cuda" else None)
         device = resolve(device)
         step = step if step is not None else self.latest()
         if step is None:
@@ -146,7 +187,12 @@ class Checkpointer:
             entry = by_path.get(path)
             if entry is None:
                 raise KeyError(f"checkpoint missing leaf {path!r}")
-            return tensor_from_numpy(np.load(d / entry["file"])).to(device)
+            t = tensor_from_numpy(np.load(d / entry["file"])).to(device)
+            if shardings is not None and by_sharding.get(path) is not None:
+                from ..distributed.sharding import distribute
+
+                return distribute(t, by_sharding[path])
+            return t
 
         return map_with_paths(load, tree_like), manifest["extra"]
 

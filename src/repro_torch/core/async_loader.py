@@ -12,7 +12,10 @@ bounded prefetch queue.
 * ``AsyncLoader``: bounded prefetch and device double buffering: batch k+1
   is copied to the device before batch k is yielded. Its default transfer
   copies every array leaf to the loader's device (the card unless the
-  caller names another); the reference's ``jax.device_put``.
+  caller names another); the reference's ``jax.device_put``. With a
+  ``sharding`` (a ``distributed.sharding.NamedSharding``) each rank copies
+  only its own block of every leaf and gets a DTensor of the global shape
+  (``put_sharded``), the reference's ``jax.device_put(x, sharding)``.
 """
 
 from __future__ import annotations
@@ -81,16 +84,6 @@ def drain(q: "queue.Queue") -> None:
             break
 
 
-def refuse_sharding(sharding) -> None:
-    """The port runs on one card: a sharded transfer waits for the
-    multi-device slice (ROADMAP Queue 1, multi-device)."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= is not supported by the PyTorch port yet: it runs on one "
-            "device (multi-device comes last, ROADMAP Queue 1)"
-        )
-
-
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A copy of ``x`` on ``device``; to a card through pinned memory and a
     non-blocking copy on the current stream."""
@@ -109,7 +102,25 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
-def _put_tree(batch, device: torch.device):
+def put_sharded(x: np.ndarray, sharding, device: torch.device, put=None):
+    """This rank's block of the host array ``x`` (the whole global batch,
+    the same on every rank) copied to ``device`` (by ``put(block)`` where
+    given), as a DTensor of ``x``'s shape placed by ``sharding``: the rows
+    its coordinate over the data axes selects, or all of ``x`` for a
+    replicated spec."""
+    from torch.distributed.tensor import DTensor
+
+    x = np.asarray(x)
+    block = np.ascontiguousarray(x[sharding.local_slices(x.shape)])
+    local = put(block) if put is not None else to_device(block, device)
+    stride = torch.empty(x.shape, device="meta").stride()
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=torch.Size(x.shape), stride=stride)
+
+
+def _put_tree(batch, device: torch.device, sharding=None):
+    if sharding is not None:
+        return tree_map(lambda x: put_sharded(x, sharding, device), batch)
     return tree_map(lambda x: to_device(x, device), batch)
 
 
@@ -193,7 +204,8 @@ class AsyncLoader:
     no-op and owns the transfer itself); ``device`` is only resolved when
     no ``device_put`` is given. ``clock`` feeds the :class:`LoaderStats`
     wait accounting, so queue starvation is fake-clock testable.
-    ``sharding`` is refused.
+    ``sharding`` (a ``NamedSharding``) makes the default transfer copy each
+    rank's own block of every leaf and yield DTensors.
     """
 
     def __init__(
@@ -206,9 +218,8 @@ class AsyncLoader:
         device_put: Callable[[Any], Any] | None = None,
         clock: Callable[[], float] = time.perf_counter,
     ):
-        refuse_sharding(sharding)
         if device_put is None:
-            device_put = partial(_put_tree, device=resolve(device))
+            device_put = partial(_put_tree, device=resolve(device), sharding=sharding)
         self._q: "queue.Queue[object]" = queue.Queue(maxsize=max(prefetch, 1))
         self._device_put = device_put
         self._clock = clock

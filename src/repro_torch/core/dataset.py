@@ -33,7 +33,8 @@ another, and without a card both raise. ``.workers(n)`` runs shards on
 spawned processes when ``n > 1``, as the reference's forked ones, and
 under the ``device`` backend each worker runs its scans on that device,
 the remote executor's TCP workers too (``.workers(n, remote=...)``).
-``sharding=`` is refused.
+``sharding=`` (a ``distributed.sharding.NamedSharding``) makes each rank of
+a mesh copy its own rows of every batch, as DTensors.
 """
 
 from __future__ import annotations
@@ -877,15 +878,14 @@ class Dataset:
         :class:`~repro_torch.core.device_pipeline.DeviceFeed` instead:
         batches snap onto the plan's fixed bucket grid, copies run one
         batch ahead, and the feed's profiler accounts device-idle time per
-        step. ``sharding`` is refused. ``stats`` (a dict) receives the
-        executor and cache counters, as ``iter_batches``'s does."""
-        from .async_loader import refuse_sharding
-
+        step. ``sharding`` (a ``distributed.sharding.NamedSharding``, here
+        or from ``.prefetch(sharding=...)``) makes each rank copy its own
+        rows and yields DTensors. ``stats`` (a dict) receives the executor
+        and cache counters, as ``iter_batches``'s does."""
         self._require_valid(optimize=optimize)
         node = next((n for n in self._nodes if isinstance(n, P.Prefetch)), None)
         depth = prefetch if prefetch is not None else (node.prefetch if node else 2)
         shard = sharding if sharding is not None else (node.sharding if node else None)
-        refuse_sharding(shard)
         target = resolve(self._resolve_device(device))
         it = self.iter_batches(
             workers=workers, optimize=optimize, epochs=epochs, executor=executor,
@@ -900,8 +900,9 @@ class Dataset:
                 prefetch=depth,
                 profiler=profiler,
                 device=target,
+                sharding=shard,
             )
-        return AsyncLoader(it, prefetch=depth, device=target)
+        return AsyncLoader(it, prefetch=depth, sharding=shard, device=target)
 
     def row_program(self, *, optimize: bool = True, device=None):
         """Terminal: lower this plan to a per-request

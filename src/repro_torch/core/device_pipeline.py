@@ -38,7 +38,7 @@ from ..device import resolve
 from ..kernels.text_clean.ops import clean_flat
 from . import bytesops as B
 from . import expr as E
-from .async_loader import AsyncLoader, LoaderStats, refuse_sharding, to_device
+from .async_loader import AsyncLoader, LoaderStats, put_sharded, to_device
 
 # ---------------------------------------------------------------------------
 # Fixed bucket grid: the closed shape set of the device step
@@ -143,9 +143,13 @@ class DeviceBatch(Mapping):
         the stream's work on it is done."""
         if self._ready is None:
             return
+        from torch.distributed.tensor import DTensor
+
         stream = torch.cuda.current_stream(self._device)
         stream.wait_event(self._ready)
         for t in self._arrays.values():
+            if isinstance(t, DTensor):
+                t = t.to_local()
             if isinstance(t, torch.Tensor) and t.is_cuda:
                 t.record_stream(stream)
         self._ready = None
@@ -267,7 +271,9 @@ class DeviceFeed:
     step in :meth:`step`: it times the step and, with ``donate=True``,
     marks the batch consumed. Batches go to ``device`` (the card unless the
     caller names another) unless ``device_put`` replaces the per-array
-    copy. ``sharding`` is refused.
+    copy. With ``sharding`` (a ``distributed.sharding.NamedSharding``) each
+    rank copies only its own block of every array, through the same pinned
+    path and copy stream, and the batch holds DTensors of the global shape.
     """
 
     def __init__(
@@ -283,8 +289,8 @@ class DeviceFeed:
         clock: Callable[[], float] = time.perf_counter,
         profiler: OverlapProfiler | None = None,
     ):
-        refuse_sharding(sharding)
         self.grid = grid
+        self.sharding = sharding
         self.donate = donate
         self._device_put = device_put
         self.device = None if device_put is not None else resolve(device)
@@ -328,17 +334,25 @@ class DeviceFeed:
         )
         t0 = self._clock()
         ready = None
-        if self._device_put is not None:
-            arrays = {k: self._device_put(np.asarray(v)) for k, v in snapped.items()}
-        elif self._copy_stream is None:
-            arrays = {k: to_device(np.asarray(v), self.device) for k, v in snapped.items()}
+        if self._device_put is not None or self._copy_stream is None:
+            arrays = {k: self._put(v) for k, v in snapped.items()}
         else:
             with torch.cuda.stream(self._copy_stream):
-                arrays = {k: to_device(np.asarray(v), self.device) for k, v in snapped.items()}
+                arrays = {k: self._put(v) for k, v in snapped.items()}
                 ready = torch.cuda.Event()
                 ready.record(self._copy_stream)
         self.profiler.record_transfer(self._clock() - t0)
         return DeviceBatch(arrays, cell, ready, self.device)
+
+    def _put(self, v) -> Any:
+        """One array to the device (by ``device_put`` where the caller gave
+        one): the whole array, or this rank's block as a DTensor under
+        ``sharding``."""
+        if self.sharding is not None:
+            return put_sharded(v, self.sharding, self.device, self._device_put)
+        if self._device_put is not None:
+            return self._device_put(np.asarray(v))
+        return to_device(np.asarray(v), self.device)
 
     # -- consumption -------------------------------------------------------
     def __iter__(self) -> Iterator[DeviceBatch]:

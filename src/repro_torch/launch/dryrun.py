@@ -14,10 +14,11 @@ Each cell writes ``build/dryrun_torch/card/<arch>__<shape>.json``: the
 counter's FLOPs, bytes, collectives and kernel calls, the memory (the
 arguments' bytes, the output's, and ``temp``, the run's peak), the
 analytic ``model_flops`` and whether the arguments and the peak fit one
-80 GB card. There is no mesh yet (ROADMAP.md Queue 1 item 6.4): a cell is
-one device, ``--mesh single`` and ``multi`` raise, and under ``--plan
-optimized`` the plan keys that need a mesh are listed in the record under
-``not_applied``.
+80 GB card. A cell is one device: its per-device counts over the
+reference's 256- or 512-device meshes are what is left of ROADMAP.md
+Queue 1 item 6.4, so ``--mesh single`` and ``multi`` raise, and under
+``--plan optimized`` the plan keys that need a mesh are listed in the
+record under ``not_applied``.
 
 A cell is built as the reference's ``build_cell`` (``:189``) builds it:
 ``LM(cfg, "meta", dtype=torch.bfloat16, remat=True)``; a train cell is
@@ -261,8 +262,9 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
     if args.mesh != "card":
-        raise SystemExit(f"--mesh {args.mesh}: the port has no mesh yet (ROADMAP.md Queue 1 "
-                         f"item 6.4); a cell is one card (--mesh card)")
+        raise SystemExit(f"--mesh {args.mesh}: the dry run's per-device counts over a mesh "
+                         f"are what is left of ROADMAP.md Queue 1 item 6.4; a cell is one card "
+                         f"(--mesh card)")
     out_dir = Path(args.out) if args.out else OUT if args.plan == "baseline" else \
         OUT.with_name("dryrun_torch_opt")
     cells = all_cells()

@@ -15,20 +15,26 @@ existing environment instead of clobbering it:
     PYTHONPATH=src python -m repro_torch.launch.env -- \\
         python -m repro_torch.launch.train --arch stablelm_3b --smoke --device cpu
 
+    # the same over four local ranks, a (2, 2) mesh
+    PYTHONPATH=src python -m repro_torch.launch.env --devices 4 -- \\
+        python -m repro_torch.launch.train --smoke --device cpu --model-parallel 2
+
 Copied: ``TCMALLOC_CANDIDATES`` and ``find_tcmalloc`` (``:27-48``),
-``tuned_env``'s ``LD_PRELOAD`` and ``TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD``
-(``:64-97``), ``apply`` (``:100``), ``render_exports`` (``:124``) and
-``main`` (``:129``), exec after ``--`` included. Left out, each against
-its original:
+``merge_xla_flags`` (``:51``), ``tuned_env`` (``:64-97``), ``apply``
+(``:100``), ``render_exports`` (``:124``) and ``main`` (``:129``), exec
+after ``--`` included. Pinning N host devices for a CPU mesh is N local
+ranks here: ``tuned_env(N)`` gives ``WORLD_SIZE=N``, and
+``--devices N -- command ...`` execs ``python -m torch.distributed.run
+--standalone --nproc-per-node N --no-python command ...``, which starts N
+ranks of the command on this host. On the card N above the visible card
+count raises with both numbers. Left out, each against its original:
 
 * ``TF_CPP_MIN_LOG_LEVEL`` (``:83``): the port has no TensorFlow to
   silence;
 * ``JAX_DEFAULT_DTYPE_BITS`` (``:85``): torch's default dtype is already
   fp32;
-* ``merge_xla_flags`` (``:51``) and ``--devices`` (``:133``): they pin a
-  host device count for a CPU mesh, which waits for the port's mesh
-  (ROADMAP.md Queue 1 item 6.4); until then ``tuned_env(host_device_count)``
-  and ``--devices`` raise.
+* the ``XLA_FLAGS`` pin (``:91-96``): nothing of the port reads XLA's flags;
+  ``merge_xla_flags`` stays the string function it is.
 """
 
 from __future__ import annotations
@@ -51,10 +57,6 @@ TCMALLOC_CANDIDATES: tuple[str, ...] = (
 # tcmalloc's large-alloc report chatter.
 TCMALLOC_REPORT_THRESHOLD = "60000000000"
 
-NO_MESH = ("a host device count pins a CPU mesh, which the port does not have yet "
-           "(ROADMAP.md Queue 1 item 6.4)")
-
-
 def find_tcmalloc(candidates: Sequence[str] | None = None) -> str | None:
     """First present tcmalloc shared object, or None (then no preload)."""
     if candidates is None:
@@ -65,21 +67,51 @@ def find_tcmalloc(candidates: Sequence[str] | None = None) -> str | None:
     return None
 
 
+def merge_xla_flags(existing: str, *flags: str) -> str:
+    """Append ``flags`` to an ``XLA_FLAGS`` string, letting the new value
+    win when the same ``--flag=`` is already present. Copy of
+    ``repro/launch/env.py:51``."""
+    merged: list[str] = []
+    names = {f.split("=", 1)[0] for f in flags}
+    for tok in existing.split():
+        if tok.split("=", 1)[0] not in names:
+            merged.append(tok)
+    merged.extend(flags)
+    return " ".join(merged)
+
+
 def tuned_env(host_device_count: int | None = None, *, tcmalloc: bool = True
               ) -> dict[str, str]:
     """The tuned launch variables as a plain dict: ``LD_PRELOAD`` and the
-    report threshold when tcmalloc is present. The reference's ``base``,
-    the ``XLA_FLAGS`` to merge with, has no counterpart: no variable of
-    the port's extends an existing one. ``host_device_count`` raises."""
-    if host_device_count is not None:
-        raise NotImplementedError(f"host_device_count={host_device_count}: {NO_MESH}")
+    report threshold when tcmalloc is present, and with
+    ``host_device_count`` N the world of N local ranks, ``WORLD_SIZE=N``.
+    The reference's ``base``, the ``XLA_FLAGS`` to merge with, has no
+    counterpart: no variable of the port's extends an existing one."""
     env: dict[str, str] = {}
     if tcmalloc:
         lib = find_tcmalloc()
         if lib is not None:
             env["LD_PRELOAD"] = lib
             env["TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD"] = TCMALLOC_REPORT_THRESHOLD
+    if host_device_count is not None:
+        if host_device_count < 1:
+            raise ValueError(f"host_device_count must be >= 1, got {host_device_count}")
+        env["WORLD_SIZE"] = str(host_device_count)
     return env
+
+
+def rank_command(n: int, command: Sequence[str]) -> list[str]:
+    """``command`` run as ``n`` local ranks by ``torch.distributed.run``
+    (installed with torch); on a host with a card, ``n`` must not exceed
+    the visible cards."""
+    import sys
+
+    import torch
+
+    if torch.cuda.is_available() and n > torch.cuda.device_count():
+        raise SystemExit(f"--devices {n}: {torch.cuda.device_count()} visible card(s)")
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={n}", "--no-python", *command]
 
 
 def apply(env: Mapping[str, str] | None = None, *, overwrite: bool = False) -> dict[str, str]:
@@ -107,17 +139,19 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--devices", type=int, default=None,
-                    help="refused: pins a host device count for a CPU mesh (Queue 1 item 6.4)")
+                    help="run the command as this many local ranks (torch.distributed.run)")
     ap.add_argument("--no-tcmalloc", action="store_true", help="skip the LD_PRELOAD probe")
     ap.add_argument("command", nargs="*",
                     help="after '--': command to exec under the tuned environment")
     args = ap.parse_args(argv)
-    if args.devices is not None:
-        raise SystemExit(f"--devices {args.devices}: {NO_MESH}")
-    env = tuned_env(tcmalloc=not args.no_tcmalloc)
+    env = tuned_env(args.devices, tcmalloc=not args.no_tcmalloc)
     if args.command:
+        command = list(args.command)
+        if args.devices is not None:
+            env.pop("WORLD_SIZE")  # torch.distributed.run sets each rank's
+            command = rank_command(args.devices, command)
         os.environ.update(env)
-        os.execvpe(args.command[0], list(args.command), os.environ)
+        os.execvpe(command[0], command, os.environ)
     print(render_exports(env))
     return 0
 

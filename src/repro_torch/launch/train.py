@@ -1,31 +1,45 @@
-"""LM training launcher on one card.
+"""LM training launcher, on one card or over a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_3b --smoke \\
         --steps 30 --batch 8 --seq-len 64 --ckpt /tmp/run1 --device cpu
+
+    # four ranks, a (2, 2) mesh of (data, model)
+    PYTHONPATH=src python -m repro_torch.launch.env --devices 4 -- \\
+        python -m repro_torch.launch.train --smoke --device cpu --model-parallel 2
 
 Copy of ``repro/launch/train.py``: P3SAPP preprocessing on the port's
 ``Dataset`` planner (the scan passes on the card's ``text_scan`` kernel) ->
 packed LM token rows -> the microbatched train step over ``LM.loss`` ->
 the fault-tolerant checkpointed loop (resume from the latest committed
 step on restart). It runs on the card unless ``--device`` names another.
-The reference's mesh, ``tree_shardings`` and ``set_mesh`` become plain
-single-card tensors, so ``--model-parallel`` above 1 and
-``--production-mesh`` raise; ``jax.jit(step, donate_argnums=(0, 1))`` is
-``train_step_of``, the donating step (``make_train_step(..., donate=True)``:
-params and AdamW state updated in place), which lets StableLM-3B train at
-all 32 layers on one card. ``--arch qwen2_vl_72b`` trains on the token rows
-alone (no patches), as the reference does. ``--arch hubert_xlarge`` is
-refused up front: its loss needs frames and labels, which the token rows
-cannot give (the reference's launcher fails on it inside ``LM.loss``); it
-trains through ``make_train_step`` over ``LM.loss`` with frame batches.
-The reference's ``apply_tuned_env``
-(XLA flags and tcmalloc for forked workers) is left out: nothing here
-reads XLA's flags, and the planner's workers are spawned.
+
+With ``--model-parallel N`` above 1, ``--production-mesh`` or more than
+one rank (``torchrun``'s ``WORLD_SIZE``), it trains as the reference does
+over its mesh (``repro/launch/train.py:86-116``): ``make_host_mesh`` or
+``make_production_mesh`` (256 ranks), ``MeshContext(mesh,
+data_axis_names(mesh), "model")``, parameters placed by
+``tree_shardings(..., DEFAULT_RULES)``, each batch's rows over the data
+axes and ``TrainController`` restoring with those shardings. Every rank
+builds the same token rows from the same seed and draws the same batches;
+only rank 0 prints the history. On one rank without those flags no mesh is
+made, and the step is the one-card step bit for bit. ``jax.jit(step,
+donate_argnums=(0, 1))`` is ``train_step_of``, the donating step
+(``make_train_step(..., donate=True)``: params and AdamW state updated in
+place), which lets StableLM-3B train at all 32 layers on one card.
+``--arch qwen2_vl_72b`` trains on the token rows alone (no patches), as the
+reference does. ``--arch hubert_xlarge`` is refused up front: its loss
+needs frames and labels, which the token rows cannot give (the reference's
+launcher fails on it inside ``LM.loss``); it trains through
+``make_train_step`` over ``LM.loss`` with frame batches. The reference's
+``apply_tuned_env`` (XLA flags and tcmalloc for forked workers) is left
+out: nothing here reads XLA's flags, and the planner's workers are
+spawned.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 from typing import Sequence
 
@@ -36,8 +50,8 @@ from ..configs import ARCH_IDS, get, get_smoke
 from ..core.dataset import Dataset
 from ..core.expr import abstract_expr, col, title_expr
 from ..data.synthetic import write_corpus
-from ..models.lm import LM
-from ..optim.adamw import AdamW, warmup_cosine
+from ..models.lm import LM, MeshContext
+from ..optim.adamw import AdamW, AdamWState, warmup_cosine
 from ..runtime.fault_tolerance import TrainController
 from ..runtime.train_loop import TrainStepConfig, functional_loss, make_train_step, params_of
 
@@ -99,10 +113,6 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {args.model_parallel} / --production-mesh: "
-                                  "the port trains on one card (multi-device training is "
-                                  "ROADMAP.md Queue 1 item 6)")
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     if cfg.frontend == "audio":
         raise SystemExit(f"{cfg.name} is encoder-only: its loss needs frames and labels, which "
@@ -111,6 +121,10 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
+    meshed = (args.model_parallel > 1 or args.production_mesh
+              or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if meshed:
+        return _train_on_mesh(args, cfg)
     device = torch.device(args.device)
     print(f"arch={cfg.name} device={device} params~{cfg.param_count() / 1e6:.1f}M")
 
@@ -135,10 +149,69 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
             yield {"tokens": torch.from_numpy(seqs[idx]).to(device)}
 
     history = controller.run(stream(), n_steps=args.steps)
+    _report(history, controller, ckpt)
+    return history
+
+
+def _report(history, controller, ckpt) -> None:
     for h in history[:: max(len(history) // 6, 1)]:
         print(f"step {h['step']:5d} loss={h['loss']:.4f} gnorm={h['grad_norm']:.3f}")
     print(f"final checkpoint at step {controller.step} in {ckpt}")
-    return history
+
+
+def _train_on_mesh(args, cfg) -> list[dict]:
+    """``main`` over the reference's mesh (``repro/launch/train.py:86-116``),
+    on every rank of the process group."""
+    import torch.distributed as dist
+
+    from ..core.async_loader import put_sharded
+    from ..distributed.sharding import NamedSharding, batch_spec, data_axis_names
+    from .mesh import destroy_process_group, make_host_mesh, make_production_mesh
+
+    owned = not dist.is_initialized()  # a group this call joins, it leaves
+    try:
+        mesh = (make_production_mesh(device=args.device) if args.production_mesh
+                else make_host_mesh(args.model_parallel, device=args.device))
+        rank = dist.get_rank()
+        device = torch.device(args.device, torch.cuda.current_device()) \
+            if torch.device(args.device).type == "cuda" else torch.device(args.device)
+        if rank == 0:
+            print(f"arch={cfg.name} mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                  f"params~{cfg.param_count() / 1e6:.1f}M")
+        seqs = build_dataset(cfg, args.seq_len, args.corpus_mb, seed=0, device=device)
+        mctx = MeshContext(mesh, data_axis_names(mesh), "model")
+        model = LM(cfg, device, mctx=mctx, remat=True, dtype=torch.float32)
+        opt = AdamW(learning_rate=warmup_cosine(args.lr, 10, args.steps))
+        step = train_step_of(model, opt, args.microbatches)
+        shardings = model.param_shardings()
+
+        def init_state():
+            params = model.distribute_params(params_of(model))
+            return params, opt.init(params)
+
+        ckpt = [args.ckpt or (tempfile.mkdtemp(prefix="p3sapp_ckpt_") if rank == 0 else None)]
+        dist.broadcast_object_list(ckpt, src=0)
+        ckpt = ckpt[0]
+        controller = TrainController(
+            ckpt, step, init_state, save_every=args.save_every,
+            shardings=(shardings, AdamWState(None, shardings, shardings)))
+        if controller.resumed and rank == 0:
+            print(f"resumed from step {controller.step}")
+        bsh = NamedSharding(mesh, batch_spec(mesh, args.batch))
+        rng = np.random.default_rng(controller.step)
+
+        def stream():
+            while True:
+                idx = rng.integers(0, len(seqs), size=args.batch)
+                yield {"tokens": put_sharded(seqs[idx], bsh, device)}
+
+        history = controller.run(stream(), n_steps=args.steps)
+        if rank == 0:
+            _report(history, controller, ckpt)
+        return history
+    finally:
+        if owned:
+            destroy_process_group()
 
 
 if __name__ == "__main__":

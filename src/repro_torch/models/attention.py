@@ -9,6 +9,12 @@ one-token decode step at ``cache_pos = pos``; with a sliding window the
 cache may be the ring of ``_ring_attend``. Under grad a full-sequence
 call is differentiable through the kernel's backward; a call over the
 cache (``q_offset`` or ``kv_len`` set) raises.
+
+On a mesh (DTensor activations and parameters) the full-sequence call
+runs the kernel on each rank's local shard (``launch.mesh.kernel_call``):
+its batch rows over the data axes and whole heads over the model axis
+where the query and key heads both divide it, else every head on every
+model rank. A KV cache is not sharded: decoding runs off the mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention_op
+from ..launch.mesh import is_dtensor, kernel_call
 from .blocks import apply_mrope, apply_rope, truncated_normal
 
 
@@ -50,6 +57,40 @@ def init_attention(cfg, generator: torch.Generator, dtype=torch.float32,
         for name, heads in (("bq", nq), ("bk", nkv), ("bv", nkv)):
             p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
     return p
+
+
+def attention_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/attention.py:45 attention_axes``."""
+    p = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", "head_dim")
+        p["bk"] = ("kv_heads", "head_dim")
+        p["bv"] = ("kv_heads", "head_dim")
+    return p
+
+
+def head_placements(x, n_heads: int, n_kv_heads: int, head_dim: int = 2) -> list:
+    """The placements of a ``(b, s, heads, ...)`` DTensor that the kernels
+    take: batch rows as ``x`` has them over the data axes (``Shard(0)`` or
+    replicated), whole heads (dimension ``head_dim``) over a model axis of
+    several ranks where both head counts divide it, else replicated there."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    out = []
+    for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if name == "model":
+            n = mesh.size(i)
+            out.append(Shard(head_dim) if n > 1 and n_heads % n == 0 and n_kv_heads % n == 0
+                       else Replicate())
+        else:
+            out.append(Shard(0) if pl.is_shard(0) else Replicate())
+    return out
 
 
 def _project_qkv(p, x: torch.Tensor, cfg):
@@ -109,8 +150,22 @@ def attend(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     attends over the first ``cache_pos + len`` keys of the cache, read
     where they lie."""
     q, k, v = _project_qkv(p, x, cfg)
+    if is_dtensor(q):
+        if cache is not None:
+            raise NotImplementedError("attend: a KV cache on a mesh; decode on one device, "
+                                      "as the reference serves (ROADMAP.md Queue 1 item 6.4)")
+        # The kernel needs whole heads: where kv_heads fell back to
+        # head_dim (spec_for), or the SP plan put the sequence over the
+        # model axis, this redistribution is the gather (or all-to-all)
+        # that GSPMD inserts before the reference's attention.
+        heads = head_placements(q, cfg.n_heads, cfg.n_kv_heads)
+        q, k, v = (t.redistribute(t.device_mesh, heads) for t in (q, k, v))
     q, k = _rope(q, k, positions, cfg)
-    if cache is None:
+    if is_dtensor(q):
+        out = kernel_call(flash_attention_op, (q, k, v), (heads,) * 3, heads,
+                          causal=cfg.causal, window=cfg.window)
+        new_cache = None
+    elif cache is None:
         out = flash_attention_op(q, k, v, causal=cfg.causal, window=cfg.window)
         new_cache = None
     elif cfg.window > 0 and cache.k.shape[1] <= cfg.window:

@@ -2,8 +2,15 @@
 
 Counterparts of ``repro/models/blocks.py``. Parameters are dicts of
 tensors (an ``nn.ParameterDict`` inside a module) with the JAX package's
-names and layouts. Compute dtype follows the input; norms and RoPE work in
+names and layouts, and each ``*_axes`` function gives the logical axes of
+its parameters, as the reference's do (``distributed/sharding.py`` maps
+them to a mesh). Compute dtype follows the input; norms and RoPE work in
 fp32 and cast back.
+
+On a mesh the tensors are DTensors: the embedding of a vocabulary-sharded
+table is ``F.embedding``, which gathers each rank's own rows and sums over
+the model axis, and the cross entropy of vocabulary-sharded logits is
+computed on each rank's own columns (``_vocab_parallel_nll``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..launch.mesh import is_dtensor
 
 
 def truncated_normal(shape, scale: float, generator: torch.Generator,
@@ -36,6 +45,14 @@ def init_norm(cfg, dtype=torch.float32, device=None) -> dict[str, torch.Tensor]:
     p = {"scale": torch.ones(cfg.d_model, dtype=dtype, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
+    return p
+
+
+def norm_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/blocks.py:35 norm_axes``."""
+    p = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ("embed",)
     return p
 
 
@@ -100,6 +117,14 @@ def init_mlp(cfg, generator: torch.Generator, d_ff: int | None = None,
     return p
 
 
+def mlp_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/blocks.py:75 mlp_axes``."""
+    p = {"down": ("mlp", "embed"), "up": ("embed", "mlp")}
+    if cfg.glu:
+        p["gate"] = ("embed", "mlp")
+    return p
+
+
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """Counterpart of ``repro/models/blocks.py:82 apply_mlp``."""
     act = _ACTS[cfg.act]
@@ -125,6 +150,14 @@ def init_embed(cfg, generator: torch.Generator, dtype=torch.float32,
     return p
 
 
+def embed_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/blocks.py:106 embed_axes``."""
+    p = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("embed", "vocab")
+    return p
+
+
 def _sqrt_d(cfg, like: torch.Tensor) -> torch.Tensor:
     """√d_model rounded to ``like``'s dtype, as ``jnp.asarray(np.sqrt(d), dtype)``:
     a 0-d CPU tensor, which PyTorch takes as a scalar on any device (no copy
@@ -134,8 +167,15 @@ def _sqrt_d(cfg, like: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(p, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """Rows of the embedding times √d_model in the embedding's dtype.
-    Counterpart of ``repro/models/blocks.py:113 embed_tokens``."""
-    x = p["embedding"][tokens.long()]
+    Counterpart of ``repro/models/blocks.py:113 embed_tokens``. A table
+    sharded over a mesh (DTensor tokens and table) is read through
+    ``F.embedding``: each rank looks up the rows it holds and the partial
+    rows are summed, where indexing would gather the whole table."""
+    table = p["embedding"]
+    if _sharded(table):
+        x = F.embedding(tokens.long(), table)
+    else:
+        x = table[tokens.long()]
     return x * _sqrt_d(cfg, x)
 
 
@@ -214,8 +254,101 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     """Mean negative log-likelihood over ``mask``, accumulated in fp32 and
     divided by max(Σmask, 1). Counterpart of
     ``repro/models/blocks.py:171 cross_entropy_loss``."""
+    if is_dtensor(logits):
+        return _vocab_parallel_nll(logits, targets, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     mask = mask.float()
     return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _sharded(x) -> bool:
+    """A DTensor split over some mesh dimension of more than one rank."""
+    return is_dtensor(x) and any(
+        p.is_shard() and x.device_mesh.size(i) > 1 for i, p in enumerate(x.placements))
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over a process group whose result every rank then uses as the
+    same (replicated) value: forward an all-reduce, backward the identity
+    (each rank's input reaches the one replicated output once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: no group, ``x`` itself), with the
+    gradient of a replicated result (``_SumOverGroup``)."""
+    return x if group is None else _SumOverGroup.apply(x, group)
+
+
+def _vocab_parallel_nll(logits, targets, mask) -> torch.Tensor:
+    """``cross_entropy_loss`` of DTensor logits ``(b, s, V)``, each rank on
+    its own rows and vocabulary columns: the row max and Σ exp are reduced
+    over the model axis, the gold logit is taken where a rank holds it and
+    summed, and the rows' sum of −log p over the data axes; no rank holds
+    the whole logits. The mean divides by the global count of ``mask``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    import torch.distributed as dist
+
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    vocab = logits.shape[-1]
+    lp, tp, outp = [], [], []
+    for i, (name, pl) in enumerate(zip(names, logits.placements)):
+        if name == "model" and mesh.size(i) > 1 and vocab % mesh.size(i) == 0:
+            lp.append(Shard(logits.ndim - 1))
+            tp.append(Replicate())
+            outp.append(Replicate())
+        elif pl.is_shard(0):
+            lp.append(Shard(0))
+            tp.append(Shard(0))
+            outp.append(Partial())
+        else:
+            lp.append(Replicate())
+            tp.append(Replicate())
+            outp.append(Replicate())
+    model = names.index("model") if "model" in names and lp[names.index("model")].is_shard() \
+        else None
+    group = mesh.get_group(model) if model is not None else None
+    logits = logits.redistribute(mesh, lp)
+    if not is_dtensor(targets):
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    targets = targets.redistribute(mesh, tp)
+    del mask
+
+    def local(lg, tg):
+        lg = lg.float()
+        if group is None:  # every column here: the one-device operations
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, tg.long()[..., None])[..., 0]
+            return torch.sum(logz - gold)
+        lo = dist.get_rank(group) * lg.shape[-1]
+        m = lg.detach().amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        sumexp = sum_over_group(torch.exp(lg - m[..., None]).sum(-1), group)
+        logz = m + torch.log(sumexp)
+        t = tg.long() - lo
+        held = (t >= 0) & (t < lg.shape[-1])
+        gold = torch.gather(lg, -1, torch.clamp(t, 0, lg.shape[-1] - 1)[..., None])[..., 0]
+        gold = sum_over_group(torch.where(held, gold, 0.0), group)
+        return torch.sum(logz - gold)
+
+    from torch.distributed.tensor.experimental import local_map
+
+    total = local_map(local, out_placements=outp, in_placements=(lp, tp),
+                      device_mesh=mesh)(logits, targets)
+    count = max(math.prod(targets.shape), 1)
+    return (total / count).redistribute(mesh, [Replicate()] * mesh.ndim)

@@ -30,7 +30,9 @@ reference (``:291``); a layer's kernel forward then launches twice a step.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
@@ -41,9 +43,10 @@ from ..device import resolve
 from . import moe as MOE
 from . import rglru as RG
 from . import xlstm as XL
-from .attention import attend, init_attention, init_kv_cache
-from .blocks import (apply_mlp, apply_norm, cross_entropy_loss, embed_tokens, init_embed,
-                     init_mlp, init_norm, lm_logits, truncated_normal)
+from .attention import KVCache, attend, attention_axes, init_attention, init_kv_cache
+from .blocks import (apply_mlp, apply_norm, cross_entropy_loss, embed_axes, embed_tokens,
+                     init_embed, init_mlp, init_norm, lm_logits, mlp_axes, norm_axes,
+                     truncated_normal)
 
 BLOCK_KINDS = ("attn", "rglru", "mlstm", "slstm")
 
@@ -65,6 +68,69 @@ def moe_layers(cfg) -> list[bool]:
     first ``first_k_dense`` of a MoE configuration."""
     first = cfg.moe.first_k_dense if cfg.moe is not None else cfg.n_layers
     return [i >= first for i in range(cfg.n_layers)]
+
+
+class MeshContext(NamedTuple):
+    """The distribution context threaded through the model. Counterpart of
+    ``repro/models/lm.py:43 MeshContext``."""
+
+    mesh: Any = None
+    data_axes: tuple[str, ...] = ()
+    model_axis: str = ""
+    seq_axis: str = ""  # set by the sequence-parallel plan
+
+    def constrain_batch(self, x):
+        """Anchor an activation DTensor: batch over the data axes (and, for
+        the SP plan, the sequence over the model axis), the rest replicated;
+        left as it is where the batch does not divide."""
+        if self.mesh is None or not self.data_axes:
+            return x
+        from torch.distributed.tensor import Replicate, Shard
+
+        size = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        if x.shape[0] % math.prod(size[a] for a in self.data_axes):
+            return x
+        seq = bool(self.seq_axis) and x.ndim >= 2 and x.shape[1] % size[self.seq_axis] == 0
+        placements = [Replicate() if size[a] == 1  # one rank holds it all either way
+                      else Shard(0) if a in self.data_axes
+                      else Shard(1) if seq and a == self.seq_axis else Replicate()
+                      for a in self.mesh.mesh_dim_names]
+        return x.redistribute(self.mesh, placements)
+
+    def scope(self):
+        """DTensor operators may take plain tensors (positions, constants)
+        as replicated values inside this scope, on a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from ..launch.mesh import replicate_plain
+
+        return replicate_plain()
+
+
+def _block_axes(cfg, kind: str, moe_layer: bool) -> dict:
+    """Copy of ``repro/models/lm.py:100 _block_axes``."""
+    if kind == "attn":
+        p = {"norm1": norm_axes(cfg), "attn": attention_axes(cfg), "norm2": norm_axes(cfg)}
+        if moe_layer:
+            p["moe"] = MOE.moe_axes(cfg)
+        else:
+            p["mlp"] = mlp_axes(cfg)
+        return p
+    if kind == "rglru":
+        return {"norm1": norm_axes(cfg), "rec": RG.rglru_axes(cfg),
+                "norm2": norm_axes(cfg), "mlp": mlp_axes(cfg)}
+    mix = XL.mlstm_axes(cfg) if kind == "mlstm" else XL.slstm_axes(cfg)
+    return {"norm1": norm_axes(cfg), "mix": mix}
+
+
+def _flat(tree: dict, prefix: str = "") -> dict[str, tuple]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def _init_block(cfg, kind: str, moe_layer: bool, g: torch.Generator, **kw) -> dict[str, dict]:
@@ -109,17 +175,20 @@ class LM(nn.Module):
     require grad: a train step differentiates ``loss`` with respect to a
     ``{path: tensor}`` tree through ``runtime.train_loop.functional_loss``."""
 
-    def __init__(self, cfg, device=None, *, dtype=torch.float32, seed: int = 0,
-                 remat: bool = True):
+    def __init__(self, cfg, device=None, *, mctx: MeshContext | None = None,
+                 dtype=torch.float32, seed: int = 0, remat: bool = True):
         """Random weights drawn from a ``torch.Generator`` seeded with
         ``seed`` on ``device`` itself: the card unless the caller names
         another (``"meta"`` makes the shapes only). The same seed gives
         other weights on another kind of device; copy a state dict to
         compare devices. ``remat`` recomputes each layer in ``loss``'s
-        backward instead of keeping its activations."""
+        backward instead of keeping its activations. ``mctx`` runs the
+        model on its mesh: give it DTensor parameters
+        (``distribute_params``) through ``functional_call``."""
         super().__init__()
         _supported(cfg)
         self.cfg = cfg
+        self.mctx = mctx or MeshContext()
         self.dtype = dtype
         self.remat = remat
         self.kinds = layer_kinds(cfg)
@@ -150,6 +219,59 @@ class LM(nn.Module):
         configurations; for the recurrent blocks it differs by a few vectors)."""
         return sum(p.numel() for name, p in self.named_parameters() if "norm" not in name)
 
+    def param_axes(self) -> dict[str, tuple]:
+        """The logical axes of every parameter, ``{path: axes}`` with the
+        paths of ``runtime.train_loop.params_of``. Counterpart of
+        ``repro/models/lm.py:241 LM.param_axes``: the reference's stacked
+        ``units`` carry a leading ``None`` for the stacked layer axis, which
+        a per-layer tensor here does not have (``bridge.lm_params_from_jax``
+        splits the stack)."""
+        cfg = self.cfg
+        axes = {"embed": embed_axes(cfg)}
+        if cfg.frontend:
+            axes["frontend"] = {"proj": ("frontend", "embed")}
+        axes["layers"] = {str(i): _block_axes(cfg, kind, moe)
+                          for i, (kind, moe) in enumerate(zip(self.kinds, self.moe))}
+        axes["final_norm"] = norm_axes(cfg)
+        return _flat(axes)
+
+    def param_shardings(self) -> dict:
+        """``{path: NamedSharding}`` of every parameter on the model's mesh
+        under ``DEFAULT_RULES``, as the reference's launcher places them."""
+        from ..distributed.sharding import DEFAULT_RULES, tree_shardings
+
+        shapes = {name.replace(".", "/"): p for name, p in self.named_parameters()}
+        return tree_shardings(shapes, self.param_axes(), self.mctx.mesh, DEFAULT_RULES)
+
+    def distribute_params(self, params: dict) -> dict:
+        """``params`` (``{path: tensor}``, the whole tree, the same on every
+        rank: the model's seeded weights) as DTensors placed by
+        ``param_shardings``; each rank keeps its own blocks, with no
+        collective."""
+        from ..distributed.sharding import distribute
+
+        shardings = self.param_shardings()
+        return {k: distribute(t, shardings[k]) for k, t in params.items()}
+
+    def decode_state_axes(self) -> list:
+        """The logical axes of ``init_decode_state``'s states, one per
+        layer. Counterpart of ``repro/models/lm.py:336
+        LM.decode_state_axes`` without the stacked axis."""
+        kv = ("batch", "seq", "kv_heads", "head_dim")
+
+        def one(kind):
+            if kind == "attn":
+                return KVCache(kv, kv)
+            if kind == "rglru":
+                return RG.RGLRUState(h=("batch", "rnn"), conv=("batch", None, "rnn"))
+            if kind == "mlstm":
+                return XL.MLSTMState(c=("batch", "heads", None, "rnn"),
+                                     n=("batch", "heads", "rnn"), m=("batch", "heads"))
+            return XL.SLSTMState(c=("batch", "rnn"), n=("batch", "rnn"),
+                                 m=("batch", "rnn"), h=("batch", "rnn"))
+
+        return [one(kind) for kind in self.kinds]
+
     def load_jax_params(self, tree) -> None:
         """Copy a JAX ``LM.init`` parameter tree (numpy leaves) in."""
         self.load_state_dict(
@@ -159,7 +281,11 @@ class LM(nn.Module):
     def _block(self, layer, kind, moe, x, positions, cache=None, cache_pos=0):
         """``repro/models/lm.py:118 _apply_block`` -> (x, the new cache or
         state, the MoE layer's load-balance term or None)."""
-        cfg = self.cfg
+        with self.mctx.scope():
+            return self._block_ops(layer, kind, moe, x, positions, cache, cache_pos)
+
+    def _block_ops(self, layer, kind, moe, x, positions, cache, cache_pos):
+        cfg, mctx = self.cfg, self.mctx
         h_in = apply_norm(layer["norm1"], x, cfg.norm)
         if kind == "attn":
             h, new_cache = attend(layer["attn"], h_in, cfg, positions=positions, cache=cache,
@@ -173,7 +299,8 @@ class LM(nn.Module):
         x = x + h
         h2 = apply_norm(layer["norm2"], x, cfg.norm)
         if moe:
-            ff, aux = MOE.apply_moe(layer["moe"], h2, cfg)
+            ff, aux = MOE.apply_moe(layer["moe"], h2, cfg, mesh=mctx.mesh,
+                                    data_axes=mctx.data_axes, model_axis=mctx.model_axis)
             return x + ff, new_cache, aux
         return x + apply_mlp(layer["mlp"], h2, cfg), new_cache, None
 
@@ -182,15 +309,35 @@ class LM(nn.Module):
         ``repro/models/lm.py:258 _embed`` makes it: ``frames @ proj`` for the
         audio frontend (no token embedding); the token embedding otherwise,
         its first ``patches.shape[1]`` positions replaced by ``patches @
-        proj`` where the vision frontend's batch gives patches."""
+        proj`` where the vision frontend's batch gives patches. On a mesh
+        the result is anchored by ``MeshContext.constrain_batch``."""
+        with self.mctx.scope():
+            return self.mctx.constrain_batch(self._embed_ops(batch))
+
+    def _embed_ops(self, batch: dict) -> torch.Tensor:
         cfg, dev = self.cfg, self.device
         if cfg.frontend == "audio":
             return batch["frames"].to(dev, self.dtype) @ self.frontend["proj"]
-        x = embed_tokens(self.embed, batch["tokens"].to(dev), cfg)
+        x = embed_tokens(self.embed, self._on_mesh(batch["tokens"].to(dev)), cfg)
         if cfg.frontend == "vision" and "patches" in batch:
             pe = batch["patches"].to(dev, x.dtype) @ self.frontend["proj"]
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         return x
+
+    def _on_mesh(self, t: torch.Tensor):
+        """A plain tensor (the whole batch, the same on every rank) as a
+        replicated DTensor on the mesh; a DTensor or, off a mesh, any tensor
+        as it is."""
+        if self.mctx.mesh is None:
+            return t
+        from ..launch.mesh import is_dtensor
+
+        if is_dtensor(t):
+            return t
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(t, self.mctx.mesh, [Replicate()] * self.mctx.mesh.ndim,
+                                  run_check=False)
 
     def _trunk(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
         """``hidden`` without ``no_grad``, and the MoE layers' summed
@@ -226,7 +373,9 @@ class LM(nn.Module):
 
     def _logits(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
         x, aux = self._trunk(batch)
-        return lm_logits(self.embed, apply_norm(self.final_norm, x, self.cfg.norm), self.cfg), aux
+        with self.mctx.scope():
+            x = apply_norm(self.final_norm, x, self.cfg.norm)
+            return lm_logits(self.embed, x, self.cfg), aux
 
     @torch.no_grad()
     def forward(self, batch: dict, *, with_aux: bool = False):
@@ -248,15 +397,16 @@ class LM(nn.Module):
         ``batch["tokens"]`` shifted by one; the encoder-only one classifies
         every position against ``batch["labels"]`` ``(b, s)``, unshifted."""
         logits, aux = self._logits(batch)
-        if self.cfg.causal:
-            targets = batch["tokens"].to(self.device)[:, 1:]
-            logits = logits[:, :-1]
-        else:
-            targets = batch["labels"].to(self.device)
-        ce = cross_entropy_loss(logits, targets, torch.ones_like(targets))
-        if aux is None:
-            return ce
-        return ce + self.cfg.moe.router_aux_weight * aux
+        with self.mctx.scope():
+            if self.cfg.causal:
+                targets = self._on_mesh(batch["tokens"].to(self.device))[:, 1:]
+                logits = logits[:, :-1]
+            else:
+                targets = self._on_mesh(batch["labels"].to(self.device))
+            ce = cross_entropy_loss(logits, targets, torch.ones_like(targets))
+            if aux is None:
+                return ce
+            return ce + self.cfg.moe.router_aux_weight * aux
 
     def init_decode_state(self, batch: int, max_seq: int) -> list:
         """One state per layer, of its kind: a zeroed KV cache (a ring of

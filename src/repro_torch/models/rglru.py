@@ -8,6 +8,10 @@ hand-written CUDA kernel on the card, its plain version on the CPU. The
 reference runs ``jax.lax.associative_scan`` there and one elementwise step
 at decode. Under grad the recurrence is differentiable through its
 backward kernel (``rg_lru_bwd.cu``), with or without a state.
+
+On a mesh the channels (``rnn``) lie over the model axis: the causal conv
+and the recurrence run on each rank's own channels
+(``launch.mesh.kernel_call``), the gates' products as DTensor operators.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rg_lru.ops import rg_lru_op
+from ..launch.mesh import is_dtensor, kernel_call
 from .blocks import truncated_normal
 
 _C = 8.0
@@ -60,6 +65,55 @@ def init_rglru(cfg, generator: torch.Generator, dtype=torch.float32,
     }
 
 
+def rglru_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/rglru.py:57 rglru_axes``."""
+    return {
+        "w_in": ("embed", "rnn"),
+        "w_gate": ("embed", "rnn"),
+        "w_out": ("rnn", "embed"),
+        "conv_w": (None, "rnn"),
+        "w_r": ("rnn", "rnn_in"),
+        "w_i": ("rnn", "rnn_in"),
+        "b_r": ("rnn",),
+        "b_i": ("rnn",),
+        "lam": ("rnn",),
+    }
+
+
+def channel_placements(x, channels: int, channel_dim: int) -> list:
+    """Placements of a DTensor whose dimension ``channel_dim`` holds
+    ``channels`` recurrent channels: rows as ``x`` has them over the data
+    axes, the channels over a model axis of several ranks where they
+    divide it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    out = []
+    for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if name == "model":
+            n = mesh.size(i)
+            out.append(Shard(channel_dim) if n > 1 and channels % n == 0 else Replicate())
+        else:
+            out.append(Shard(0) if pl.is_shard(0) else Replicate())
+    return out
+
+
+def weight_placements(acts: list, dim: int, grad: bool = False) -> list:
+    """A weight's placements beside activations placed ``acts``: its
+    dimension ``dim`` over the model axis where the activations' channels
+    are, replicated over the data axes; ``grad`` gives its gradient's,
+    a partial sum over the data axes where the rows are sharded."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    out = []
+    for pl in acts:
+        if pl.is_shard(0):
+            out.append(Partial() if grad else Replicate())
+        else:
+            out.append(Shard(dim) if pl.is_shard() else Replicate())
+    return out
+
+
 def _gates(p, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The decay a and the gated input b of the recurrence, fp32.
     Counterpart of ``repro/models/rglru.py:71 _gates``."""
@@ -78,7 +132,15 @@ def rglru_scan(p, u: torch.Tensor, h0: torch.Tensor | None = None
     ``repro/models/rglru.py:82 rglru_scan`` and, at s = 1, of
     ``rglru_step`` (:98)."""
     a, b = _gates(p, u)
-    h, last = rg_lru_op(a, b, h0)
+    if is_dtensor(a):
+        if h0 is not None:
+            raise NotImplementedError("rglru_scan: a recurrent state on a mesh; decode on one "
+                                      "device (ROADMAP.md Queue 1 item 6.4)")
+        pl = channel_placements(a, a.shape[-1], 2)
+        last_pl = channel_placements(a, a.shape[-1], 1)
+        h, last = kernel_call(rg_lru_op, (a, b, None), (pl, pl, None), (pl, last_pl))
+    else:
+        h, last = rg_lru_op(a, b, h0)
     return h.to(u.dtype), last
 
 
@@ -106,7 +168,18 @@ def apply_rglru_mix(p, x: torch.Tensor, cfg, state: RGLRUState | None = None
     of ``repro/models/rglru.py:119 apply_rglru_mix``."""
     u = x @ p["w_in"]
     g = x @ p["w_gate"]
-    if state is None:
+    if is_dtensor(u):
+        if state is not None:
+            raise NotImplementedError("apply_rglru_mix: a recurrent state on a mesh; decode "
+                                      "on one device (ROADMAP.md Queue 1 item 6.4)")
+        pl = channel_placements(u, u.shape[-1], 2)
+        w_pl = weight_placements(pl, 1)
+        conv = kernel_call(lambda uu, w: _causal_conv({"conv_w": w}, uu)[0],
+                           (u, p["conv_w"]), (pl, w_pl), pl,
+                           in_grad=(pl, weight_placements(pl, 1, grad=True)))
+        h, _ = rglru_scan(p, conv)
+        new_state = None
+    elif state is None:
         u, _ = _causal_conv(p, u)
         h, _ = rglru_scan(p, u)
         new_state = None

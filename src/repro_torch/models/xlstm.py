@@ -10,6 +10,10 @@ chunkwise form that the reference takes from 128 tokens on (its per-step
 either). The sLSTM has no
 kernel in the reference either: its step is PyTorch operators in a Python
 loop over time.
+
+On a mesh the mLSTM's heads lie over the model axis and its recurrence
+runs on each rank's own heads (``launch.mesh.kernel_call``); the sLSTM's
+gate split and step are DTensor operators.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mlstm_chunk.ops import mlstm_chunk_op
+from ..launch.mesh import is_dtensor, kernel_call
 from .blocks import truncated_normal
 
 NEG_INF = -1e30
@@ -69,6 +74,19 @@ def init_mlstm(cfg, generator: torch.Generator, dtype=torch.float32,
     }
 
 
+def mlstm_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/xlstm.py:65 mlstm_axes``."""
+    return {
+        "w_up": ("embed", "rnn"),
+        "w_q": ("rnn_in", "rnn"),
+        "w_k": ("rnn_in", "rnn"),
+        "w_v": ("rnn_in", "rnn"),
+        "w_if": ("rnn_in", None),
+        "b_if": (None,),
+        "w_down": ("rnn", "embed"),
+    }
+
+
 def _mlstm_inputs(p, x: torch.Tensor, cfg):
     """q, k (divided by √dh), v ``(b, s, H, dh)``, the gate pre-activations
     i and f ``(b, s, H)`` in fp32, and the output gate's input z.
@@ -100,7 +118,16 @@ def mlstm_scan(p, x: torch.Tensor, cfg, state: MLSTMState | None = None
     # the recurrence in fp32, as the reference casts q, k and v
     # (repro/models/xlstm.py:92, :154)
     q, k, v = q.float(), k.float(), v.float()
-    hs, c, n, m = mlstm_chunk_op(q, k, v, i_t, f_t, state.c, state.n, state.m)
+    if is_dtensor(q):
+        from .attention import head_placements
+
+        qp = head_placements(q, cfg.n_heads, cfg.n_heads)  # (b, s, H, dh): heads dim 2
+        gp = qp  # (b, s, H)
+        sp = head_placements(q, cfg.n_heads, cfg.n_heads, head_dim=1)  # (b, H, ...)
+        hs, c, n, m = kernel_call(mlstm_chunk_op, (q, k, v, i_t, f_t, *state),
+                                  (qp, qp, qp, gp, gp, sp, sp, sp), (qp, sp, sp, sp))
+    else:
+        hs, c, n, m = mlstm_chunk_op(q, k, v, i_t, f_t, state.c, state.n, state.m)
     hs = hs.reshape(b, s, -1).to(x.dtype)
     y = (hs * F.silu(z.float()).to(x.dtype)) @ p["w_down"]
     return y, MLSTMState(c, n, m)
@@ -138,12 +165,24 @@ def init_slstm(cfg, generator: torch.Generator, dtype=torch.float32,
     }
 
 
+def slstm_axes(cfg) -> dict[str, tuple]:
+    """Copy of ``repro/models/xlstm.py:224 slstm_axes``."""
+    return {
+        "w": ("embed", "rnn"),
+        "r": ("rnn_in", "rnn"),
+        "b": ("rnn",),
+        "w_down": ("rnn", "embed"),
+    }
+
+
 def _slstm_step(r: torch.Tensor, state: SLSTMState, wx_t: torch.Tensor) -> SLSTMState:
     """Counterpart of the step of ``repro/models/xlstm.py:236
     _slstm_step_factory``."""
     pre = wx_t.float() + state.h @ r
     i_t, f_t, z_t, o_t = torch.chunk(pre, 4, dim=-1)
-    f_log = F.logsigmoid(f_t)
+    # log σ(f) = −softplus(−f): DTensor has no rule for logsigmoid's
+    # backward, softplus's it has
+    f_log = -F.softplus(-f_t) if is_dtensor(f_t) else F.logsigmoid(f_t)
     m_new = torch.maximum(f_log + state.m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(f_log + state.m - m_new)

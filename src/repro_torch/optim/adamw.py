@@ -20,6 +20,11 @@ The ``torch._foreach_*`` calls do one operation each, so they round as the
 reference's separate operations do; ``update_`` makes the same calls on
 one-tensor lists, in the same order, so its results are ``update``'s bit
 for bit.
+
+Over DTensors (a model on a mesh) both update each rank's local shards of
+the parameters, gradients (already placed as their parameters) and
+moments with the same operations, and the global norm sums every leaf's
+squares over its shards, so each element gets the one-device update.
 """
 
 from __future__ import annotations
@@ -54,10 +59,8 @@ class AdamW:
         device = next(iter(params.values())).device
         return AdamWState(
             count=torch.zeros((), dtype=torch.int32, device=device),
-            m={k: torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
-               for k, p in params.items()},
-            v={k: torch.zeros(p.shape, dtype=self.moment_dtype, device=p.device)
-               for k, p in params.items()},
+            m={k: torch.zeros_like(p, dtype=self.moment_dtype) for k, p in params.items()},
+            v={k: torch.zeros_like(p, dtype=self.moment_dtype) for k, p in params.items()},
         )
 
     def _lr(self, count: torch.Tensor) -> torch.Tensor:
@@ -69,8 +72,11 @@ class AdamW:
         """-> (new params, new state, the gradients' global norm before
         clipping, fp32 0-d)."""
         keys = list(params)
+        gnorm = global_norm([grads[k] for k in keys])
+        shards = _Shards(params)
+        params, grads = shards.local(params), shards.local(grads)
+        state = AdamWState(state.count, shards.local(state.m), shards.local(state.v))
         g = [grads[k].float() for k in keys]
-        gnorm = global_norm(g)
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
             g = torch._foreach_mul(g, scale)
@@ -94,7 +100,9 @@ class AdamW:
             torch._foreach_mul(p32, self.weight_decay))
         new = torch._foreach_sub(p32, torch._foreach_mul(step, lr))
         new_params = {k: t.to(params[k].dtype) for k, t in zip(keys, new)}
-        return new_params, AdamWState(count, dict(zip(keys, m)), dict(zip(keys, v))), gnorm
+        return (shards.wrap(new_params),
+                AdamWState(count, shards.wrap(dict(zip(keys, m))), shards.wrap(dict(zip(keys, v)))),
+                gnorm)
 
     def update_(self, grads: dict[str, torch.Tensor], state: AdamWState,
                 params: Tree) -> torch.Tensor:
@@ -108,6 +116,12 @@ class AdamW:
         rounds them."""
         keys = list(params)
         gnorm = global_norm([grads[k] for k in keys])
+        shards = _Shards(params)
+        params, local = shards.local(params), shards.local(grads)
+        if local is not grads:  # consumed: the local dict holds them now
+            grads.clear()
+            grads = local
+        state = AdamWState(state.count, shards.local(state.m), shards.local(state.v))
         scale = None
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -146,10 +160,45 @@ class AdamW:
         return gnorm
 
 
+class _Shards:
+    """The local shards of a tree whose leaves may be DTensors, and the
+    way back: ``local`` gives each DTensor leaf's local tensor (the same
+    storage, so in-place updates reach the DTensor), ``wrap`` makes new
+    local tensors DTensors placed as the leaves were."""
+
+    def __init__(self, like: Tree):
+        from torch.distributed.tensor import DTensor
+
+        self._like = {k: t for k, t in like.items() if isinstance(t, DTensor)}
+
+    def local(self, tree: Tree):
+        """``tree`` itself when no leaf is a DTensor, else a new dict."""
+        if not self._like:
+            return tree
+        return {k: t.to_local() if k in self._like else t for k, t in tree.items()}
+
+    def wrap(self, tree: Tree):
+        if not self._like:
+            return tree
+        from torch.distributed.tensor import DTensor
+
+        out = {}
+        for k, t in tree.items():
+            d = self._like.get(k)
+            out[k] = t if d is None else DTensor.from_local(
+                t, d.device_mesh, d.placements, shape=d.shape, stride=d.stride())
+        return out
+
+
 def global_norm(tree: Tree | list[torch.Tensor]) -> torch.Tensor:
-    """√(Σ over every leaf of Σ leaf²), fp32 0-d."""
+    """√(Σ over every leaf of Σ leaf²), fp32 0-d. A DTensor leaf's sum of
+    squares is its shards' summed over the mesh (a plain value on every
+    rank)."""
+    from torch.distributed.tensor import DTensor
+
     leaves = list(tree.values()) if isinstance(tree, Mapping) else list(tree)
     sums = [torch.sum(torch.square(leaf.float())) for leaf in leaves]
+    sums = [s.full_tensor() if isinstance(s, DTensor) else s for s in sums]
     return torch.sqrt(torch.stack(sums).sum())
 
 

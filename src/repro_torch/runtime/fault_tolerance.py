@@ -6,8 +6,10 @@ construction from the latest committed checkpoint, with ``init_state`` as
 the donor of the tree's structure, and restores onto the device of the
 parameters ``init_state`` makes (the model's). ``run`` beats the
 heartbeat, records each step's metrics as floats, saves every
-``save_every`` steps and once at the end. The reference's ``shardings``
-has no counterpart on one card.
+``save_every`` steps and once at the end. ``shardings`` (a tree of
+``NamedSharding`` of the ``(params, opt_state)`` structure, None for a leaf
+kept whole) restores onto a mesh, as the reference's does; the saves of a
+tree of DTensors write whole tensors from rank 0 (``Checkpointer.save``).
 
 The remote data plane's workers import ``Heartbeat`` from here, and under
 a host backend they never import torch: so this module imports torch and
@@ -86,6 +88,7 @@ class TrainController:
         *,
         save_every: int = 50,
         keep: int = 3,
+        shardings: Any | None = None,
         heartbeat: Heartbeat | None = None,
     ):
         from ..checkpoint.checkpointer import Checkpointer
@@ -94,6 +97,7 @@ class TrainController:
         self.train_step = train_step
         self.save_every = save_every
         self.heartbeat = heartbeat
+        self.shardings = shardings
 
         params, opt_state = init_state()  # the start, or the structure donor
         latest = self.ckpt.latest()
@@ -103,7 +107,9 @@ class TrainController:
             self.resumed = False
         else:
             (self.params, self.opt_state), extra = self.ckpt.restore(
-                (params, opt_state), latest, device=_device_of(params))
+                (params, opt_state), latest,
+                device=None if shardings is not None else _device_of(params),
+                shardings=shardings)
             self.step = int(extra.get("step", latest))
             self.resumed = True
 

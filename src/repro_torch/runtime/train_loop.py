@@ -11,10 +11,20 @@ with the given ``{path: tensor}`` in place of its own parameters, through
 that sums fp32 gradients and divides by the count, as the reference's scan
 body does. The config's ``loss_scale``, which the reference declares and
 never reads, is left out.
+
+Over DTensor parameters (an ``LM`` on a mesh) the step is the reference's
+under ``pjit``: the loss is the mean over the global batch, each gradient
+is redistributed to its parameter's placements (a parameter replicated
+over the data axes gets the sum of the ranks' partial gradients, each of
+which is already divided by the global count), the global-norm clip sums
+over every shard and AdamW updates each rank's local shards. Microbatches
+split each rank's own rows, so microbatch i is every rank's i-th part; the
+step's mean loss and gradient are the global batch's either way.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
@@ -33,12 +43,24 @@ class TrainStepConfig:
 
 
 def split_microbatches(batch: Mapping[str, torch.Tensor], n: int) -> list[dict]:
-    """(B, ...) -> n batches of (B/n, ...) on every leaf."""
+    """(B, ...) -> n batches of (B/n, ...) on every leaf; a DTensor leaf
+    splits each rank's own rows, placed as the leaf."""
+    from torch.distributed.tensor import DTensor
+
     out: list[dict] = [{} for _ in range(n)]
     for k, x in batch.items():
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by microbatches {n}")
+        if isinstance(x, DTensor):
+            loc = x.to_local()
+            shape = (b // n, *x.shape[1:])
+            for i, part in enumerate(loc.reshape(n, loc.shape[0] // n, *loc.shape[1:])
+                                     .unbind(0)):
+                out[i][k] = DTensor.from_local(part.contiguous(), x.device_mesh, x.placements,
+                                               shape=shape,
+                                               stride=torch.empty(shape, device="meta").stride())
+            continue
         for i, part in enumerate(x.reshape(n, b // n, *x.shape[1:]).unbind(0)):
             out[i][k] = part
     return out
@@ -71,11 +93,12 @@ def make_input_pipeline(
     step in ``feed.step(batch)``. PyTorch has no buffer donation, so
     ``donate`` donates nothing: it is the feed's guard that marks a stepped
     batch consumed, as the reference's donated buffers are. ``sharding``
-    is refused. Copy of ``repro/runtime/train_loop.py:39``."""
-    from ..core.async_loader import AsyncLoader, refuse_sharding
+    (a ``distributed.sharding.NamedSharding``) makes each rank copy its own
+    rows of every batch and yields DTensors. Copy of
+    ``repro/runtime/train_loop.py:39``."""
+    from ..core.async_loader import AsyncLoader
     from ..device import resolve
 
-    refuse_sharding(sharding)
     target = resolve(dataset._resolve_device(device))
     batches = dataset.iter_batches(epochs=epochs, stats=stats, device=device)
     if overlap or profiler is not None:
@@ -88,8 +111,9 @@ def make_input_pipeline(
             donate=donate,
             profiler=profiler,
             device=target,
+            sharding=sharding,
         )
-    return AsyncLoader(batches, prefetch=prefetch, device=target)
+    return AsyncLoader(batches, prefetch=prefetch, sharding=sharding, device=target)
 
 
 class _Loss(nn.Module):
@@ -129,13 +153,39 @@ def value_and_grad(loss_fn: Callable[[Params, dict], torch.Tensor]):
     parameter (zeros where the loss does not reach it)."""
     def fn(params: Params, batch):
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), _replicate_plain(leaves):
             loss = loss_fn(leaves, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                               for (k, p), g in zip(leaves.items(), grads)}
+        grads = {k: torch.zeros_like(p) if g is None else _placed_as(g, p)
+                 for (k, p), g in zip(leaves.items(), grads)}
+        from ..distributed.sharding import full_value
+
+        return full_value(loss.detach()), grads
 
     return fn
+
+
+def _replicate_plain(params: Params):
+    """Over DTensor parameters, a scope in which DTensor operators take a
+    plain tensor (a position table, a constant the forward saved for the
+    backward) as a replicated value; else no scope."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(p, DTensor) for p in params.values()):
+        return contextlib.nullcontext()
+    from ..launch.mesh import replicate_plain
+
+    return replicate_plain()
+
+
+def _placed_as(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements (a
+    partial sum over the data axes becomes the sum); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(param, DTensor) and grad.placements != param.placements:
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
 
 
 def make_train_step(
@@ -167,8 +217,7 @@ def make_train_step(
             loss, grads = grads_of(params, batch)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+            grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
             for mb in split_microbatches(batch, n):
                 mb_loss, mb_grads = grads_of(params, mb)
                 grads = {k: a + mb_grads[k].float() for k, a in grads.items()}

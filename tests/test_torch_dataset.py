@@ -306,8 +306,27 @@ def test_without_a_card_nothing_runs_unless_the_cpu_is_named(corpus, monkeypatch
         streamed.device_batches()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         make_input_pipeline(streamed.backend("loops"))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        streamed.device_batches(device="cpu", sharding=object())
+    # a sharded feed on a one-rank mesh: DTensors with every row on the rank
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    mesh = make_host_mesh(1, device="cpu")
+    try:
+        sharded = list(streamed.device_batches(device="cpu",
+                                               sharding=NamedSharding(mesh, P("data"))))
+    finally:
+        destroy_process_group()
+    whole = list(streamed.device_batches(device="cpu"))
+    assert len(sharded) == len(whole) > 0
+    for got, want in zip(sharded, whole):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert isinstance(got[k], DTensor)
+            # one rank holds every row: its mesh dimensions replicate
+            assert got[k].placements == (Replicate(), Replicate())
+            assert torch.equal(got[k].to_local(), want[k])
 
 
 def test_device_batches_copy_the_host_batches(corpus):

@@ -336,10 +336,31 @@ def test_snapped_batches_copied_to_the_cpu_device():
 
 
 def test_feed_and_loader_refuse_sharding_and_default_to_the_card():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        PDP.DeviceFeed(iter([]), sharding="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        AsyncLoader(iter([]), sharding="data", device="cpu")
+    """With a sharding on a one-rank mesh the feed and the loader copy
+    every row to the rank and yield DTensors (the multi-rank case is
+    ``tests/test_torch_mesh.py``'s); without a card neither defaults to the
+    CPU."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    batches = [{"x": np.arange(12, dtype=np.int32).reshape(4, 3) + 100 * i} for i in range(3)]
+    mesh = make_host_mesh(1, device="cpu")
+    try:
+        sharding = NamedSharding(mesh, P("data"))
+        feed = PDP.DeviceFeed(iter(batches), sharding=sharding, device="cpu", prefetch=1)
+        fed = [b["x"] for b in feed]
+        loaded = [b["x"] for b in AsyncLoader(iter(batches), sharding=sharding, device="cpu")]
+    finally:
+        destroy_process_group()
+    for got in (fed, loaded):
+        assert len(got) == len(batches)
+        for t, want in zip(got, batches):
+            # one rank holds every row: its mesh dimensions replicate
+            assert isinstance(t, DTensor) and t.placements == (Replicate(), Replicate())
+            assert t.shape == want["x"].shape
+            np.testing.assert_array_equal(t.to_local().numpy(), want["x"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             PDP.DeviceFeed(iter([]))

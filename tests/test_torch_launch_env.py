@@ -1,9 +1,9 @@
 """The port's tuned launch environment (``repro_torch.launch.env``): the
-counterparts of the seven tests of ``tests/test_launch_env.py`` that do
-not concern XLA flags, the refusal of a host device count (the three
-XLA-flag tests wait for the port's mesh, ROADMAP.md Queue 1 item 6.4),
-the reference's values for the variables both set, and the CLI's exports
-and exec."""
+counterparts of the ten tests of ``tests/test_launch_env.py`` (a host
+device count is a world of local ranks here, ``WORLD_SIZE``; the flag
+merge is the reference's string function), the reference's values for the
+variables both set, and the CLI's exports, exec, and ``--devices N``
+running N ranks."""
 
 import os
 import subprocess
@@ -85,11 +85,58 @@ def test_main_prints_exports(capsys, tmp_path, monkeypatch):
     assert "TF_CPP_MIN_LOG_LEVEL" not in out and "XLA_FLAGS" not in out
 
 
-def test_a_host_device_count_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6.4"):
-        launch_env.tuned_env(8)
-    with pytest.raises(SystemExit, match="Queue 1 item 6.4"):
-        launch_env.main(["--devices", "16"])
+def test_tuned_env_baseline_flags():
+    """``tests/test_launch_env.py:10``: no device pin unless asked for."""
+    e = launch_env.tuned_env(tcmalloc=False)
+    assert "WORLD_SIZE" not in e and "XLA_FLAGS" not in e and "LD_PRELOAD" not in e
+
+
+def test_host_device_count_pins_the_world():
+    """``tests/test_launch_env.py:18``: N host devices are N local ranks."""
+    e = launch_env.tuned_env(8, tcmalloc=False)
+    assert e == {"WORLD_SIZE": "8"}
+    assert ref_env.tuned_env(8, tcmalloc=False, base={})["XLA_FLAGS"] == \
+        "--xla_force_host_platform_device_count=8"
+    with pytest.raises(ValueError, match="host_device_count"):
+        launch_env.tuned_env(0, tcmalloc=False)
+
+
+@pytest.mark.parametrize("existing, flags", [
+    ("--xla_step_marker_location=1 --xla_force_host_platform_device_count=2",
+     ("--xla_force_host_platform_device_count=48",)),
+    ("", ("--a=1", "--b=2")),
+    ("--a=1 --b=2 --c", ("--b=3",)),
+])
+def test_xla_flags_merge_preserves_and_overrides(existing, flags):
+    """``tests/test_launch_env.py:25``: the reference's string function."""
+    merged = launch_env.merge_xla_flags(existing, *flags)
+    assert merged == ref_env.merge_xla_flags(existing, *flags)
+    toks = merged.split()
+    assert all(f in toks for f in flags)
+
+
+def test_tuned_env_merges_existing_xla_flags():
+    """``tests/test_launch_env.py:36``: the merge keeps other flags and the
+    new pin wins; the port's pin is the world size, which ``apply`` leaves
+    to a value the user exported."""
+    assert launch_env.merge_xla_flags(
+        "--xla_step_marker_location=1", "--xla_force_host_platform_device_count=4") == \
+        "--xla_step_marker_location=1 --xla_force_host_platform_device_count=4"
+    assert launch_env.tuned_env(4, tcmalloc=False)["WORLD_SIZE"] == "4"
+
+
+def test_devices_runs_the_command_as_ranks():
+    """``--devices 2 -- python -c ...`` runs two ranks of the command, each
+    with its rank and the world size; without a command the exports give
+    the world."""
+    code = ("import os; print('rank', os.environ['RANK'], os.environ['WORLD_SIZE'], "
+            "os.environ['LOCAL_RANK'])")
+    proc = run_cli("--no-tcmalloc", "--devices", "2", "--", sys.executable, "-c", code)
+    assert proc.returncode == 0, proc.stderr
+    ranks = sorted(line for line in proc.stdout.splitlines() if line.startswith("rank"))
+    assert ranks == ["rank 0 2 0", "rank 1 2 1"]
+    proc = run_cli("--no-tcmalloc", "--devices", "3")
+    assert proc.returncode == 0 and proc.stdout == "export WORLD_SIZE=3\n"
 
 
 def run_cli(*args: str) -> subprocess.CompletedProcess:
@@ -106,4 +153,4 @@ def test_the_cli_exports_and_execs():
     assert proc.returncode == 0, proc.stderr
     lib = launch_env.find_tcmalloc()
     assert proc.stdout.strip() == (launch_env.TCMALLOC_REPORT_THRESHOLD if lib else "None")
-    assert run_cli("--devices", "2").returncode != 0
+    assert run_cli("--devices", "0").returncode != 0  # no world of no ranks

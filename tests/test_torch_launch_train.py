@@ -88,9 +88,49 @@ def test_main_trains_then_resumes_from_its_checkpoint(tmp_path, capsys, monkeypa
 
 
 def test_one_card_flags_raise():
-    for flags in (["--model-parallel", "2"], ["--production-mesh"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            train.main(["--smoke", "--device", "cpu", *flags])
+    """On one rank ``--model-parallel 2`` does not divide the world and the
+    production mesh needs 256 ranks: each raises with the count it found
+    (the mesh itself runs in ``test_the_launcher_trains_over_four_ranks``)."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="world of 1 rank"):
+        train.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
+        train.main(["--smoke", "--device", "cpu", "--production-mesh"])
+    assert not dist.is_initialized()  # the launcher left the group it joined
+
+
+def test_the_launcher_trains_over_four_ranks(tmp_path):
+    """``python -m repro_torch.launch.env --devices 4 -- python -m
+    repro_torch.launch.train --smoke --device cpu --model-parallel 2``: four
+    ranks on a (2, 2) mesh, the history printed by rank 0 alone, the loss
+    falling."""
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.env", "--devices", "4", "--no-tcmalloc",
+           "--", sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--device",
+           "cpu", "--model-parallel", "2", "--steps", "3", "--corpus-mb", "0.2", "--ckpt",
+           str(tmp_path / "ckpt")]
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, err[-6000:]
+    assert "mesh={'data': 2, 'model': 2}" in out
+    losses = [float(line.split("loss=")[1].split()[0]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 3, out  # one history, rank 0's
+    assert losses[-1] < losses[0]
+    assert (tmp_path / "ckpt" / "step_0000000003" / "manifest.json").exists()
 
 
 def test_the_card_is_the_default_device(monkeypatch):

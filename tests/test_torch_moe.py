@@ -163,5 +163,25 @@ def test_apply_moe_gradients_match_jax_vjp(layer, impl):
 
 
 def test_apply_moe_refuses_a_mesh(layer):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        M.apply_moe(layer["tp"], torch.from_numpy(layer["x"]), layer["cfg"], model_axis="model")
+    """On a one-rank mesh ``apply_moe`` takes the local path, as the
+    reference's ``use_ep`` does at model axis 1: the local path's values on
+    DTensors (the expert-parallel path is ``tests/test_torch_moe_ep.py``'s)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    cfg, x = layer["cfg"], torch.from_numpy(layer["x"])
+    want_y, want_aux = M.apply_moe(layer["tp"], x, cfg)
+    mesh = make_host_mesh(1, device="cpu")
+    try:
+        rep = [Replicate(), Replicate()]
+        tree = {k: ({kk: DTensor.from_local(vv, mesh, rep) for kk, vv in v.items()}
+                    if isinstance(v, dict) else DTensor.from_local(v, mesh, rep))
+                for k, v in layer["tp"].items()}
+        y, aux = M.apply_moe(tree, DTensor.from_local(x, mesh, rep), cfg, mesh=mesh,
+                             data_axes=("data",), model_axis="model")
+        y, aux = y.full_tensor(), aux.full_tensor()
+    finally:
+        destroy_process_group()
+    torch.testing.assert_close(y, want_y, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(aux, want_aux, rtol=2e-6, atol=2e-6)
