@@ -45,15 +45,19 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get, get_smoke
+from ..core.async_loader import put_sharded
 from ..core.dataset import Dataset
 from ..core.expr import abstract_expr, col, title_expr
 from ..data.synthetic import write_corpus
+from ..distributed.sharding import NamedSharding, batch_spec, data_axis_names
 from ..models.lm import LM, MeshContext
 from ..optim.adamw import AdamW, AdamWState, warmup_cosine
 from ..runtime.fault_tolerance import TrainController
 from ..runtime.train_loop import TrainStepConfig, functional_loss, make_train_step, params_of
+from .mesh import destroy_process_group, make_host_mesh, make_production_mesh
 
 
 def build_dataset(cfg, seq_len: int, corpus_mb: float, seed: int, device=None) -> np.ndarray:
@@ -123,95 +127,71 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     meshed = (args.model_parallel > 1 or args.production_mesh
               or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    owned = meshed and not dist.is_initialized()  # a group this call joins, it leaves
+    try:
+        return _train(args, cfg, meshed)
+    finally:
+        if owned:
+            destroy_process_group()
+
+
+def _train(args, cfg, meshed: bool) -> list[dict]:
+    """``main``'s run, off the mesh or, when ``meshed``, over the
+    reference's mesh (``repro/launch/train.py:86-116``) on every rank of
+    the process group."""
+    mesh = None
     if meshed:
-        return _train_on_mesh(args, cfg)
+        mesh = (make_production_mesh(device=args.device) if args.production_mesh
+                else make_host_mesh(args.model_parallel, device=args.device))
+    rank = dist.get_rank() if meshed else 0
     device = torch.device(args.device)
-    print(f"arch={cfg.name} device={device} params~{cfg.param_count() / 1e6:.1f}M")
+    if meshed and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if rank == 0:
+        where = (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}" if meshed
+                 else f"device={device}")
+        print(f"arch={cfg.name} {where} params~{cfg.param_count() / 1e6:.1f}M")
 
     seqs = build_dataset(cfg, args.seq_len, args.corpus_mb, seed=0, device=device)
-    model = LM(cfg, device, remat=True, dtype=torch.float32)
+    mctx = MeshContext(mesh, data_axis_names(mesh), "model") if meshed else None
+    model = LM(cfg, device, mctx=mctx, remat=True, dtype=torch.float32)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 10, args.steps))
     step = train_step_of(model, opt, args.microbatches)
 
     def init_state():
         params = params_of(model)
+        if meshed:
+            params = model.distribute_params(params)
         return params, opt.init(params)
 
-    ckpt = args.ckpt or tempfile.mkdtemp(prefix="p3sapp_ckpt_")
-    controller = TrainController(ckpt, step, init_state, save_every=args.save_every)
-    if controller.resumed:
+    ckpt = args.ckpt or (tempfile.mkdtemp(prefix="p3sapp_ckpt_") if rank == 0 else None)
+    shardings = None
+    if meshed:  # every rank checkpoints into rank 0's directory
+        ckpt = [ckpt]
+        dist.broadcast_object_list(ckpt, src=0)
+        ckpt = ckpt[0]
+        placed = model.param_shardings()
+        shardings = (placed, AdamWState(None, placed, placed))
+    controller = TrainController(ckpt, step, init_state, save_every=args.save_every,
+                                 shardings=shardings)
+    if controller.resumed and rank == 0:
         print(f"resumed from step {controller.step}")
+    bsh = NamedSharding(mesh, batch_spec(mesh, args.batch)) if meshed else None
     rng = np.random.default_rng(controller.step)
 
     def stream():
         while True:
             idx = rng.integers(0, len(seqs), size=args.batch)
-            yield {"tokens": torch.from_numpy(seqs[idx]).to(device)}
+            rows = seqs[idx]
+            yield {"tokens": put_sharded(rows, bsh, device) if meshed
+                   else torch.from_numpy(rows).to(device)}
 
     history = controller.run(stream(), n_steps=args.steps)
-    _report(history, controller, ckpt)
+    if rank == 0:
+        for h in history[:: max(len(history) // 6, 1)]:
+            print(f"step {h['step']:5d} loss={h['loss']:.4f} gnorm={h['grad_norm']:.3f}")
+        print(f"final checkpoint at step {controller.step} in {ckpt}")
     return history
-
-
-def _report(history, controller, ckpt) -> None:
-    for h in history[:: max(len(history) // 6, 1)]:
-        print(f"step {h['step']:5d} loss={h['loss']:.4f} gnorm={h['grad_norm']:.3f}")
-    print(f"final checkpoint at step {controller.step} in {ckpt}")
-
-
-def _train_on_mesh(args, cfg) -> list[dict]:
-    """``main`` over the reference's mesh (``repro/launch/train.py:86-116``),
-    on every rank of the process group."""
-    import torch.distributed as dist
-
-    from ..core.async_loader import put_sharded
-    from ..distributed.sharding import NamedSharding, batch_spec, data_axis_names
-    from .mesh import destroy_process_group, make_host_mesh, make_production_mesh
-
-    owned = not dist.is_initialized()  # a group this call joins, it leaves
-    try:
-        mesh = (make_production_mesh(device=args.device) if args.production_mesh
-                else make_host_mesh(args.model_parallel, device=args.device))
-        rank = dist.get_rank()
-        device = torch.device(args.device, torch.cuda.current_device()) \
-            if torch.device(args.device).type == "cuda" else torch.device(args.device)
-        if rank == 0:
-            print(f"arch={cfg.name} mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-                  f"params~{cfg.param_count() / 1e6:.1f}M")
-        seqs = build_dataset(cfg, args.seq_len, args.corpus_mb, seed=0, device=device)
-        mctx = MeshContext(mesh, data_axis_names(mesh), "model")
-        model = LM(cfg, device, mctx=mctx, remat=True, dtype=torch.float32)
-        opt = AdamW(learning_rate=warmup_cosine(args.lr, 10, args.steps))
-        step = train_step_of(model, opt, args.microbatches)
-        shardings = model.param_shardings()
-
-        def init_state():
-            params = model.distribute_params(params_of(model))
-            return params, opt.init(params)
-
-        ckpt = [args.ckpt or (tempfile.mkdtemp(prefix="p3sapp_ckpt_") if rank == 0 else None)]
-        dist.broadcast_object_list(ckpt, src=0)
-        ckpt = ckpt[0]
-        controller = TrainController(
-            ckpt, step, init_state, save_every=args.save_every,
-            shardings=(shardings, AdamWState(None, shardings, shardings)))
-        if controller.resumed and rank == 0:
-            print(f"resumed from step {controller.step}")
-        bsh = NamedSharding(mesh, batch_spec(mesh, args.batch))
-        rng = np.random.default_rng(controller.step)
-
-        def stream():
-            while True:
-                idx = rng.integers(0, len(seqs), size=args.batch)
-                yield {"tokens": put_sharded(seqs[idx], bsh, device)}
-
-        history = controller.run(stream(), n_steps=args.steps)
-        if rank == 0:
-            _report(history, controller, ckpt)
-        return history
-    finally:
-        if owned:
-            destroy_process_group()
 
 
 if __name__ == "__main__":

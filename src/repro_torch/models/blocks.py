@@ -297,8 +297,9 @@ def _vocab_parallel_nll(logits, targets, mask) -> torch.Tensor:
     """``cross_entropy_loss`` of DTensor logits ``(b, s, V)``, each rank on
     its own rows and vocabulary columns: the row max and Σ exp are reduced
     over the model axis, the gold logit is taken where a rank holds it and
-    summed, and the rows' sum of −log p over the data axes; no rank holds
-    the whole logits. The mean divides by the global count of ``mask``."""
+    summed, and the rows' sum of −log p times ``mask`` over the data axes;
+    no rank holds the whole logits. The mean divides by max(Σmask, 1) over
+    the whole batch, as off the mesh."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     import torch.distributed as dist
@@ -327,14 +328,16 @@ def _vocab_parallel_nll(logits, targets, mask) -> torch.Tensor:
     if not is_dtensor(targets):
         targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim, run_check=False)
     targets = targets.redistribute(mesh, tp)
-    del mask
+    if not is_dtensor(mask):
+        mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    mask = mask.float().redistribute(mesh, tp)
 
-    def local(lg, tg):
+    def local(lg, tg, mk):
         lg = lg.float()
         if group is None:  # every column here: the one-device operations
             logz = torch.logsumexp(lg, dim=-1)
             gold = torch.gather(lg, -1, tg.long()[..., None])[..., 0]
-            return torch.sum(logz - gold)
+            return torch.sum((logz - gold) * mk)
         lo = dist.get_rank(group) * lg.shape[-1]
         m = lg.detach().amax(dim=-1)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
@@ -344,11 +347,11 @@ def _vocab_parallel_nll(logits, targets, mask) -> torch.Tensor:
         held = (t >= 0) & (t < lg.shape[-1])
         gold = torch.gather(lg, -1, torch.clamp(t, 0, lg.shape[-1] - 1)[..., None])[..., 0]
         gold = sum_over_group(torch.where(held, gold, 0.0), group)
-        return torch.sum(logz - gold)
+        return torch.sum((logz - gold) * mk)
 
     from torch.distributed.tensor.experimental import local_map
 
-    total = local_map(local, out_placements=outp, in_placements=(lp, tp),
-                      device_mesh=mesh)(logits, targets)
-    count = max(math.prod(targets.shape), 1)
-    return (total / count).redistribute(mesh, [Replicate()] * mesh.ndim)
+    total = local_map(local, out_placements=outp, in_placements=(lp, tp, tp),
+                      device_mesh=mesh)(logits, targets, mask)
+    count = mask.sum().redistribute(mesh, [Replicate()] * mesh.ndim)
+    return (total / torch.clamp(count, min=1.0)).redistribute(mesh, [Replicate()] * mesh.ndim)

@@ -280,9 +280,16 @@ class LM(nn.Module):
 
     def _block(self, layer, kind, moe, x, positions, cache=None, cache_pos=0):
         """``repro/models/lm.py:118 _apply_block`` -> (x, the new cache or
-        state, the MoE layer's load-balance term or None)."""
+        state, the MoE layer's load-balance term or None). On a mesh the
+        residual leaves each block anchored as the embedding's is
+        (``MeshContext.constrain_batch``): DTensor's propagation may leave a
+        row-parallel product's sum split over the model axis as well, and a
+        vocabulary-sharded head would then gather its whole weight onto
+        every rank."""
         with self.mctx.scope():
-            return self._block_ops(layer, kind, moe, x, positions, cache, cache_pos)
+            x, new_cache, aux = self._block_ops(layer, kind, moe, x, positions, cache,
+                                                cache_pos)
+            return self.mctx.constrain_batch(x), new_cache, aux
 
     def _block_ops(self, layer, kind, moe, x, positions, cache, cache_pos):
         cfg, mctx = self.cfg, self.mctx

@@ -193,12 +193,31 @@ class _Shards:
 def global_norm(tree: Tree | list[torch.Tensor]) -> torch.Tensor:
     """√(Σ over every leaf of Σ leaf²), fp32 0-d. A DTensor leaf's sum of
     squares is its shards' summed over the mesh (a plain value on every
-    rank)."""
-    from torch.distributed.tensor import DTensor
+    rank): the local sums of the leaves split over the same mesh dimensions
+    are stacked and reduced together, one reduction for each such set of
+    dimensions rather than one for each leaf."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     leaves = list(tree.values()) if isinstance(tree, Mapping) else list(tree)
-    sums = [torch.sum(torch.square(leaf.float())) for leaf in leaves]
-    sums = [s.full_tensor() if isinstance(s, DTensor) else s for s in sums]
+    sums: list = [None] * len(leaves)
+    split: dict = {}  # (mesh, sharded mesh dims) -> indices of the leaves
+    for i, leaf in enumerate(leaves):
+        if not isinstance(leaf, DTensor):
+            sums[i] = torch.sum(torch.square(leaf.float()))
+            continue
+        if any(p.is_partial() for p in leaf.placements):  # squares of a sum, not a sum
+            leaf = leaf.redistribute(leaf.device_mesh, [Replicate() if p.is_partial() else p
+                                                        for p in leaf.placements])
+        sums[i] = torch.sum(torch.square(leaf.to_local().float()))
+        dims = tuple(d for d, p in enumerate(leaf.placements) if p.is_shard())
+        if dims:
+            split.setdefault((leaf.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in split.items():
+        partial = [Partial() if d in dims else Replicate() for d in range(mesh.ndim)]
+        total = DTensor.from_local(torch.stack([sums[i] for i in idx]), mesh, partial,
+                                   run_check=False).full_tensor()
+        for j, i in enumerate(idx):
+            sums[i] = total[j]
     return torch.sqrt(torch.stack(sums).sum())
 
 

@@ -8,9 +8,10 @@ rank), at ``capacity_factor`` 8.0 (nothing drops; also equal to
 drop and the same ones must drop (this input's routing fills no shard past
 1.0, so the drops show at 0.5): ``y`` and ``aux`` at 2e-4. This is tighter than the reference's 2e-2 on
 ``aux`` against ``moe_local`` (``tests/test_distributed.py:118``): both
-sides average the same per-shard terms. Besides: ``moe_ep``'s gradients
-against the same function composed on one process from ``moe_local`` per
-data shard; ``apply_moe`` taking ``moe_ep`` on the mesh; and on a ``(4,
+sides average the same per-shard terms. ``moe_ep``'s gradients (of
+Σ y·w + 3·aux, nothing dropped) against ``jax.grad`` through the
+reference's ``moe_ep`` and against the same function composed on one
+process from ``moe_local`` per data shard; ``apply_moe`` taking ``moe_ep`` on the mesh; and on a ``(4,
 1)`` mesh ``apply_moe``'s local path, with the load-balance term of the
 whole batch, against ``moe_local`` over the whole batch."""
 
@@ -116,6 +117,24 @@ for cf in (8.0, 1.0, 0.5):
     yl, auxl = MOE.moe_local(p, x, cfg)
     out[f"{cf}/y"], out[f"{cf}/aux"] = np.asarray(y), np.asarray(aux)
     out[f"{cf}/y_local"], out[f"{cf}/aux_local"] = np.asarray(yl), np.asarray(auxl)
+
+# the gradients of Σ y·w + 3·aux through moe_ep, nothing dropped
+object.__setattr__(cfg.moe, "capacity_factor", 8.0)
+w = jnp.asarray(given["w"])
+keys = ("router", "w_gate", "w_up", "w_down")
+
+
+def objective(pp, x):
+    y, aux = MOE.moe_ep(pp, x, cfg, mesh, ("data",), "model")
+    return jnp.sum(y * w) + 3.0 * aux
+
+
+with set_mesh(mesh):
+    xd = jax.device_put(x, NamedSharding(mesh, P("data", None, None)))
+    g_p, g_x = jax.jit(jax.grad(objective, argnums=(0, 1)))({k: p[k] for k in keys}, xd)
+for k in keys:
+    out[f"grad/{k}"] = np.asarray(g_p[k])
+out["grad/x"] = np.asarray(g_x)
 np.savez(os.path.join(os.environ["OUT"], "jax.npz"), **out)
 """
 
@@ -140,7 +159,7 @@ tree = {"router": plain["router"], "w_gate": plain["w_gate"], "w_up": plain["w_u
         "w_down": plain["w_down"],
         "shared": {k: plain[f"shared/{k}"] for k in ("gate", "up", "down")}}
 x = torch.from_numpy(ref["x"])
-w = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape).astype(np.float32))
+w = torch.from_numpy(ref["w"])
 out = {}
 
 
@@ -207,6 +226,7 @@ def worlds(tmp_path_factory):
     cfg = jax_get_smoke("deepseek_moe_16b")
     given = {"x": np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 8, cfg.d_model)))
              * np.float32(0.5)}
+    given["w"] = np.random.default_rng(3).standard_normal(given["x"].shape).astype(np.float32)
     for k, v in JM.init_moe(jax.random.PRNGKey(0), cfg, jnp.float32).items():
         for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)]):
             given[f"p/{k}" if kk is None else f"p/{k}/{kk}"] = np.asarray(vv)
@@ -264,7 +284,7 @@ def test_moe_ep_gradients_are_the_per_shard_functions(worlds):
     leaves = {k: torch.from_numpy(ref[f"p/{k}"]).requires_grad_(True)
               for k in ("router", "w_gate", "w_up", "w_down")}
     x = torch.from_numpy(ref["x"]).requires_grad_(True)
-    w = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape).astype(np.float32))
+    w = torch.from_numpy(ref["w"])
     ys, auxes = zip(*(M.moe_local(leaves, part, cfg) for part in x.chunk(2)))
     loss = (torch.cat(ys) * w).sum() + 3.0 * torch.stack(auxes).mean()
     loss.backward()
@@ -272,6 +292,17 @@ def test_moe_ep_gradients_are_the_per_shard_functions(worlds):
         for k, t in leaves.items():
             close(got[f"grad/{k}"], t.grad.numpy(), err_msg=k)
         close(got["grad/x"], x.grad.numpy())
+
+
+@pytest.mark.parametrize("leaf", ["router", "w_gate", "w_up", "w_down", "x"])
+def test_moe_ep_gradients_are_the_references(worlds, leaf):
+    """The gradient of Σ y·w + 3·aux through the port's ``moe_ep`` (its
+    1/n_shards on the expert slices' gradients, the data axes' partial
+    sums, the router's and ``x``'s) against ``jax.grad`` through the
+    reference's ``moe_ep`` on the same mesh, on every rank."""
+    ref, ranks = worlds
+    for got in ranks:
+        close(got[f"grad/{leaf}"], ref[f"grad/{leaf}"], err_msg=leaf)
 
 
 def test_apply_moe_on_a_data_only_mesh_is_moe_local_over_the_batch(worlds):
