@@ -5103,9 +5103,17 @@ def dryrun_phase(bf16_line: dict) -> dict:
 # at full width and 2 of its 32 layers, MESH_STEPS donating steps on 8 x 64
 # tokens fed by DeviceFeed(sharding=...); RecurrentGemma-9B and xLSTM-1.3B
 # forwards at SMOKE; one DeepSeek-MoE-16B MoE layer at full width through
-# moe_ep on 4 x 128 tokens; each held to the same work off the mesh.
+# moe_ep on 4 x 128 tokens and on a decode step's 8 x 1; each held to the
+# same work off the mesh. Decoding on the mesh (MESH_DECODES: arch, layers
+# at full width or None for SMOKE, rows, prefill, steps): a block prefill,
+# then greedy one-token steps over the state of init_decode_state on the
+# mesh, bit for bit the same decode off it; RecurrentGemma-9B's SMOKE ring
+# of 16 slots is passed at position 16.
 MESH_LAYERS, MESH_STEPS, MESH_BATCH, MESH_LR = 2, 3, (8, 64), 1e-4
 MESH_FORWARD_BATCH, MESH_MOE_TOKENS, MESH_TOL = (8, 64), (4, 128), 2e-5
+MESH_DECODES = (("stablelm_3b", 2, 8, 64, 16), ("recurrentgemma_9b", None, 4, 12, 8),
+                ("xlstm_1_3b", None, 4, 8, 4))
+MESH_MOE_DECODE_TOKENS = (8, 1)
 
 
 def mesh_held(got, want, what: str) -> float:
@@ -5117,6 +5125,68 @@ def mesh_held(got, want, what: str) -> float:
     if not torch.allclose(got, want, rtol=MESH_TOL, atol=MESH_TOL * scale):
         fail(f"mesh: {what} differs from off the mesh by {err:.3e} (scale {scale:.3e})")
     return err
+
+
+def mesh_decode(mctx, counters, rng, arch: str, layers, rows: int, prefill: int,
+                steps: int) -> dict:
+    """``LM.decode_step`` on the mesh (``functional_decode`` over DTensor
+    parameters, the DTensor state of ``init_decode_state``) against the
+    same decode off it: a block prefill of ``prefill`` tokens, then
+    ``steps`` greedy steps. The logits and tokens must be bit for bit the
+    same, and each layer kind's kernel launched exactly once a layer and
+    call in the mesh decode, counted from 0 around it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.train_loop import functional_decode, params_of
+
+    cfg = dataclasses.replace(get(arch), n_layers=layers) if layers else get_smoke(arch)
+    plain = LM(cfg, "cuda", seed=SEED)
+    meshed = LM(cfg, "cuda", mctx=mctx, seed=SEED)
+    meshed.load_state_dict(plain.state_dict())
+    prompt = torch.from_numpy(rng.integers(4, cfg.vocab_size, (rows, prefill))).cuda()
+
+    def run(step, state):
+        logits, tokens, pos, toks = [], [], 0, prompt
+        for _ in range(steps + 1):
+            out, state = step(toks, state, pos)
+            out = out.full_tensor() if isinstance(out, DTensor) else out
+            pos += toks.shape[1]
+            toks = out[:, -1].argmax(-1, keepdim=True)
+            logits.append(out)
+            tokens.append(toks)
+        return torch.cat(logits, 1), torch.cat(tokens, 1), state
+
+    want, want_tokens, _ = run(plain.decode_step, plain.init_decode_state(rows, prefill + steps))
+    dparams = meshed.distribute_params(params_of(meshed))
+    decode = functional_decode(meshed)
+    zero_counters(counters)
+    t1 = time.perf_counter()
+    got, tokens, state = run(lambda t, st, pos: decode(dparams, t, st, pos),
+                             meshed.init_decode_state(rows, prefill + steps))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    n = {k: counters[k][k] for k in ("flash_attention", "rg_lru", "mlstm_chunk")}
+    kinds = meshed.kinds
+    expect = {"flash_attention": kinds.count("attn") * (steps + 1),
+              "rg_lru": kinds.count("rglru") * (steps + 1),
+              "mlstm_chunk": kinds.count("mlstm") * (steps + 1)}
+    if n != expect or not any(n.values()):
+        fail(f"mesh: {cfg.name}'s decode on the mesh launched {n}, expected {expect}")
+    if not all(isinstance(t, DTensor) for layer in state for t in layer):
+        fail(f"mesh: {cfg.name}'s decode state left the mesh")
+    err = mesh_held(got, want, f"{cfg.name}'s decode logits")
+    bit_equal = torch.equal(got, want) and torch.equal(tokens, want_tokens)
+    if not bit_equal:
+        fail(f"mesh: {cfg.name}'s decode on the mesh is not bit for bit the decode off it "
+             f"(logits err {err:.3e}, tokens equal {torch.equal(tokens, want_tokens)})")
+    del plain, meshed, dparams, state
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "width": "full" if layers else "smoke",
+            "rows": rows, "prefill": prefill, "steps": steps,
+            "window": cfg.window, "launches": {k: v for k, v in n.items() if v},
+            "max_abs_err": err, "bit_equal": bit_equal, "seconds": seconds}
 
 
 def mesh_phase() -> dict:
@@ -5229,6 +5299,9 @@ def mesh_phase() -> dict:
                                      "max_abs_err": err,
                                      "bit_equal": torch.equal(got.full_tensor(), want)})
 
+        # decoding on the mesh, each kernel on the state's local blocks
+        line["decodes"] = [mesh_decode(mctx, counters, rng, *case) for case in MESH_DECODES]
+
         # one DeepSeek-MoE-16B MoE layer at full width through moe_ep
         cfg = get("deepseek_moe_16b")
         g = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -5250,7 +5323,18 @@ def mesh_phase() -> dict:
                           "aux_abs_err": mesh_held(aux, want_aux, "moe_ep's aux"),
                           "bit_equal": torch.equal(y, want_y) and torch.equal(aux, want_aux),
                           "seconds": time.perf_counter() - t1}
-        del p, pd, x, y, want_y
+        # and a decode step's tokens through it: one a row
+        x1 = torch.randn((*MESH_MOE_DECODE_TOKENS, cfg.d_model), generator=g, device="cuda") * 0.5
+        want_y1, want_aux1 = MOE.moe_local(p, x1, cfg)
+        y1, aux1 = MOE.moe_ep(pd, DTensor.from_local(x1, mesh, [Shard(0), Replicate()]), cfg,
+                              mesh, ("data",), "model")
+        y1, aux1 = y1.full_tensor(), aux1.full_tensor()
+        line["moe_ep"]["decode"] = {
+            "tokens": list(MESH_MOE_DECODE_TOKENS),
+            "y_max_abs_err": mesh_held(y1, want_y1, "moe_ep's decode-step y"),
+            "aux_abs_err": mesh_held(aux1, want_aux1, "moe_ep's decode-step aux"),
+            "bit_equal": torch.equal(y1, want_y1) and torch.equal(aux1, want_aux1)}
+        del p, pd, x, y, want_y, x1, y1, want_y1
         torch.cuda.empty_cache()
 
         # the int8 all-reduce over NCCL against compress -> decompress
@@ -5268,12 +5352,12 @@ def mesh_phase() -> dict:
     finally:
         destroy_process_group()
     torch.cuda.empty_cache()
+    runs = line["forwards"] + line["decodes"]
     line["launches"] = {
         "flash_attention": line["stablelm"]["launches"]["flash_attention"]
-        + sum(f["launches"].get("flash_attention", 0) for f in line["forwards"]),
+        + sum(f["launches"].get("flash_attention", 0) for f in runs),
         "flash_attention_bwd": line["stablelm"]["launches"]["flash_attention_bwd"],
-        **{k: sum(f["launches"].get(k, 0) for f in line["forwards"])
-           for k in ("rg_lru", "mlstm_chunk")}}
+        **{k: sum(f["launches"].get(k, 0) for f in runs) for k in ("rg_lru", "mlstm_chunk")}}
     line["phase_seconds"] = time.perf_counter() - t0
     print(f"mesh: {line['stablelm']['arch']} at {MESH_LAYERS} layers, {MESH_STEPS} sharded "
           f"steps on the {line['mesh']} {line['backend']} mesh held to the steps off it "
@@ -5282,8 +5366,13 @@ def mesh_phase() -> dict:
           f"{line['stablelm']['bit_equal']}); forwards "
           + ", ".join(f"{f['arch']} err {f['max_abs_err']:.3e} bit-equal {f['bit_equal']}"
                       for f in line["forwards"])
+          + "; decodes " + ", ".join(
+              f"{d['arch']} ({d['prefill']} + {d['steps']} steps) bit-equal {d['bit_equal']} "
+              f"launches {d['launches']}" for d in line["decodes"])
           + f"; moe_ep y err {line['moe_ep']['y_max_abs_err']:.3e} bit-equal "
-          f"{line['moe_ep']['bit_equal']}; psum_compressed bit-equal; remesh bit-equal; "
+          f"{line['moe_ep']['bit_equal']}, decode step y err "
+          f"{line['moe_ep']['decode']['y_max_abs_err']:.3e}; psum_compressed bit-equal; "
+          f"remesh bit-equal; "
           f"launches {line['launches']}; {line['phase_seconds']:.1f} s")
     return line
 

@@ -21,7 +21,9 @@ build meshes when called; importing this module touches no process group.
 ``kernel_call`` is the port's own: it runs a hand-written kernel's wrapper
 on the local shards of its DTensor arguments, so that the wrapper sees
 plain tensors, keeps its dispatch (the CUDA kernel on a card tensor, the
-plain version on a CPU tensor) and counts its launches.
+plain version on a CPU tensor) and counts its launches. ``write_into``
+writes a new value into a decode state's leaf in place, so that the leaf
+keeps its placement and its storage from step to step.
 """
 
 from __future__ import annotations
@@ -169,3 +171,21 @@ def kernel_call(fn: Callable, args: Sequence, placements: Sequence, out_placemen
         None if a is None else g for a, g in zip(moved, in_grad))
     return shard_map(lambda *xs: fn(*xs, **kwargs), mesh=mesh, in_specs=in_specs,
                      out_specs=out_placements, in_grad_specs=grads)(*moved)
+
+
+def write_into(dst: torch.Tensor, src: torch.Tensor, index=...) -> torch.Tensor:
+    """``src`` written into ``dst[index]`` IN PLACE, in ``dst``'s dtype;
+    returns ``dst``. A DTensor ``dst`` keeps its placements and storage:
+    ``src`` is moved to them and each rank writes its block into its own,
+    so ``index`` indexes the local block and may select only along
+    dimensions that ``dst`` holds whole. Where ``src`` already is ``dst``'s
+    storage (a kernel wrote it in place) nothing is copied."""
+    if is_dtensor(dst):
+        src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+        dst_local = dst.to_local()
+    else:
+        dst_local = dst
+    if index is ... and src.data_ptr() == dst_local.data_ptr() and src.shape == dst_local.shape:
+        return dst
+    dst_local[index] = src.to(dst_local.dtype)
+    return dst

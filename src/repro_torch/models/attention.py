@@ -10,11 +10,17 @@ cache may be the ring of ``_ring_attend``. Under grad a full-sequence
 call is differentiable through the kernel's backward; a call over the
 cache (``q_offset`` or ``kv_len`` set) raises.
 
-On a mesh (DTensor activations and parameters) the full-sequence call
-runs the kernel on each rank's local shard (``launch.mesh.kernel_call``):
-its batch rows over the data axes and whole heads over the model axis
-where the query and key heads both divide it, else every head on every
-model rank. A KV cache is not sharded: decoding runs off the mesh.
+On a mesh (DTensor activations and parameters) the kernel runs on each
+rank's local shard (``launch.mesh.kernel_call``). Without a cache: its
+batch rows over the data axes and whole heads over the model axis where
+the query and key heads both divide it, else every head on every model
+rank. With a cache (a DTensor placed by ``LM.decode_state_axes()``): the
+cache's rows and kv heads as the cache holds them. The block's keys and
+values are written into each rank's block of the cache in place. Where
+``spec_for`` put the cache's ``head_dim`` over the model axis (the kv
+heads do not divide it), each step gathers the positions the kernel
+reads (up to ``kv_len``) with whole heads, and the stored cache keeps its
+placement.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention_op
-from ..launch.mesh import is_dtensor, kernel_call
+from ..launch.mesh import is_dtensor, kernel_call, write_into
 from .blocks import apply_mrope, apply_rope, truncated_normal
 
 
@@ -151,43 +157,70 @@ def attend(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     where they lie."""
     q, k, v = _project_qkv(p, x, cfg)
     if is_dtensor(q):
-        if cache is not None:
-            raise NotImplementedError("attend: a KV cache on a mesh; decode on one device, "
-                                      "as the reference serves (ROADMAP.md Queue 1 item 6.4)")
         # The kernel needs whole heads: where kv_heads fell back to
         # head_dim (spec_for), or the SP plan put the sequence over the
         # model axis, this redistribution is the gather (or all-to-all)
         # that GSPMD inserts before the reference's attention.
-        heads = head_placements(q, cfg.n_heads, cfg.n_kv_heads)
+        heads = (head_placements(q, cfg.n_heads, cfg.n_kv_heads) if cache is None
+                 else cache_placements(cache))
         q, k, v = (t.redistribute(t.device_mesh, heads) for t in (q, k, v))
     q, k = _rope(q, k, positions, cfg)
-    if is_dtensor(q):
-        out = kernel_call(flash_attention_op, (q, k, v), (heads,) * 3, heads,
-                          causal=cfg.causal, window=cfg.window)
-        new_cache = None
-    elif cache is None:
-        out = flash_attention_op(q, k, v, causal=cfg.causal, window=cfg.window)
-        new_cache = None
+    if cache is None:
+        keys, values, kw = k, v, dict(causal=cfg.causal, window=cfg.window)
     elif cfg.window > 0 and cache.k.shape[1] <= cfg.window:
-        out, new_cache = _ring_attend(q, k, v, cache, cache_pos, cfg)
+        keys, values, kw = _ring_attend(k, v, cache, cache_pos, cfg)
     else:
         end = cache_pos + x.shape[1]
         if end > cache.k.shape[1]:
             raise ValueError(f"{x.shape[1]} tokens at position {cache_pos} overflow a "
                              f"cache of {cache.k.shape[1]}")
-        cache.k[:, cache_pos:end] = k.to(cache.k.dtype)
-        cache.v[:, cache_pos:end] = v.to(cache.v.dtype)
-        out = flash_attention_op(q, cache.k, cache.v, causal=cfg.causal, window=cfg.window,
-                                 q_offset=cache_pos, kv_len=end)
-        new_cache = cache
+        _store(cache, k, v, slice(cache_pos, end))
+        keys, values = cache.k, cache.v
+        kw = dict(causal=cfg.causal, window=cfg.window, q_offset=cache_pos, kv_len=end)
+    if is_dtensor(q):
+        if list(keys.placements) != heads:
+            # head_dim lies over the model axis (the kv heads do not divide
+            # it): the positions the kernel reads are gathered whole for this
+            # step, every head on every model rank; the stored cache keeps
+            # its placement. The reference's einsum over head_dim moves
+            # partial scores instead (ROADMAP Queue 1 item 6.4).
+            keys, values = keys[:, :kw["kv_len"]], values[:, :kw["kv_len"]]
+        out = kernel_call(flash_attention_op, (q, keys, values), (heads,) * 3, heads, **kw)
+    else:
+        out = flash_attention_op(q, keys, values, **kw)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, new_cache
+    return y, cache
 
 
-def _ring_attend(q, k, v, cache: KVCache, cache_pos: int, cfg):
+def cache_placements(cache: KVCache) -> list:
+    """The placements at which the kernel reads a KV cache on a mesh, and
+    takes the block's queries, keys and values: the cache's rows and kv
+    heads as the cache holds them, every other dimension whole (a
+    ``head_dim`` placed over the model axis is gathered)."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(cache.k):
+        raise TypeError("attend: on a mesh the KV cache is a DTensor (LM.init_decode_state)")
+    if any(pl.is_shard(1) for pl in cache.k.placements):
+        raise NotImplementedError("attend: a KV cache sharded over its sequence; the kernel "
+                                  "reads it at runtime positions")
+    return [pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+            for pl in cache.k.placements]
+
+
+def _store(cache: KVCache, k: torch.Tensor, v: torch.Tensor, index) -> None:
+    """``k`` and ``v`` into the cache at ``index`` along its sequence, IN
+    PLACE (on a mesh, each rank's block into its block)."""
+    write_into(cache.k, k, (slice(None), index))
+    write_into(cache.v, v, (slice(None), index))
+
+
+def _ring_attend(k, v, cache: KVCache, cache_pos: int, cfg):
     """The sliding-window ring-buffer cache of
     ``repro/models/attention.py:260 _ring_attend``: the cache holds only
     the last ``w`` keys, position P in slot P % w, written IN PLACE.
+    Returns the keys and values the block attends over and the arguments
+    of ``flash_attention_op``.
 
     A decode step reaches the ring through ``flash_attention_op`` without
     key positions. While ``cache_pos < w`` slot i holds position i, so the
@@ -203,28 +236,25 @@ def _ring_attend(q, k, v, cache: KVCache, cache_pos: int, cfg):
     only and would ignore the ring's earlier keys elsewhere, so the port
     raises on a block at ``cache_pos > 0``."""
     w = cache.k.shape[1]
-    s = q.shape[1]
+    s = k.shape[1]
     if s == 1:
         slot = cache_pos % w
-        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+        _store(cache, k, v, slice(slot, slot + 1))
         if cache_pos < w:
-            out = flash_attention_op(q, cache.k, cache.v, causal=cfg.causal, window=cfg.window,
-                                     q_offset=cache_pos, kv_len=cache_pos + 1)
+            kw = dict(causal=cfg.causal, window=cfg.window, q_offset=cache_pos,
+                      kv_len=cache_pos + 1)
         else:
-            out = flash_attention_op(q, cache.k, cache.v, causal=False, window=0, kv_len=w)
-        return out, cache
+            kw = dict(causal=False, window=0, kv_len=w)
+        return cache.k, cache.v, kw
     if cache_pos != 0:
         raise NotImplementedError(
             f"a block of {s} tokens into the ring KV cache at position {cache_pos}: the "
             "reference attends within the block only, so the port allows a block prefill "
             "at position 0 alone (ROADMAP.md Queue 3)")
-    out = flash_attention_op(q, k, v, causal=cfg.causal, window=cfg.window)
     take = min(w, s)
-    slots = torch.arange(s - take, s, device=k.device) % w
-    cache.k[:, slots] = k[:, s - take:].to(cache.k.dtype)
-    cache.v[:, slots] = v[:, s - take:].to(cache.v.dtype)
-    return out, cache
+    _store(cache, k[:, s - take:], v[:, s - take:],
+           torch.arange(s - take, s, device=k.device) % w)
+    return k, v, dict(causal=cfg.causal, window=cfg.window)
 
 
 def init_kv_cache(batch: int, max_seq: int, cfg, dtype=torch.float32,

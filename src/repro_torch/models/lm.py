@@ -81,18 +81,20 @@ class MeshContext(NamedTuple):
 
     def constrain_batch(self, x):
         """Anchor an activation DTensor: batch over the data axes (and, for
-        the SP plan, the sequence over the model axis), the rest replicated;
-        left as it is where the batch does not divide."""
+        the SP plan, the sequence over the model axis), the rest replicated.
+        Where the batch does not divide the data axes (a decode batch of
+        one) its rows are replicated over them: the reference leaves such a
+        value to GSPMD, and DTensor's propagation left alone may put a
+        partial sum's rows over the data axes by their sequence."""
         if self.mesh is None or not self.data_axes:
             return x
         from torch.distributed.tensor import Replicate, Shard
 
         size = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
-        if x.shape[0] % math.prod(size[a] for a in self.data_axes):
-            return x
+        rows = x.shape[0] % math.prod(size[a] for a in self.data_axes) == 0
         seq = bool(self.seq_axis) and x.ndim >= 2 and x.shape[1] % size[self.seq_axis] == 0
         placements = [Replicate() if size[a] == 1  # one rank holds it all either way
-                      else Shard(0) if a in self.data_axes
+                      else Shard(0) if a in self.data_axes and rows
                       else Shard(1) if seq and a == self.seq_axis else Replicate()
                       for a in self.mesh.mesh_dim_names]
         return x.redistribute(self.mesh, placements)
@@ -415,7 +417,7 @@ class LM(nn.Module):
                 return ce
             return ce + self.cfg.moe.router_aux_weight * aux
 
-    def init_decode_state(self, batch: int, max_seq: int) -> list:
+    def init_decode_state(self, batch: int, max_seq: int, rules=None) -> list:
         """One state per layer, of its kind: a zeroed KV cache (a ring of
         ``min(max_seq, window)`` slots for a windowed configuration), an
         ``RGLRUState``, an ``MLSTMState`` or an ``SLSTMState``. Counterpart
@@ -423,8 +425,14 @@ class LM(nn.Module):
         cache dtype is bf16: here the KV cache and the conv tail take the
         model's dtype (the attention kernel reads the cache in place and
         takes one dtype for q, k and v); the recurrent states are fp32, as
-        in the reference."""
-        cfg, dev = self.cfg, self.device
+        in the reference.
+
+        On a mesh every leaf is a DTensor placed by ``decode_state_axes()``
+        under ``rules`` (``DEFAULT_RULES`` unless given; the reference's dry
+        run passes its plan's, ``repro/launch/dryrun.py:207``, ``:238-243``,
+        ``:270-277``), and each rank allocates only its own block of it."""
+        cfg, mesh = self.cfg, self.mctx.mesh
+        dev = self.device if mesh is None else torch.device("meta")  # on a mesh: shapes
 
         def one(kind):
             if kind == "attn":
@@ -435,7 +443,17 @@ class LM(nn.Module):
                 return XL.init_mlstm_state(batch, cfg, dev)
             return XL.init_slstm_state(batch, cfg, dev)
 
-        return [one(kind) for kind in self.kinds]
+        state = [one(kind) for kind in self.kinds]
+        if mesh is None:
+            return state
+        from ..distributed.sharding import DEFAULT_RULES, tree_shardings
+
+        shardings = tree_shardings(state, self.decode_state_axes(), mesh, rules or DEFAULT_RULES)
+        # every leaf starts constant, as the init_*_state functions fill it:
+        # the stabilisers m at NEG_INF, every other leaf at 0
+        return [type(s)(*(_local_block(t, sh, XL.NEG_INF if f == "m" else 0.0, self.device)
+                          for f, t, sh in zip(s._fields, s, shs)))
+                for s, shs in zip(state, shardings)]
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, state: list, pos: int
@@ -444,14 +462,43 @@ class LM(nn.Module):
         with n > 1. ``pos`` is the number of tokens already seen. Returns
         the logits of the last position ``(b, 1, vocab)`` and the new state;
         the KV caches and the mLSTM memories C were written in place.
-        Counterpart of ``repro/models/lm.py:373 LM.decode_step``."""
-        tokens = tokens.to(self.device)
-        x = embed_tokens(self.embed, tokens, self.cfg)
+        Counterpart of ``repro/models/lm.py:373 LM.decode_step``.
+
+        On a mesh (DTensor parameters, the state of ``init_decode_state``)
+        each layer's state stays where the rules put it, the kernels run on
+        each rank's block, and the logits come out placed by the batch's
+        spec (``batch_spec``), as the reference's dry run places them. The
+        first residual is anchored by ``constrain_batch``, as the reference
+        anchors a block prefill's (``repro/models/lm.py:380-381``); a
+        one-token step's too, as every block's residual is here."""
+        tokens = self._on_mesh(tokens.to(self.device))
         b, s = tokens.shape
         positions = pos + torch.arange(s, device=self.device).expand(b, s)
+        with self.mctx.scope():
+            x = self.mctx.constrain_batch(embed_tokens(self.embed, tokens, self.cfg))
         new_state = []
         for layer, kind, moe, cache in zip(self.layers, self.kinds, self.moe, state):
             x, cache, _ = self._block(layer, kind, moe, x, positions, cache, pos)  # aux unused
             new_state.append(cache)
-        x = apply_norm(self.final_norm, x, self.cfg.norm)
-        return lm_logits(self.embed, x[:, -1:], self.cfg), new_state
+        with self.mctx.scope():
+            x = apply_norm(self.final_norm, x, self.cfg.norm)
+            logits = lm_logits(self.embed, x[:, -1:], self.cfg)
+        if self.mctx.mesh is not None:
+            from ..distributed.sharding import NamedSharding, batch_spec
+
+            logits = logits.redistribute(
+                self.mctx.mesh, NamedSharding(self.mctx.mesh, batch_spec(self.mctx.mesh, b))
+                .placements)
+        return logits, new_state
+
+
+def _local_block(t: torch.Tensor, sharding, fill: float, device):
+    """A DTensor of ``t``'s shape and dtype (``t`` on the meta device),
+    placed by ``sharding`` and filled with ``fill``: each rank allocates
+    only its own block."""
+    from torch.distributed.tensor import DTensor
+
+    shape = [sl.stop - sl.start for sl in sharding.local_slices(t.shape)]
+    local = torch.full(shape, fill, dtype=t.dtype, device=device)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())

@@ -12,6 +12,12 @@ backward kernel (``rg_lru_bwd.cu``), with or without a state.
 On a mesh the channels (``rnn``) lie over the model axis: the causal conv
 and the recurrence run on each rank's own channels
 (``launch.mesh.kernel_call``), the gates' products as DTensor operators.
+A decode state on a mesh (``LM.init_decode_state``) lies where
+``LM.decode_state_axes()`` puts it, ``h`` at ``("batch", "rnn")`` and
+the conv tail at ``("batch", None, "rnn")``: its rows over the data axes
+where they divide them, its channels over the model axis. The conv and
+the recurrence then run at the state's placements, and the new state
+comes out placed as the old one.
 """
 
 from __future__ import annotations
@@ -98,6 +104,14 @@ def channel_placements(x, channels: int, channel_dim: int) -> list:
     return out
 
 
+def _channels_at(pl, dim: int):
+    """A state's placement on one mesh dimension, moved to an activation
+    whose channels are dimension ``dim``: rows stay rows."""
+    from torch.distributed.tensor import Shard
+
+    return Shard(dim) if pl.is_shard() and not pl.is_shard(0) else pl
+
+
 def weight_placements(acts: list, dim: int, grad: bool = False) -> list:
     """A weight's placements beside activations placed ``acts``: its
     dimension ``dim`` over the model axis where the activations' channels
@@ -133,12 +147,13 @@ def rglru_scan(p, u: torch.Tensor, h0: torch.Tensor | None = None
     ``rglru_step`` (:98)."""
     a, b = _gates(p, u)
     if is_dtensor(a):
-        if h0 is not None:
-            raise NotImplementedError("rglru_scan: a recurrent state on a mesh; decode on one "
-                                      "device (ROADMAP.md Queue 1 item 6.4)")
-        pl = channel_placements(a, a.shape[-1], 2)
-        last_pl = channel_placements(a, a.shape[-1], 1)
-        h, last = kernel_call(rg_lru_op, (a, b, None), (pl, pl, None), (pl, last_pl))
+        if is_dtensor(h0):  # a decode state: the kernel at its placements
+            last_pl = list(h0.placements)
+            pl = [_channels_at(x, 2) for x in last_pl]
+        else:
+            pl = channel_placements(a, a.shape[-1], 2)
+            last_pl = channel_placements(a, a.shape[-1], 1)
+        h, last = kernel_call(rg_lru_op, (a, b, h0), (pl, pl, last_pl), (pl, last_pl))
     else:
         h, last = rg_lru_op(a, b, h0)
     return h.to(u.dtype), last
@@ -168,10 +183,16 @@ def apply_rglru_mix(p, x: torch.Tensor, cfg, state: RGLRUState | None = None
     of ``repro/models/rglru.py:119 apply_rglru_mix``."""
     u = x @ p["w_in"]
     g = x @ p["w_gate"]
-    if is_dtensor(u):
-        if state is not None:
-            raise NotImplementedError("apply_rglru_mix: a recurrent state on a mesh; decode "
-                                      "on one device (ROADMAP.md Queue 1 item 6.4)")
+    if is_dtensor(u) and state is not None:
+        # the conv tail (b, 3, dr) has its channels where u's lie
+        pl = list(state.conv.placements) if is_dtensor(state.conv) \
+            else channel_placements(u, u.shape[-1], 2)
+        conv, tail = kernel_call(lambda uu, w, t: _causal_conv({"conv_w": w}, uu, t),
+                                 (u, p["conv_w"], state.conv), (pl, weight_placements(pl, 1), pl),
+                                 (pl, pl))
+        h, h_state = rglru_scan(p, conv, h0=state.h)
+        new_state = RGLRUState(h_state, tail)
+    elif is_dtensor(u):
         pl = channel_placements(u, u.shape[-1], 2)
         w_pl = weight_placements(pl, 1)
         conv = kernel_call(lambda uu, w: _causal_conv({"conv_w": w}, uu)[0],

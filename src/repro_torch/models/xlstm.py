@@ -13,7 +13,14 @@ loop over time.
 
 On a mesh the mLSTM's heads lie over the model axis and its recurrence
 runs on each rank's own heads (``launch.mesh.kernel_call``); the sLSTM's
-gate split and step are DTensor operators.
+gate split and step are DTensor operators. A decode state on a mesh
+(``LM.init_decode_state``) lies where ``LM.decode_state_axes()`` puts it:
+the mLSTM's ``c`` at ``("batch", "heads", None, "rnn")``, ``n`` at
+``("batch", "heads", "rnn")`` and ``m`` at ``("batch", "heads")``, so
+that ``rnn`` takes the model axis only where the heads do not divide it;
+the kernel then gets every head whole (the state gathered for it) and
+the new state is written back into the old one's blocks
+(``launch.mesh.write_into``), as is the sLSTM's.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mlstm_chunk.ops import mlstm_chunk_op
-from ..launch.mesh import is_dtensor, kernel_call
+from ..launch.mesh import is_dtensor, kernel_call, write_into
 from .blocks import truncated_normal
 
 NEG_INF = -1e30
@@ -119,13 +126,22 @@ def mlstm_scan(p, x: torch.Tensor, cfg, state: MLSTMState | None = None
     # (repro/models/xlstm.py:92, :154)
     q, k, v = q.float(), k.float(), v.float()
     if is_dtensor(q):
+        from torch.distributed.tensor import Replicate, Shard
+
         from .attention import head_placements
 
-        qp = head_placements(q, cfg.n_heads, cfg.n_heads)  # (b, s, H, dh): heads dim 2
-        gp = qp  # (b, s, H)
-        sp = head_placements(q, cfg.n_heads, cfg.n_heads, head_dim=1)  # (b, H, ...)
+        if is_dtensor(state.c):  # a decode state: its rows and heads, every head whole
+            sp = [pl if pl.is_shard(0) or pl.is_shard(1) else Replicate()
+                  for pl in state.c.placements]  # (b, H, ...)
+            qp = [Shard(2) if pl.is_shard(1) else pl for pl in sp]  # (b, s, H, dh)
+        else:
+            qp = head_placements(q, cfg.n_heads, cfg.n_heads)  # (b, s, H, dh): heads dim 2
+            sp = head_placements(q, cfg.n_heads, cfg.n_heads, head_dim=1)  # (b, H, ...)
+        # the gates (b, s, H) have their heads where q has them
         hs, c, n, m = kernel_call(mlstm_chunk_op, (q, k, v, i_t, f_t, *state),
-                                  (qp, qp, qp, gp, gp, sp, sp, sp), (qp, sp, sp, sp))
+                                  (qp,) * 5 + (sp,) * 3, (qp, sp, sp, sp))
+        if is_dtensor(state.c):  # back to the state's placements, C in place
+            c, n, m = (write_into(old, new) for old, new in zip(state, (c, n, m)))
     else:
         hs, c, n, m = mlstm_chunk_op(q, k, v, i_t, f_t, state.c, state.n, state.m)
     hs = hs.reshape(b, s, -1).to(x.dtype)
@@ -198,6 +214,7 @@ def slstm_scan(p, x: torch.Tensor, cfg, state: SLSTMState | None = None
     Counterpart of ``repro/models/xlstm.py:254 slstm_scan``."""
     if state is None:
         state = init_slstm_state(x.shape[0], cfg, x.device)
+    given = state
     wx = x @ p["w"] + p["b"]  # (b, s, 4dr)
     r = p["r"].float()
     hs = []
@@ -206,6 +223,8 @@ def slstm_scan(p, x: torch.Tensor, cfg, state: SLSTMState | None = None
     for wx_t in wx.unbind(1):
         state = _slstm_step(r, state, wx_t)
         hs.append(state.h)
+    if is_dtensor(given.c):  # a decode state on a mesh: written back where it lay
+        state = SLSTMState(*map(write_into, given, state))
     return torch.stack(hs, dim=1).to(x.dtype) @ p["w_down"], state
 
 

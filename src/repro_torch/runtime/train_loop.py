@@ -7,7 +7,8 @@ optimizer state (``donate=True``: updated in place).
 ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over a loss that is
 pure in its parameters (``functional_loss``: the model's ``loss`` run
 with the given ``{path: tensor}`` in place of its own parameters, through
-``torch.func.functional_call``), and the microbatch ``lax.scan`` a loop
+``torch.func.functional_call``; ``functional_decode`` runs ``decode_step``
+so), and the microbatch ``lax.scan`` a loop
 that sums fp32 gradients and divides by the count, as the reference's scan
 body does. The config's ``loss_scale``, which the reference declares and
 never reads, is left out.
@@ -116,16 +117,17 @@ def make_input_pipeline(
     return AsyncLoader(batches, prefetch=prefetch, sharding=sharding, device=target)
 
 
-class _Loss(nn.Module):
-    """Calls ``model.loss`` as its forward, so that ``functional_call`` can
-    swap the model's parameters for that call."""
+class _Method(nn.Module):
+    """Calls one method of ``model`` as its forward, so that
+    ``functional_call`` can swap the model's parameters for that call."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, method: str):
         super().__init__()
         self.model = model
+        self.method = method
 
-    def forward(self, batch):
-        return self.model.loss(batch)
+    def forward(self, *args):
+        return getattr(self.model, self.method)(*args)
 
 
 def params_of(model: nn.Module) -> Params:
@@ -134,17 +136,30 @@ def params_of(model: nn.Module) -> Params:
     return {name.replace(".", "/"): p.detach() for name, p in model.named_parameters()}
 
 
+def _functional(model: nn.Module, method: str) -> Callable:
+    wrapper = _Method(model, method)
+
+    def call(params: Params, *args):
+        named = {f"model.{path.replace('/', '.')}": t for path, t in params.items()}
+        return functional_call(wrapper, named, args, strict=True)
+
+    return call
+
+
 def functional_loss(model: nn.Module) -> Callable[[Params, dict], torch.Tensor]:
     """``loss_fn(params, batch)``: ``model.loss(batch)`` computed with
     ``params`` (``{path: tensor}``) in place of the model's parameters; the
     model itself is left as it was."""
-    wrapper = _Loss(model)
+    return _functional(model, "loss")
 
-    def loss_fn(params: Params, batch) -> torch.Tensor:
-        named = {f"model.{path.replace('/', '.')}": t for path, t in params.items()}
-        return functional_call(wrapper, named, (batch,), strict=True)
 
-    return loss_fn
+def functional_decode(model: nn.Module) -> Callable:
+    """``decode(params, tokens, state, pos) -> (logits, state)``:
+    ``model.decode_step`` with ``params`` (on a mesh the DTensors of
+    ``LM.distribute_params``) in place of the model's parameters, as the
+    reference's jitted decode step takes them
+    (``repro/launch/dryrun.py:270-290``); the model is left as it was."""
+    return _functional(model, "decode_step")
 
 
 def value_and_grad(loss_fn: Callable[[Params, dict], torch.Tensor]):

@@ -23,76 +23,12 @@ run at once for the file:
 Tolerance 2e-4, the reference's own for ``pjit`` against one device
 (``tests/test_distributed.py:91``)."""
 
-import os
-import signal
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
+from torch_mesh_worlds import close, run_both
 
-ROOT = Path(__file__).resolve().parents[1]
-WORLD = 4
-TOL = 2e-4
-
-
-def close(got, want, err_msg=""):
-    """Within 2e-4 of ``want``, relative to its largest element."""
-    want = np.asarray(want)
-    scale = max(float(np.abs(want).max()), 1e-30)
-    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL * scale, err_msg=err_msg)
 FORWARDS = ("stablelm_3b", "recurrentgemma_9b", "xlstm_1_3b")
 STEPPED = (("qwen", "qwen2_5_32b"), ("deepseek", "deepseek_moe_16b"))
-
-
-def _start(cmd: list[str], env: dict) -> subprocess.Popen:
-    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
-
-
-def _finish(proc: subprocess.Popen, timeout: float) -> str:
-    """Wait for ``proc``; kill its whole session on a timeout, so a hung
-    collective fails the test and leaves nothing."""
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise AssertionError(f"timed out after {timeout} s:\n{out[-6000:]}")
-    assert proc.returncode == 0, out[-6000:]
-    return out
-
-
-def run_both(jax_script: str, rank_script: str, out: Path, parts: tuple[str, ...],
-             timeout: float = 180):
-    """The JAX side, one process over ``WORLD`` host devices for each of
-    ``parts`` (its ``PART``), each of which writes ``OUT/jax_<part>.npz``,
-    and the port's side, a world of ``WORLD`` local ranks
-    (``torch.distributed.run`` on a free port, one thread each) each of
-    which writes ``OUT/rank<r>.npz``, all run at the same time; each reads
-    only what the test wrote into ``OUT`` first."""
-    src = str(ROOT / "src")
-    jax_env = dict(os.environ, PYTHONPATH=src, OUT=str(out), JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
-    rank_env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1", OUT=str(out))
-    procs = [_start([sys.executable, "-c", jax_script], dict(jax_env, PART=part))
-             for part in parts]
-    procs.append(_start([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                         f"--nproc-per-node={WORLD}", "--no-python", sys.executable, "-c",
-                         rank_script], rank_env))
-    try:
-        for proc in procs:
-            _finish(proc, timeout)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.communicate()
-    ref = {}
-    for part in parts:
-        ref.update(np.load(out / f"jax_{part}.npz"))
-    return ref, [dict(np.load(out / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 JAX_SCRIPT = r"""
